@@ -16,25 +16,45 @@ non-zero exit (nothing is caught and passed over):
 3. kernels  each kernel against its plain PyTorch version on the card:
             fused_knn over six metrics, k in {1, 10, 64}, q in {1, 10,
             500}, a ragged n, float32 and bfloat16; the IVF scan with
-            sentinel probe slots, -1 padding, a 1-D filter and IP. Ids
-            must be equal on integer-valued data (every product exact);
-            on Gaussian data distances agree to |dd| <= 1e-4 (1 + |d|)
-            and ids may differ only where the distances tie within it.
+            sentinel probe slots, -1 padding, a 1-D filter and IP; the
+            IVF-BQ scan over bits 1, 2, 3 (query bits 4, 4, 8), L2 and
+            IP, d = 100 (padded lanes), k in {1, 10, 128}, a 1-D filter,
+            sentinel and repeated probes and a query that probes
+            nothing; select_k over min and max, k in {1, 10, 64}, n in
+            {16384, 100003}, ties, +-inf and NaN rows, float32 and
+            bfloat16. Ids must be equal on integer-valued data (every
+            product exact); on Gaussian data distances agree to
+            |dd| <= 1e-4 (1 + |d|) and 99% of ids agree. The IVF-BQ
+            scan takes every sum in
+            its plain version's order (ops/bq_scan.tree_sum): its
+            distances, ids and rows reranked per query must equal the
+            plain version's bit for bit.
 4. main     SIFT-1M's shape (1,000,000 x 128 float32, 10,000 queries,
-            k=10) on clustered data made from --seed: brute-force ground
-            truth through the fused kernel in 500-query requests;
-            IVF-Flat build (n_lists=1024, the sift-128-euclidean config);
-            search at n_probes 32 and 128, batch 10 and 500 (recall@10,
-            median ms per batch); n_probes=1024 equals brute force ties
-            aside; save -> load -> search is bit-identical; both kernels'
-            launch counters moved.
+            k=10) on clustered data made from --seed. The IVF-Flat path:
+            brute-force ground truth through the fused kernel in
+            500-query requests; IVF-Flat build (n_lists=1024, the
+            sift-128-euclidean config); search at n_probes 32 and 128,
+            batch 10 and 500 (recall@10, median ms per batch);
+            n_probes=1024 equals brute force ties aside; save -> load ->
+            search is bit-identical. The IVF-BQ path on the same data:
+            ivf_bq.build (n_lists=1024, bits 1, the vector plane kept);
+            the same four searches (recall@10, median ms, rows
+            reranked as a share of rows probed); n_probes=1024 recall
+            on 1,000 queries; save -> load -> search bit-identical; and
+            matrix.select_k(k=10) over a (64, 1,000,000) slab of squared
+            distances equals brute force's ids, ties aside. Each path
+            runs with every launch counter set to 0 just before it, and
+            each of its kernels must have launched.
 5. times    per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
-            bound (bytes over 3.35 TB/s or float32 operations over
-            67 TFLOP/s, the H100 SXM's published peaks, whichever is
-            larger) and one PyTorch yardstick call's ms.
+            bound (the larger of bytes over 3.35 TB/s and operations
+            over their type's peak: float32 at 67 TFLOP/s, popcount and
+            other int32 at 16 and 64 per clock per SM over 132 SMs at
+            1.98 GHz; the H100 SXM's published figures) and one PyTorch
+            yardstick call's ms.
 
-The line before the last is a JSON object with one record per kernel;
+The line before the last is a JSON object with one record per kernel
+(fused_knn, list_major_scan, bq_scan, select_k);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the raft_tpu_torch package beside it, the script exits
 non-zero and prints no result.
@@ -53,7 +73,14 @@ import time
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+# operations per second by type: float32 outside the tensor cores (data
+# sheet); __popc and other 32-bit integer ops at 16 and 64 per clock per
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0) over the SXM part's 132 SMs at its 1.98 GHz
+# boost clock
+_SM_CLOCKS_PER_S = 132 * 1.98e9
+PEAK_OPS_PER_S = {"f32": 67e12, "popc": 16 * _SM_CLOCKS_PER_S,
+                  "int32": 64 * _SM_CLOCKS_PER_S}
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS = 1024
 
@@ -241,6 +268,112 @@ def phase_kernels(torch, seed: int) -> None:
                         cases += 1
     log(f"[kernels] list_major_scan: {cases} cases agree with the plain "
         "version")
+    kernels_bq(torch, seed)
+    kernels_select(torch, seed)
+
+
+def kernels_bq(torch, seed: int) -> None:
+    """The IVF-BQ scan kernel against its plain version on a small index
+    built on the card: d = 100, so dim_ext = 128 has padded lanes."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import ivf_bq
+    from raft_tpu_torch.ops.bq_scan import auto_query_bits, bq_list_major_scan
+
+    dev = torch.device("cuda")
+    res = Resources(device="cuda", seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    n, d, n_lists, nq = 20_000, 100, 64, 300
+    centers = rng.standard_normal((40, d)) * 3
+    x = (centers[rng.integers(0, 40, n)]
+         + rng.standard_normal((n, d))).astype(np.float32)
+    qf = torch.from_numpy((centers[rng.integers(0, 40, nq)]
+                           + rng.standard_normal((nq, d))).astype(
+                               np.float32)).to(dev)
+    probes = torch.from_numpy(rng.integers(0, n_lists, (nq, 12))).to(
+        dev, torch.int32)
+    probes[::3, 6:] = n_lists                     # sentinel slots
+    probes[1, 1] = probes[1, 0]                   # repeated probe
+    probes[4, :] = n_lists                        # a query probing nothing
+    filt = torch.from_numpy(rng.integers(0, 2**31, -(-n // 32))).to(
+        dev, torch.int32)
+    cases = rows = 0
+    for bits in (1, 2, 3):
+        for metric in (DistanceType.L2Expanded, DistanceType.InnerProduct):
+            idx = ivf_bq.build(res, ivf_bq.IvfBqIndexParams(
+                n_lists=n_lists, bits=bits, metric=metric), x)
+            if idx.dim_ext != 128 or idx.size != n:
+                fail(f"ivf_bq.build: dim_ext {idx.dim_ext}, size {idx.size}")
+            qrot = qf @ idx.rotation.T
+            crot = idx.centers @ idx.rotation.T
+            for fw in (None, filt):
+                for k in (1, 10, 128):
+                    args = (qf, qrot, crot, idx.codes, idx.rnorm, idx.cfac,
+                            idx.errw, idx.indices, idx.data, idx.data_norms,
+                            probes, fw)
+                    kw = dict(k=k, metric=metric, epsilon=3.0,
+                              query_bits=auto_query_bits(bits))
+                    got = bq_list_major_scan(*args, engine="cuda", **kw)
+                    torch.cuda.synchronize()
+                    want = bq_list_major_scan(*args, engine="torch", **kw)
+                    name = (f"bq_scan bits={bits} {metric.name} k={k} "
+                            f"filter={fw is not None}")
+                    bq_equal(name, got, want)
+                    if int(got[2][4]) != 0:
+                        fail(f"{name}: a query that probes nothing "
+                             "reranked rows")
+                    cases += 1
+                    rows += int(got[2].sum())
+    log(f"[kernels] bq_scan: {cases} cases equal the plain version bit for "
+        f"bit ({rows} rows reranked in all, the same count per query)")
+
+
+def bq_equal(name, got, want) -> float:
+    """The IVF-BQ kernel's (distances, ids, rows reranked per query)
+    against its plain version's: all three must be equal. Returns the
+    measured max |dd| over the filled slots."""
+    import torch
+
+    torch.cuda.synchronize()
+    for what, g, w in zip(("distances", "ids", "rows reranked"), got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            fail(f"{name}: {bad} {what} differ from the plain version")
+    fin = torch.isfinite(want[0])
+    err = (got[0][fin] - want[0][fin]).abs()
+    return float(err.max()) if err.numel() else 0.0
+
+
+def kernels_select(torch, seed: int) -> None:
+    """The select_k kernel against its plain version: integer values (many
+    exact ties), rows short of finite values, NaN, bfloat16."""
+    from raft_tpu_torch.ops.fused_topk import (
+        select_k_tiles,
+        select_k_tiles_plain,
+    )
+
+    rng = np.random.default_rng(seed + 2)
+    cases = 0
+    for n in (16_384, 100_003):
+        base = rng.integers(-1000, 1000, (40, n)).astype(np.float32)
+        for select_min in (True, False):
+            v = base.copy()
+            far = np.inf if select_min else -np.inf
+            v[3, 7:] = far                        # 7 finite values only
+            v[4, ::5] = np.nan
+            v[5, :] = -far                        # never enters
+            for dtype in (torch.float32, torch.bfloat16):
+                vt = torch.from_numpy(v).to("cuda", dtype)
+                for k in (1, 10, 64):
+                    got = select_k_tiles(vt, k, select_min)
+                    torch.cuda.synchronize()
+                    want = select_k_tiles_plain(vt, k, select_min)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        fail(f"select_k n={n} k={k} min={select_min} "
+                             f"{dtype}: differs from the plain version")
+                    cases += 1
+    log(f"[kernels] select_k: {cases} cases equal the plain version")
 
 
 def make_data(torch, seed: int):
@@ -260,11 +393,35 @@ def recall(ids, truth) -> float:
     return float(hit.float().mean())
 
 
+def _counted():
+    """Every kernel wrapper's launch counter: name -> wrapper."""
+    from raft_tpu_torch.ops.bq_scan import bq_list_major_scan
+    from raft_tpu_torch.ops.fused_topk import fused_knn, select_k_tiles
+    from raft_tpu_torch.ops.ivf_scan import list_major_scan
+
+    return {"fused_knn": fused_knn, "list_major_scan": list_major_scan,
+            "bq_scan": bq_list_major_scan, "select_k": select_k_tiles}
+
+
+def reset_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_launches(names, path: str) -> dict:
+    """The counts of a path's kernels just after it ran; fails if one of
+    them never launched."""
+    counts = {name: fn.launches for name, fn in _counted().items()}
+    log(f"[main] launches on the {path} path: {counts}")
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"{name} was never launched on the {path} path")
+    return {name: counts[name] for name in names}
+
+
 def phase_main(torch, seed: int, state: dict) -> None:
     from raft_tpu_torch import Resources
     from raft_tpu_torch.neighbors import brute_force, ivf_flat
-    from raft_tpu_torch.ops.fused_topk import fused_knn
-    from raft_tpu_torch.ops.ivf_scan import list_major_scan
 
     res = Resources(device="cuda", seed=seed)
     t0 = time.perf_counter()
@@ -273,9 +430,7 @@ def phase_main(torch, seed: int, state: dict) -> None:
     log(f"[main] data {tuple(x.shape)} queries {tuple(queries.shape)} made "
         f"in {time.perf_counter() - t0:.2f} s (seed {seed})")
 
-    fused_knn.launches = 0
-    list_major_scan.launches = 0
-
+    reset_launches()
     bf = brute_force.build(res, x)
     t0 = time.perf_counter()
     parts = [brute_force.search(res, bf, queries[s:s + 500], K)
@@ -348,13 +503,128 @@ def phase_main(torch, seed: int, state: dict) -> None:
     log(f"[main] save -> load ({buf.getbuffer().nbytes} bytes) -> search: "
         "bit-identical")
 
-    state["launches"] = {"fused_knn": fused_knn.launches,
-                         "list_major_scan": list_major_scan.launches}
-    log(f"[main] launches on the main path: {state['launches']}")
-    for name, count in state["launches"].items():
-        if count <= 0:
-            fail(f"{name} was never launched on the main path")
-    state.update(res=res, x=x, queries=queries, index=index, bf=bf)
+    state["launches"] = read_launches(("fused_knn", "list_major_scan"),
+                                      "IVF-Flat")
+    state.update(res=res, x=x, queries=queries, index=index, bf=bf,
+                 gt_d=gt_d, gt_i=gt_i)
+    main_bq(torch, state)
+
+
+def main_bq(torch, state: dict) -> None:
+    """The IVF-BQ path at SIFT-1M's shape, on the IVF-Flat path's data and
+    ground truth, then matrix.select_k over a (64, n) distance slab."""
+    from raft_tpu_torch.matrix.select_k import select_k
+    from raft_tpu_torch.neighbors import ivf_bq
+
+    res, x, queries = state["res"], state["x"], state["queries"]
+    gt_d, gt_i, bf = state["gt_d"], state["gt_i"], state["bf"]
+    reset_launches()
+    t0 = time.perf_counter()
+    index = ivf_bq.build(res, ivf_bq.IvfBqIndexParams(n_lists=N_LISTS), x)
+    torch.cuda.synchronize()
+    sizes = index.list_sizes.to(torch.float32)
+    log(f"[main] ivf_bq.build n_lists={N_LISTS} bits={index.bits}: "
+        f"{time.perf_counter() - t0:.2f} s, max_list_size "
+        f"{index.max_list_size}, size {index.size}, list sizes min "
+        f"{int(sizes.min())} median {int(sizes.median())} max "
+        f"{int(sizes.max())}")
+    if index.size != N_ROWS or index.data is None:
+        fail(f"ivf_bq.build indexed {index.size} rows")
+
+    list_sizes = index.list_sizes.to(torch.int64)
+    for n_probes in (32, 128):
+        sp = ivf_bq.IvfBqSearchParams(n_probes=n_probes)
+        # rows reranked against rows probed, over 1,000 queries
+        surv = probed = 0
+        for s0 in range(0, 1000, 500):
+            qb = queries[s0:s0 + 500]
+            _, _, sv = ivf_bq._search_impl(
+                qb, index, None, n_probes=n_probes, k=K,
+                scan_engine="cuda")
+            surv += int(sv.sum())
+            probes = ivf_bq.coarse_probes(index, qb, n_probes)[0]
+            probed += int(list_sizes[probes.to(torch.int64)].sum())
+        share = surv / probed
+        state[f"bq_survivors_p{n_probes}"] = share
+        for batch, n_q in ((10, 1000), (500, N_QUERIES)):
+            outs, times = [], []
+            for s0 in range(0, n_q, batch):
+                t1 = time.perf_counter()
+                outs.append(ivf_bq.search(res, sp, index,
+                                          queries[s0:s0 + batch], K))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            ids = torch.cat([o[1] for o in outs])
+            r = recall(ids, gt_i[:n_q])
+            ms = float(np.median(times[1:]))
+            log(f"[main] ivf_bq.search n_probes={n_probes} batch={batch}: "
+                f"recall@10 {r:.4f} over {n_q} queries, median {ms:.3f} ms "
+                f"per batch, rows reranked {surv} of {probed} probed "
+                f"({100 * share:.3f}%)")
+            state[f"bq_recall_p{n_probes}_b{batch}"] = r
+            state[f"bq_ms_p{n_probes}_b{batch}"] = ms
+    if state["bq_recall_p128_b500"] < 0.95:
+        fail("ivf_bq recall@10 at n_probes=128, batch 500 is below 0.95")
+
+    # every list probed: the prune is probabilistic, so not exact search
+    sp_all = ivf_bq.IvfBqSearchParams(n_probes=N_LISTS)
+    ids = torch.cat([ivf_bq.search(res, sp_all, index, queries[s0:s0 + 500],
+                                   K)[1] for s0 in range(0, 1000, 500)])
+    log(f"[main] ivf_bq n_probes={N_LISTS}: recall@10 "
+        f"{recall(ids, gt_i[:1000]):.4f} over 1000 queries")
+
+    sp = ivf_bq.IvfBqSearchParams(n_probes=128)
+    before = ivf_bq.search(res, sp, index, queries[:500], K)
+    buf = io.BytesIO()
+    ivf_bq.save(index, buf)
+    buf.seek(0)
+    after = ivf_bq.search(res, sp, ivf_bq.load(res, buf), queries[:500], K)
+    if not (torch.equal(before[0], after[0])
+            and torch.equal(before[1], after[1])):
+        fail("ivf_bq save -> load -> search is not bit-identical")
+    log(f"[main] ivf_bq save -> load ({buf.getbuffer().nbytes} bytes) -> "
+        "search: bit-identical")
+
+    # select_k over squared distances from a plain matmul
+    q64 = queries[:64]
+    slab = ((q64 * q64).sum(dim=1, keepdim=True) + bf.norms[None, :]
+            - 2.0 * (q64 @ x.T))
+    vals, ids = select_k(res, slab, K)
+    tol = 1e-5 * ((q64 * q64).sum(dim=1, keepdim=True)
+                  + float(bf.norms.max()))
+    if bool(((vals - gt_d[:64]).abs() > tol).any()):
+        fail("select_k values differ from brute force's distances")
+    diff = ids != gt_i[:64]
+    log(f"[main] select_k (64, {N_ROWS}) k={K}: {int(diff.sum())} of "
+        f"{diff.numel()} ids differ from brute force, all at distances "
+        "tied within 1e-5 (|q|^2 + max |x|^2)")
+    if float(diff.float().mean()) > 1e-3:
+        fail("select_k ids differ from brute force beyond ties")
+    state["launches"].update(read_launches(("bq_scan", "select_k"),
+                                           "IVF-BQ"))
+    # the kernel against its plain version at the path's shape, after the
+    # path's counts were read
+    state["select_k_err"] = select_equal(torch, f"select_k (64, {N_ROWS}) "
+                                         f"k={K}", slab, K)
+    state["bq_index"] = index
+
+
+def select_equal(torch, name: str, v, k: int) -> float:
+    """select_k_tiles against select_k_tiles_plain on ``v``: values and
+    ids must be equal; returns the measured max |dv| over the values."""
+    from raft_tpu_torch.ops.fused_topk import (
+        select_k_tiles,
+        select_k_tiles_plain,
+    )
+
+    got = select_k_tiles(v, k)
+    want = select_k_tiles_plain(v, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"{name}: select_k differs from the plain version")
+    err = float((got[0] - want[0]).abs().max())
+    log(f"[kernels] {name}: select_k equals the plain version")
+    return err
 
 
 def phase_profile(torch, state: dict) -> None:
@@ -363,11 +633,17 @@ def phase_profile(torch, state: dict) -> None:
     and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from raft_tpu_torch.neighbors import brute_force, ivf_flat
+    from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_flat
 
     res, index, queries, bf = (state["res"], state["index"],
                                state["queries"], state["bf"])
+    bq_index = state["bq_index"]
+    bq_sp = ivf_bq.IvfBqSearchParams(n_probes=128)
     requests = {
+        "ivf_bq n_probes=128 batch=10": lambda: ivf_bq.search(
+            res, bq_sp, bq_index, queries[:10], K),
+        "ivf_bq n_probes=128 batch=500": lambda: ivf_bq.search(
+            res, bq_sp, bq_index, queries[:500], K),
         "ivf_flat n_probes=32 batch=10": lambda: ivf_flat.search(
             res, ivf_flat.IvfFlatSearchParams(n_probes=32), index,
             queries[:10], K),
@@ -412,7 +688,7 @@ def phase_times(torch, state: dict) -> list:
     x, queries, index, bf = (state["x"], state["queries"], state["index"],
                              state["bf"])
     records = []
-    saved = (fused_knn.launches, list_major_scan.launches)
+    saved = {name: fn.launches for name, fn in _counted().items()}
 
     # fused_knn at the brute-force request shape: q=500, n=1M, d=128, k=10
     q = queries[:500]
@@ -432,7 +708,7 @@ def phase_times(torch, state: dict) -> list:
     records.append(_record(
         "fused_knn", "raft_tpu_torch/csrc/fused_knn.cu",
         "raft_tpu/ops/fused_topk.py:66", state["launches"]["fused_knn"],
-        err, ms, plain_ms, nbytes, flops, lib_ms))
+        err, ms, plain_ms, nbytes, {"f32": flops}, lib_ms))
 
     # the IVF scan at the main path's batch-500, n_probes=128 request
     qf = queries[:500]
@@ -458,17 +734,103 @@ def phase_times(torch, state: dict) -> list:
     records.append(_record(
         "list_major_scan", "raft_tpu_torch/csrc/ivf_scan.cu",
         "raft_tpu/ops/ivf_scan.py:367", state["launches"]["list_major_scan"],
-        err, ms, plain_ms, nbytes, flops, None))
+        err, ms, plain_ms, nbytes, {"f32": flops}, None))
     log(f"[times] scan work at q=500 n_probes=128: {probed_rows} probed "
         f"rows, {union_rows} rows in the union of {uniq.numel()} lists")
-    fused_knn.launches, list_major_scan.launches = saved
+    records.append(times_bq(torch, state))
+    records.append(times_select(torch, state))
+    for name, fn in _counted().items():
+        fn.launches = saved[name]
     return records
 
 
+def times_bq(torch, state: dict) -> dict:
+    """The IVF-BQ scan at the main path's batch-500, n_probes=128 request."""
+    from raft_tpu_torch.neighbors import ivf_bq
+    from raft_tpu_torch.ops.bq_scan import _bq_scan_torch, bq_list_major_scan
+    from raft_tpu_torch.ops.ivf_scan import unique_lists
+
+    index, queries = state["bq_index"], state["queries"]
+    qf = queries[:500]
+    probes = ivf_bq.coarse_probes(index, qf, 128)[0]
+    args = (qf, qf @ index.rotation.T, index.centers @ index.rotation.T,
+            index.codes, index.rnorm, index.cfac, index.errw, index.indices,
+            index.data, index.data_norms, probes, None)
+    qbits = 4
+    kw = dict(k=K, metric=index.metric, epsilon=3.0, query_bits=qbits)
+    got = bq_list_major_scan(*args, engine="cuda", **kw)
+    rows_read = torch.zeros(index.indices.shape, dtype=torch.bool,
+                            device="cuda")
+    want = _bq_scan_torch(*args, rows_read=rows_read, **kw)
+    err = bq_equal("bq_scan main shape", got, want)
+    ms = median_ms(lambda: bq_list_major_scan(*args, engine="cuda", **kw),
+                   20)
+    plain_ms = median_ms(
+        lambda: bq_list_major_scan(*args, engine="torch", **kw), 3, 1)
+    # data-dependent work. Bytes: the union's code and correction rows
+    # once, the raw row (and norm) of every row some query reranked once,
+    # the queries, the union's rotated centers, the probes and the output.
+    # Operations: per (query, probed row) pair, a XOR and a popcount per
+    # code word and query bit-plane (plus the adds that sum them), and the
+    # estimate's float assembly (6 per level, 16 for est, margin and
+    # prune); 2d float32 per reranked pair; a popcount per union code word
+    sizes = index.list_sizes.to(torch.int64)
+    union = unique_lists(probes, index.n_lists).to(torch.int64)
+    union = union[union < index.n_lists]
+    union_rows = int(sizes[union].sum())
+    probed_rows = int(sizes[probes.to(torch.int64)].sum())
+    survivors = int(want[2].sum())
+    read_rows = int(rows_read.sum())
+    d, de, bits = index.dim, index.dim_ext, index.bits
+    words = bits * de // 32
+    nbytes = (union_rows * (4 * words + 4 * (bits + 2) + 4)
+              + read_rows * (4 * d + 4)
+              + 4 * 500 * (d + de) + 4 * de * union.numel()
+              + 4 * probes.numel() + 8 * 500 * K)
+    ops = {"f32": 2.0 * survivors * d + (6 * bits + 16) * probed_rows,
+           "popc": float(probed_rows * words * qbits + union_rows * words),
+           "int32": (2.0 * probed_rows * words * qbits
+                     + 3.0 * probed_rows * bits * qbits)}
+    log(f"[times] bq_scan work at q=500 n_probes=128: {probed_rows} probed "
+        f"rows, {union_rows} rows in the union of {union.numel()} lists, "
+        f"{survivors} (query, row) pairs reranked "
+        f"({100 * survivors / probed_rows:.3f}%) over {read_rows} distinct "
+        f"rows; distances, ids and rows reranked per query equal the plain "
+        f"version's")
+    return _record("bq_scan", "raft_tpu_torch/csrc/bq_scan.cu",
+                   "raft_tpu/ops/bq_scan.py:506", state["launches"]["bq_scan"],
+                   err, ms, plain_ms, nbytes, ops, None)
+
+
+def times_select(torch, state: dict) -> dict:
+    """select_k at the JAX package's full bench size: 64 x 2^20, k = 64;
+    its error is the larger of this comparison's and the main path's."""
+    from raft_tpu_torch.ops.fused_topk import (
+        select_k_tiles,
+        select_k_tiles_plain,
+    )
+
+    b, n, k = 64, 1 << 20, 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    v = torch.randn(b, n, generator=g, device="cuda")
+    err = max(select_equal(torch, "select_k 64 x 2^20 k=64", v, k),
+              state["select_k_err"])
+    ms = median_ms(lambda: select_k_tiles(v, k), 20)
+    plain_ms = median_ms(lambda: select_k_tiles_plain(v, k), 5)
+    lib_ms = median_ms(lambda: torch.topk(v, k, dim=1, largest=False), 20)
+    return _record("select_k", "raft_tpu_torch/csrc/select_k.cu",
+                   "raft_tpu/ops/fused_topk.py:290",
+                   state["launches"]["select_k"], err, ms, plain_ms,
+                   4 * b * n + 8 * b * k, {"f32": float(b * n)}, lib_ms)
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-            flops, lib_ms):
+            ops: dict, lib_ms):
+    """One kernel's record; ``ops`` counts operations by type (keys of
+    PEAK_OPS_PER_S), each type's time over its peak bounds the call."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(n / PEAK_OPS_PER_S[kind] * 1e3 for kind, n in ops.items())
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -477,7 +839,7 @@ def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
     log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}), bound "
         f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes} bytes, "
-        f"{flops:.4g} float32 ops)")
+        + ", ".join(f"{n:.4g} {kind}" for kind, n in ops.items()) + " ops)")
     return rec
 
 

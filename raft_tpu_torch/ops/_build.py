@@ -27,6 +27,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signature of each library's entry: name -> (symbol, argtypes)
 SIGNATURES = {
     "fused_knn": ("raft_fused_knn",
@@ -35,6 +36,10 @@ SIGNATURES = {
     "ivf_scan": ("raft_ivf_scan",
                  [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   _I, _I, _I, _P, _P, _P, _P, _P]),
+    "bq_scan": ("raft_bq_scan",
+                [_P] * 12 + [_I] * 9 + [_F] + [_P] * 4),
+    "select_k": ("raft_select_k",
+                 [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

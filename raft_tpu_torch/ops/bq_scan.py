@@ -1,0 +1,401 @@
+"""Fused estimate-then-rerank IVF-BQ probe scan — the port of
+``raft_tpu/ops/bq_scan.py`` (the list-major engine family of
+:mod:`raft_tpu_torch.neighbors.ivf_bq`, IVF-RaBitQ).
+
+For each query, in ascending list id over the lists it probed:
+
+1. **estimate** every row of the list from its packed sign words: the
+   rotated query side ``q~ = Rq - Rc`` (L2) or ``Rq`` (IP) quantizes to
+   ``2^query_bits - 1`` uniform levels per (query, list), its bit-planes
+   pack into int32 words, and each plane scores against the code words
+   as ``<u_j, s> = popcount(c) - popcount(u_j XOR c)``: exact integers;
+2. **prune** with the RaBitQ margin (:func:`estimator_margin`): a row
+   survives when ``est - margin`` beats the query's k-th *exact*
+   distance, read once at the start of the list;
+3. **rerank** the survivors exactly against the raw-vector plane and
+   merge them in (distance, smallest id) order.
+
+Engines (``bq_list_major_scan``):
+
+- ``cuda``: the hand-written kernel ``csrc/bq_scan.cu``, which replaces
+  the JAX package's Pallas kernel ``_bq_scan_kernel`` (reached through
+  ``_bq_scan_pallas``). One block walks one query's sorted probes; its
+  threads estimate a list's rows in parallel, its warps rerank the
+  survivors, and a shared-memory top-k per query takes them in. A raw
+  vector is read only for a survivor.
+- ``torch``: the plain version ``_bq_scan_torch``, the twin of
+  ``_bq_scan_xla``: one step per list of the sorted probed-list union,
+  the same estimate, margin, prune and exact rerank, and
+  ``_merge_smallest_id``. CPU tensors always run it.
+
+Both return the number of rows each query reranked (its survivors), the
+number that says what the scan read. Every sum the prune reads (``‖q‖²``,
+``Σ q~²``, ``<Rq, Rc>`` and the exact dot products) is taken by
+:func:`tree_sum`'s fixed order over rounded products in both engines,
+and the rest of the float work is op for op the same: the two engines'
+prune decisions, survivor counts, distances and ids are bit-identical.
+
+``bq_list_major_scan.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raft_tpu_torch.core.validation import expect
+from raft_tpu_torch.distance.types import DistanceType
+from raft_tpu_torch.neighbors.filters import test_filter
+from raft_tpu_torch.ops.ivf_scan import (
+    _merge_smallest_id,
+    sorted_probes,
+    union_id_planes,
+    unique_lists,
+)
+
+#: ivf_bq ``scan_engine`` values: ``rank`` is the estimate-only engine
+BQ_ENGINES = ("auto", "cuda", "torch", "rank")
+
+#: default query quantization width (RaBitQ's asymmetric query grid)
+_QUERY_BITS = 4
+
+#: largest k the kernel takes (its per-query list lives in shared memory)
+CUDA_MAX_K = 128
+
+#: largest dimension the kernel takes (its tree sums hold dim_ext / 32
+#: lanes per thread, at most 32)
+CUDA_MAX_DIM = 1024
+
+
+def auto_query_bits(bits: int) -> int:
+    """Query quantization width matched to the code ladder: 4 bits below
+    3 code bits, 8 from 3 on, where the code estimate is sharp enough
+    that the 4-bit query grid would dominate the noise."""
+    return 4 if bits < 3 else 8
+
+
+def resolve_bq_engine(engine: str, *, data=None, filter_words=None,
+                      k=None) -> str:
+    """Resolve an ivf_bq ``scan_engine`` to ``cuda``, ``torch`` or
+    ``rank``, before any launch.
+
+    ``auto`` is the CUDA kernel for an index on a CUDA device and the
+    plain engine otherwise. An index without the raw-vector plane
+    (``data is None``) always takes ``rank``: the fused engines have
+    nothing to rerank. ``cuda`` goes to ``torch`` where the kernel does
+    not apply: a per-query (2-D) filter (the id fold needs one shared id
+    plane), ``k`` past :data:`CUDA_MAX_K`, a dimension past
+    :data:`CUDA_MAX_DIM`, or a vector plane that is not float32 (the
+    exact-rerank contract)."""
+    expect(engine in BQ_ENGINES,
+           f"scan_engine must be one of {BQ_ENGINES}, got {engine!r}")
+    if engine == "rank" or data is None:
+        return "rank"
+    if engine == "auto":
+        engine = "cuda" if data.device.type == "cuda" else "torch"
+    if engine != "cuda":
+        return engine
+    if filter_words is not None and filter_words.ndim == 2:
+        return "torch"
+    if k is not None and k > CUDA_MAX_K:
+        return "torch"
+    if data.shape[-1] > CUDA_MAX_DIM:
+        return "torch"
+    if data.dtype != torch.float32:
+        return "torch"
+    return engine
+
+
+def _div(x: torch.Tensor, c) -> torch.Tensor:
+    """``x / c`` for a Python number ``c``, correctly rounded on every
+    device. PyTorch's CUDA division by a host scalar multiplies by the
+    scalar's float32 reciprocal, an ulp off for c = 12 or 15: enough to
+    move a query lane to another quantization level, and so a prune
+    decision, away from the kernel's and the JAX package's."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension in the order the kernel takes it:
+    zero-padded to a power of two lanes, the upper half is added to the
+    lower half until one lane is left. Padding further with zeros changes
+    no rounding, so the kernel's wider padding gives the same sum."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
+def estimator_margin(qc_norm, rnorm, errw, delta, dim_ext: int,
+                     epsilon: float):
+    """Per-candidate distance-error bound at confidence ``epsilon`` (the
+    fused prune's margin): the rotation term ``‖q~‖·errw/√D`` and the
+    query-quantization term ``delta²·(rnorm² + errw²)/12`` add in
+    quadrature; 2 is the cross term's weight in the squared distance."""
+    recon2 = rnorm * rnorm + errw * errw
+    return 2.0 * epsilon * torch.sqrt(
+        _div(torch.square(qc_norm * errw), dim_ext)
+        + _div(torch.square(delta) * recon2, 12.0))
+
+
+def _pack_words(signs: torch.Tensor) -> torch.Tensor:
+    """(..., D) bool -> (..., D // 32) int32 words: bit b of word w is
+    component 32w + b (the JAX package's ``ivf_bq._pack_words``; the
+    scan packs the query's bit-planes with it too)."""
+    d = signs.shape[-1]
+    b = signs.reshape(*signs.shape[:-1], d // 32, 32).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=signs.device) << \
+        torch.arange(32, device=signs.device)
+    v = (b * weights).sum(dim=-1)        # the word's unsigned value
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def _popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Population count of int32 lanes (int64 result) by the SWAR ladder
+    of the JAX package's ``_popcount32``, taken on the lanes' unsigned
+    32-bit values in int64 so that no step overflows."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _estimate_block(qt, codes_wb, rnorm_row, cfac_t, *, dim_ext: int,
+                    bits: int, query_bits: int):
+    """Popcount estimate of the cross term ``Σ_l a_l·<q~, s_l>`` of one
+    list: ``qt`` (q, >= dim_ext) the rotated query side, ``codes_wb``
+    (m, bits·W) the packed sign words, ``rnorm_row`` (1, m) and
+    ``cfac_t`` (bits, m) the corrections. Returns ``(cross (q, m),
+    delta (q, 1))``, op for op as the JAX package's ``_estimate_block``:
+    ``<q~, s> = delta·<u, s> + lo·Σs`` with the integer parts exact."""
+    qt = qt[:, :dim_ext]
+    q = qt.shape[0]
+    w_cnt = dim_ext // 32
+    lo = qt.amin(dim=1, keepdim=True)
+    hi = qt.amax(dim=1, keepdim=True)
+    levels = (1 << query_bits) - 1
+    delta = torch.clamp(_div(hi - lo, levels), min=1e-30)
+    # clip before the integer cast: the JAX cast saturates, torch's does not
+    u = torch.clamp(torch.round((qt - lo) / delta), 0, levels).to(torch.int64)
+    # packed query bit-planes: (q, W) int32 words per plane
+    uw = [_pack_words(((u >> jbit) & 1).to(torch.bool))
+          for jbit in range(query_bits)]
+    m = codes_wb.shape[0]
+    cross = qt.new_zeros((q, m))
+    for lev in range(bits):
+        cw = codes_wb[:, lev * w_cnt:(lev + 1) * w_cnt]           # (m, W)
+        pcc = _popcount32(cw).sum(dim=1)                           # (m,)
+        ius = torch.zeros((q, m), dtype=torch.int64, device=qt.device)
+        for jbit in range(query_bits):
+            acc = _popcount32(uw[jbit][:, None, :] ^ cw[None, :, :]).sum(
+                dim=2)                                             # (q, m)
+            ius = ius + ((pcc[None, :] - acc) << jbit)
+        ssum = (2 * pcc - dim_ext).to(torch.float32)
+        qs = delta * ius.to(torch.float32) + lo * ssum[None, :]
+        a = rnorm_row * cfac_t[lev:lev + 1, :]
+        cross = cross + a * qs
+    return cross, delta
+
+
+def _block_estimate(qrot, crot, rnorm_row, errw_row, cfac_t, codes_wb, *,
+                    dim_ext: int, bits: int, query_bits: int, epsilon: float,
+                    ip_metric: bool):
+    """Min-space estimate and margin of one list for every query;
+    ``crot`` is the (1, dim_ext) rotated center. Returns
+    ``(est (q, m), margin (q, m))``."""
+    qrot = qrot[:, :dim_ext]
+    crot = crot[:, :dim_ext]
+    if ip_metric:
+        qt = qrot
+        base_ip = tree_sum(qrot * crot)[:, None]
+    else:
+        qt = qrot - crot
+    cross, delta = _estimate_block(qt, codes_wb, rnorm_row, cfac_t,
+                                   dim_ext=dim_ext, bits=bits,
+                                   query_bits=query_bits)
+    qc2 = tree_sum(torch.square(qt))[:, None]
+    qcn = torch.sqrt(qc2)
+    if ip_metric:
+        est = -(base_ip + cross)
+    else:
+        est = torch.clamp(qc2, min=0.0) + torch.square(rnorm_row) \
+            - 2.0 * cross
+    margin = estimator_margin(qcn, rnorm_row, errw_row, delta, dim_ext,
+                              epsilon)
+    return est, margin
+
+
+def bq_list_major_scan(qf, qrot, centers_rot, codes, rnorm, cfac, errw,
+                       indices, data, data_norms, probes, filter_words=None,
+                       *, k: int, metric: DistanceType, epsilon: float,
+                       engine: str = "torch", query_bits: int = _QUERY_BITS):
+    """Run the fused estimate-then-rerank scan. Returns ``(best_d,
+    best_i, survivors)``: the (q, k) top-k with **exact** distances
+    (full squared L2 with +inf pads, or raw inner products with -inf
+    pads), ids with -1 in unfilled slots, and the (q,) int32 count of
+    rows each query reranked. Probe slots holding the sentinel
+    ``n_lists`` are ignored, and a repeated probe counts once.
+    ``engine`` is resolved (``cuda`` or ``torch``); CPU tensors always
+    take the plain engine."""
+    expect(engine in ("cuda", "torch"),
+           f"bq_list_major_scan engine must be cuda|torch, got {engine!r}")
+    expect(data is not None and data_norms is not None,
+           "the fused BQ scan needs the raw-vector rerank plane "
+           "(build with store_vectors=True)")
+    args = (qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices, data,
+            data_norms, probes, filter_words)
+    kw = dict(k=k, metric=metric, epsilon=epsilon, query_bits=query_bits)
+    if engine == "torch" or data.device.type == "cpu":
+        return _bq_scan_torch(*args, **kw)
+    return _bq_scan_cuda(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# plain engine
+# ---------------------------------------------------------------------------
+
+
+def _bq_scan_torch(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
+                   data, data_norms, probes, filter_words, *, k: int,
+                   metric: DistanceType, epsilon: float, query_bits: int,
+                   rows_read=None):
+    """The plain engine. ``rows_read``, an optional (n_lists, m) bool
+    tensor, gets every slot that some query reranked set: the rows of
+    the vector plane the scan must read."""
+    q = qf.shape[0]
+    n_lists = indices.shape[0]
+    dim_ext = centers_rot.shape[1]
+    bits = cfac.shape[2]
+    ip_metric = metric == DistanceType.InnerProduct
+    qf = qf.to(torch.float32)
+    qrot = qrot.to(torch.float32)
+    uniq = unique_lists(probes, n_lists)
+    # a shared (1-D) filter folds into the id planes; a per-query one
+    # tests in the step
+    filter_2d = filter_words is not None and filter_words.ndim == 2
+    ids_g = union_id_planes(indices, uniq,
+                            None if filter_2d else filter_words)
+    qn = tree_sum(qf * qf)
+    best_d = qf.new_full((q, k), float("inf"))
+    best_i = torch.full((q, k), -1, dtype=torch.int32, device=qf.device)
+    survivors = torch.zeros((q,), dtype=torch.int64, device=qf.device)
+    for j, lid in enumerate(uniq.tolist()):
+        if lid >= n_lists:          # sentinel steps match no query
+            continue
+        est, margin = _block_estimate(
+            qrot, centers_rot[lid:lid + 1].to(torch.float32),
+            rnorm[lid][None, :], errw[lid][None, :], cfac[lid].T, codes[lid],
+            dim_ext=dim_ext, bits=bits, query_bits=query_bits,
+            epsilon=epsilon, ip_metric=ip_metric)
+        ids_b = ids_g[j][None, :].expand(q, -1)
+        probed = (probes == lid).any(dim=1)
+        ok = (ids_b >= 0) & probed[:, None]
+        if filter_2d:
+            ok = ok & test_filter(filter_words, ids_b)
+        est = torch.where(ok, est, torch.full_like(est, float("inf")))
+        # the prune: the k-th exact distance as it stands at the list start
+        cand = (est - margin) < best_d[:, k - 1:k]
+        survivors += cand.sum(dim=1)
+        if not bool(cand.any()):
+            continue                # an all-inf merge changes nothing
+        if rows_read is not None:
+            rows_read[lid] |= cand.any(dim=0)
+        # exact distances of the survivors only, each dot product a
+        # tree_sum of rounded products (no matmul: its order is its own)
+        qi, ri = torch.nonzero(cand, as_tuple=True)
+        dot = tree_sum(qf[qi] * data[lid][ri].to(torch.float32))
+        if ip_metric:
+            pair = -dot
+        else:
+            pair = torch.clamp(qn[qi] + data_norms[lid][ri] - 2.0 * dot,
+                               min=0.0)
+        exact = torch.full_like(est, float("inf"))
+        exact[qi, ri] = pair
+        best_d, best_i = _merge_smallest_id(best_d, best_i, exact, ids_b, k)
+    if ip_metric:
+        best_d = -best_d            # inf (unfilled) -> -inf
+    return best_d, best_i, survivors.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# CUDA engine
+# ---------------------------------------------------------------------------
+
+
+def _walk_plan(probes: torch.Tensor, n_lists: int):
+    """What the kernel walks: the probed-list union ``uniq`` and, per
+    query, its probes sorted by list id as positions into ``uniq``, with
+    -1 for sentinel slots and for repeats of a list."""
+    pr = sorted_probes(probes, n_lists)
+    uniq = unique_lists(pr, n_lists)
+    upos = torch.searchsorted(uniq.to(torch.int64), pr)
+    upos = torch.where(pr < n_lists, upos, torch.full_like(upos, -1))
+    return uniq, upos.to(torch.int32).contiguous()
+
+
+def _bq_scan_cuda(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
+                  data, data_norms, probes, filter_words, *, k: int,
+                  metric: DistanceType, epsilon: float, query_bits: int):
+    dev = data.device
+    q, d = qf.shape
+    n_lists, m, words = codes.shape
+    dim_ext = centers_rot.shape[1]
+    bits = cfac.shape[2]
+    p = probes.shape[1]
+    planes = (qrot, centers_rot, codes, rnorm, cfac, errw, indices,
+              data_norms, probes)
+    expect(all(t.device == dev for t in (qf,) + planes),
+           "bq_list_major_scan: all inputs must be on the data's device")
+    floats = (data, data_norms, rnorm, cfac, errw)
+    expect(all(t.dtype == torch.float32 for t in floats)
+           and codes.dtype == torch.int32,
+           "bq_list_major_scan: kernel takes float32 vector and correction "
+           "planes and int32 code words")
+    expect(all(t.is_contiguous() for t in floats + (codes,)),
+           "bq_list_major_scan: index planes must be contiguous")
+    per_slot = (n_lists, m)
+    expect(data.shape == (n_lists, m, d) and cfac.shape == per_slot + (bits,)
+           and all(t.shape == per_slot for t in (indices, data_norms, rnorm,
+                                                 errw))
+           and tuple(centers_rot.shape) == (n_lists, dim_ext)
+           and tuple(qrot.shape) == (q, dim_ext)
+           and words == bits * dim_ext // 32 and dim_ext % 32 == 0,
+           "bq_list_major_scan: shape mismatch")
+    expect(0 < k <= CUDA_MAX_K,
+           f"bq_list_major_scan: kernel takes 0 < k <= {CUDA_MAX_K}, got {k}")
+    expect(dim_ext <= CUDA_MAX_DIM,
+           f"bq_list_major_scan: kernel takes dim_ext <= {CUDA_MAX_DIM}")
+    expect(1 <= bits <= 4 and 1 <= query_bits <= 8,
+           "bq_list_major_scan: kernel takes bits 1..4, query_bits 1..8")
+    expect(filter_words is None or filter_words.ndim == 1,
+           "bq_list_major_scan: kernel takes a shared (1-D) filter only")
+    from raft_tpu_torch.ops import _build
+
+    launch = _build.load("bq_scan")
+    uniq, upos = _walk_plan(probes, n_lists)
+    ids_g = union_id_planes(indices, uniq, filter_words).to(
+        torch.int32).contiguous()
+    qf = qf.to(torch.float32).contiguous()
+    qrot = qrot.to(torch.float32).contiguous()
+    crot = centers_rot.to(torch.float32).contiguous()
+    outd = torch.empty((q, k), dtype=torch.float32, device=dev)
+    outi = torch.empty((q, k), dtype=torch.int32, device=dev)
+    surv = torch.empty((q,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(qf.data_ptr(), qrot.data_ptr(), crot.data_ptr(),
+                 codes.data_ptr(), rnorm.data_ptr(), cfac.data_ptr(),
+                 errw.data_ptr(), data.data_ptr(), data_norms.data_ptr(),
+                 ids_g.data_ptr(), uniq.data_ptr(), upos.data_ptr(), q, p, d,
+                 dim_ext, m, bits, query_bits, k,
+                 int(metric == DistanceType.InnerProduct), 2.0 * epsilon,
+                 outd.data_ptr(), outi.data_ptr(), surv.data_ptr(), stream)
+    _build.check(err, "bq_list_major_scan")
+    bq_list_major_scan.launches += 1
+    return outd, outi, surv
+
+
+bq_list_major_scan.launches = 0

@@ -1,5 +1,5 @@
 """Fused distance + top-k: exact kNN that never materializes the (q, n)
-distance matrix.
+distance matrix, and exact k-selection over wide rows.
 
 ``fused_knn`` replaces the JAX package's Pallas kernel ``_knn_kernel``
 (``raft_tpu/ops/fused_topk.py``, reached through ``_fused_knn_impl`` /
@@ -12,9 +12,17 @@ passes: dataset splits score in parallel blocks that each keep a
 per-query top-k in shared memory, then one warp per query merges the
 splits in (distance, smallest id) order. See the source for details.
 
-A wrapper runs the kernel for CUDA tensors and the plain version
-``fused_knn_plain`` for CPU tensors; it never falls back from one to the
-other. ``fused_knn.launches`` counts the kernel's launches.
+``select_k_tiles`` replaces the JAX package's Pallas kernel
+``_select_kernel`` (reached through ``_select_k_tiles_impl``) with
+``csrc/select_k.cu``: column chunks of each row are scanned by warps in
+parallel, each keeping a top-k in shared memory, and the per-chunk lists
+merge per row in (value, smallest column) order. It is bound by one
+read of the (b, n) input.
+
+Each wrapper runs its kernel for CUDA tensors and its plain version
+(``fused_knn_plain``, ``select_k_tiles_plain``) for CPU tensors; it
+never falls back from one to the other. ``fused_knn.launches`` and
+``select_k_tiles.launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -188,3 +196,80 @@ def fused_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int,
 
 
 fused_knn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# wide-row k-selection
+# ---------------------------------------------------------------------------
+
+#: largest k the selection kernel takes
+SELECT_MAX_K = 128
+_SELECT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SELECT_UNROLL_COLS = 256   # columns a warp covers per step (select_k.cu)
+
+
+def select_k_tiles_plain(values: torch.Tensor, k: int,
+                         select_min: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`select_k_tiles`: values in
+    float32 min-space (select-max negated), non-finite entries left out,
+    a stable sort so that equal values keep the smaller column first;
+    slots no finite value filled come out (+inf, -1), negated back for
+    select-max."""
+    vals = values.to(torch.float32)
+    if not select_min:
+        vals = -vals
+    vals = torch.where(torch.isfinite(vals), vals,
+                       torch.full_like(vals, float("inf")))
+    sd, pos = torch.sort(vals, dim=1, stable=True)
+    sd, pos = sd[:, :k], pos[:, :k].to(torch.int32)
+    ids = torch.where(torch.isfinite(sd), pos, torch.full_like(pos, -1))
+    return (sd if select_min else -sd), ids
+
+
+def select_k_tiles(values: torch.Tensor, k: int, select_min: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-selection over wide (b, n) rows: (b, k) float32 values and
+    int32 columns, ties to the first occurrence; a row with fewer than k
+    finite values fills the rest with index -1.
+
+    CUDA tensors run ``csrc/select_k.cu``; CPU tensors run
+    :func:`select_k_tiles_plain`."""
+    expect(values.ndim == 2, "select_k_tiles expects (batch, n) values")
+    b, n = values.shape
+    expect(0 < k <= n, f"select_k_tiles: k must be in (0, {n}], got {k}")
+    if values.device.type == "cpu":
+        return select_k_tiles_plain(values, k, select_min)
+    expect(values.dtype in _SELECT_DTYPES,
+           f"select_k_tiles: kernel takes float32/bfloat16/float16, got "
+           f"{values.dtype}")
+    expect(k <= SELECT_MAX_K,
+           f"select_k_tiles: kernel takes k <= {SELECT_MAX_K}, got {k}")
+    from raft_tpu_torch.ops import _build
+
+    launch = _build.load("select_k")
+    values = values.contiguous()
+    out_d = torch.empty((b, k), dtype=torch.float32, device=values.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=values.device)
+    if b == 0:
+        return out_d, out_i
+    # one warp per (row, column chunk): about 16 warps per SM, chunks of
+    # at least 4096 columns so the per-row merge stays short
+    sms = torch.cuda.get_device_properties(values.device)\
+        .multi_processor_count
+    splits = max(1, min(-(-16 * sms // b), -(-n // 4096)))
+    chunk = -(-(-(-n // splits)) // _SELECT_UNROLL_COLS) * _SELECT_UNROLL_COLS
+    splits = -(-n // chunk)
+    pd = torch.empty((b, splits, k), dtype=torch.float32,
+                     device=values.device)
+    pi = torch.empty((b, splits, k), dtype=torch.int32, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = launch(values.data_ptr(), _SELECT_DTYPES[values.dtype], b, n, k,
+                 int(not select_min), splits, chunk, pd.data_ptr(),
+                 pi.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream)
+    _build.check(err, "select_k_tiles")
+    select_k_tiles.launches += 1
+    return out_d, out_i
+
+
+select_k_tiles.launches = 0

@@ -111,6 +111,31 @@ def unique_lists(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
     return uniq[:cap].to(torch.int32)
 
 
+def sorted_probes(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
+    """Each row's probes sorted by list id (int64), with out-of-range
+    slots and repeats of a list turned into the sentinel ``n_lists``."""
+    pr = probes.to(torch.int64)
+    pr = torch.where((pr < 0) | (pr >= n_lists), torch.full_like(pr, n_lists),
+                     pr)
+    pr = torch.sort(pr, dim=1).values
+    dup = torch.zeros_like(pr, dtype=torch.bool)
+    dup[:, 1:] = pr[:, 1:] == pr[:, :-1]
+    return torch.where(dup, torch.full_like(pr, n_lists), pr)
+
+
+def union_id_planes(indices: torch.Tensor, uniq: torch.Tensor,
+                    filter_words=None) -> torch.Tensor:
+    """The id planes of the probed-list union ``uniq`` (sentinel slots
+    read the last list); a shared (1-D) filter folds in, as in the JAX
+    package's engines: a filtered slot becomes id -1, i.e. padding."""
+    n_lists = indices.shape[0]
+    ids_g = indices[uniq.clamp(max=n_lists - 1).to(torch.int64)]
+    if filter_words is not None:
+        keep = test_filter(filter_words.to(ids_g.device), ids_g) & (ids_g >= 0)
+        ids_g = torch.where(keep, ids_g, torch.full_like(ids_g, -1))
+    return ids_g
+
+
 def list_major_scan(qf, data, data_norms, indices, probes, filter_words=None,
                     *, k: int, metric: DistanceType, engine: str = "torch"):
     """Run the probe scan list-major; returns the pre-epilog top-k
@@ -184,13 +209,7 @@ def _scan_pairs(probes: torch.Tensor, n_lists: int):
     and each pair's query row and probe slot. A row's repeated probe of
     one list and sentinel slots form no pair."""
     q, p = probes.shape
-    pr = probes.to(torch.int64)
-    pr = torch.where((pr < 0) | (pr >= n_lists), torch.full_like(pr, n_lists),
-                     pr)
-    pr = torch.sort(pr, dim=1).values
-    dup = torch.zeros_like(pr, dtype=torch.bool)
-    dup[:, 1:] = pr[:, 1:] == pr[:, :-1]
-    pr = torch.where(dup, torch.full_like(pr, n_lists), pr)
+    pr = sorted_probes(probes, n_lists)
     uniq = unique_lists(pr, n_lists)
     cap = uniq.shape[0]
     rows = torch.arange(q, device=pr.device)[:, None]
@@ -230,13 +249,8 @@ def _scan_cuda(qf, data, data_norms, indices, probes, filter_words, *,
 
     launch = _build.load("ivf_scan")
     uniq, offs, pair_q, pair_slot = _scan_pairs(probes, n_lists)
-    # gathered id planes of the union; a shared filter folds in here (a
-    # filtered slot becomes id -1, i.e. padding), as in _scan_pallas
-    ids_g = indices[uniq.clamp(max=n_lists - 1).to(torch.int64)]
-    if filter_words is not None:
-        keep = test_filter(filter_words.to(dev), ids_g) & (ids_g >= 0)
-        ids_g = torch.where(keep, ids_g, torch.full_like(ids_g, -1))
-    ids_g = ids_g.to(torch.int32).contiguous()
+    ids_g = union_id_planes(indices, uniq, filter_words).to(
+        torch.int32).contiguous()
     qf = qf.to(torch.float32).contiguous()
     pd = torch.full((q, p, k), float("inf"), dtype=torch.float32, device=dev)
     pi = torch.full((q, p, k), -1, dtype=torch.int32, device=dev)

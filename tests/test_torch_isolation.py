@@ -51,7 +51,9 @@ def test_forbidden_prefix_is_by_package_not_by_string():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, raft_tpu_torch, raft_tpu_torch.neighbors.ivf_flat, "
-            "raft_tpu_torch.neighbors.brute_force, raft_tpu_torch.ops._build; "
+            "raft_tpu_torch.neighbors.brute_force, raft_tpu_torch.ops._build, "
+            "raft_tpu_torch.neighbors.ivf_bq, raft_tpu_torch.neighbors.refine, "
+            "raft_tpu_torch.matrix.select_k; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'raft_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

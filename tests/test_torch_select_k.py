@@ -1,0 +1,136 @@
+"""The port's ``matrix.select_k`` against the JAX package's on the same
+values: TOPK, SORT and TILES (the Pallas kernel in interpret mode; on the
+CPU the port's TILES route is the kernel's plain version
+``select_k_tiles_plain``). Values are integer-valued so that ties are
+many and exact: ids must be equal (the lower index first on equal
+values) and values equal.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch import Resources
+from raft_tpu_torch.matrix import select_k as t_sel
+from raft_tpu_torch.ops import fused_topk
+
+# the module: raft_tpu.matrix's package namespace binds the function
+j_sel = importlib.import_module("raft_tpu.matrix.select_k")
+CPU = Resources(device="cpu")
+ALGOS = ["TOPK", "SORT", "TILES"]
+
+
+def _values(b, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-20, 20, (b, n)).astype(np.float32)
+
+
+def _both(v, k, algo, **kw):
+    want = j_sel.select_k(None, jnp.asarray(v), k,
+                          algo=j_sel.SelectAlgo[algo], **kw)
+    got = t_sel.select_k(CPU, v, k, algo=t_sel.SelectAlgo[algo], **kw)
+    return got, want
+
+
+def _equal(got, want):
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [1, 7, 64])
+@pytest.mark.parametrize("algo", ALGOS)
+def test_matches_reference_with_ties(algo, k, select_min):
+    v = _values(6, 300)
+    _equal(*_both(v, k, algo, select_min=select_min))
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_index_values_payload(algo):
+    v = _values(5, 200, seed=1)
+    payload = np.random.default_rng(2).integers(0, 10**6, v.shape).astype(
+        np.int32)
+    got, want = _both(v, 9, algo, index_values=payload)
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("algo", ALGOS)
+def test_short_finite_rows(algo, select_min):
+    """Rows with fewer than k finite values: TILES fills the rest with
+    index -1 (the kernels' caveat), TOPK and SORT return the positions
+    of the infinite entries, lower index first."""
+    v = _values(4, 200, seed=3)
+    far = np.inf if select_min else -np.inf
+    v[1, 3:] = far
+    v[2, :] = far
+    got, want = _both(v, 5, algo, select_min=select_min)
+    _equal(got, want)
+    if algo == "TILES":
+        assert got[1][1].tolist()[3:] == [-1, -1]
+        assert (got[1][2] == -1).all()
+
+
+def test_wide_rows_bfloat16_match_interpreted_kernel():
+    v = _values(3, 20_000, seed=4)
+    v[0, 19_999] = -100.0                  # the best entry in the last tile
+    vb = jnp.asarray(v, jnp.bfloat16)
+    want = j_sel.select_k(None, vb, 10, algo=j_sel.SelectAlgo.TILES)
+    got = t_sel.select_k(CPU, torch.from_numpy(v).to(torch.bfloat16), 10,
+                         algo=t_sel.SelectAlgo.TILES)
+    assert got[0].dtype == torch.bfloat16     # the caller's dtype back
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[0].to(torch.float32).numpy(),
+                          np.asarray(want[0].astype(jnp.float32)))
+    assert int(got[1][0, 0]) == 19_999
+
+
+def test_plain_selector_leaves_out_every_non_finite_value():
+    v = torch.tensor([[3.0, float("nan"), -float("inf"), 1.0, float("inf"),
+                       1.0]])
+    d, i = fused_topk.select_k_tiles_plain(v, 4)
+    assert i.tolist() == [[3, 5, 0, -1]]
+    assert d[0, :3].tolist() == [1.0, 1.0, 3.0] and d[0, 3] == float("inf")
+    d, i = fused_topk.select_k_tiles_plain(v, 4, select_min=False)
+    assert i.tolist() == [[0, 3, 5, -1]]
+    assert d[0, 3] == -float("inf")
+    # the CPU wrapper takes the plain version
+    assert torch.equal(fused_topk.select_k_tiles(v, 2)[1],
+                       fused_topk.select_k_tiles_plain(v, 2)[1])
+
+
+def test_approx_runs_exact():
+    v = _values(4, 500, seed=5)
+    got = t_sel.select_k(CPU, v, 12, algo=t_sel.SelectAlgo.APPROX)
+    want = t_sel.select_k(CPU, v, 12, algo=t_sel.SelectAlgo.TOPK)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_choose_algo():
+    c = t_sel._choose_algo
+    A = t_sel.SelectAlgo
+    assert c(4, 100, 100) == A.SORT
+    assert c(4, 100, 80) == A.SORT
+    assert c(4, 100, 10) == A.TOPK
+    assert c(4, 1 << 20, 10, torch.float32, "cpu") == A.TOPK
+    assert c(4, 1 << 20, 10, torch.float32, "cuda") == A.TILES
+    assert c(4, 1 << 20, 10, torch.bfloat16, "cuda:0") == A.TILES
+    assert c(4, 1 << 20, 10, torch.float16, "cuda") == A.TILES
+    assert c(4, 1 << 20, 65, torch.float32, "cuda") == A.TOPK
+    assert c(4, 16383, 10, torch.float32, "cuda") == A.TOPK
+    assert c(4, 1 << 20, 10, torch.float64, "cuda") == A.TOPK
+    assert j_sel._choose_algo(4, 1 << 20, 10).value == c(
+        4, 1 << 20, 10).value            # the same rule off the card
+
+
+def test_errors():
+    with pytest.raises(Exception, match="k must be"):
+        t_sel.select_k(CPU, np.zeros((2, 4), np.float32), 5)
+    with pytest.raises(Exception, match="batch, n"):
+        t_sel.select_k(CPU, np.zeros(4, np.float32), 1)
