@@ -22,13 +22,21 @@ non-zero exit (nothing is caught and passed over):
             sentinel and repeated probes and a query that probes
             nothing; select_k over min and max, k in {1, 10, 64}, n in
             {16384, 100003}, ties, +-inf and NaN rows, float32 and
-            bfloat16. Ids must be equal on integer-valued data (every
-            product exact); on Gaussian data distances agree to
-            |dd| <= 1e-4 (1 + |d|) and 99% of ids agree. The IVF-BQ
-            scan takes every sum in
-            its plain version's order (ops/bq_scan.tree_sum): its
-            distances, ids and rows reranked per query must equal the
-            plain version's bit for bit.
+            bfloat16; the CAGRA beam search on a 30,000 x 128 index
+            built on the card (cluster-join, degree 64, its first 32
+            columns as the degree-32 graph) over L2, L2Sqrt and IP,
+            float32, bfloat16 and int8, k in {1, 10, 64}, itopk in {32,
+            64, 128, 256, 512}, search_width in {1, 4}, q in {1, 10,
+            500}, seeds with -1 holes, ragged row_iters with a 0, two
+            random samplings, BQ traversal off and at bits 1 and 2. Ids
+            must be equal on integer-valued data (every product exact);
+            on Gaussian data distances agree to |dd| <= 1e-4 (1 + |d|)
+            and 99% of ids agree. The IVF-BQ scan and the beam search
+            take every sum in their plain versions' order
+            (ops/bq_scan.tree_sum): their distances, ids and counts
+            (rows reranked per query; live iterations, candidates and
+            rows scored per query) must equal the plain versions' bit
+            for bit.
 4. main     SIFT-1M's shape (1,000,000 x 128 float32, 10,000 queries,
             k=10) on clustered data made from --seed. The IVF-Flat path:
             brute-force ground truth through the fused kernel in
@@ -42,7 +50,17 @@ non-zero exit (nothing is caught and passed over):
             reranked as a share of rows probed); n_probes=1024 recall
             on 1,000 queries; save -> load -> search bit-identical; and
             matrix.select_k(k=10) over a (64, 1,000,000) slab of squared
-            distances equals brute force's ids, ties aside. Each path
+            distances equals brute force's ids, ties aside. The CAGRA
+            path on the same data: cagra.build with the blobs-1M-128
+            config's first raft_cagra entry (graph_degree 32,
+            intermediate 64, cluster_join) plus bq_bits=1 (build s, -1
+            share of the graph, index bytes); search at itopk 64 and
+            128, search_width 4, batch 10 and 500 (recall@10, median
+            ms), BQ traversal off; at itopk 64 with it on (recall, rows
+            scored exactly as a share of candidates); save -> load ->
+            search bit-identical. It fails below recall@10 0.90 at itopk
+            128, batch 500, or when BQ-on recall falls more than 0.02
+            under BQ-off. Each path
             runs with every launch counter set to 0 just before it, and
             each of its kernels must have launched.
 5. times    per kernel at the main path's shapes: kernel ms (CUDA
@@ -54,7 +72,7 @@ non-zero exit (nothing is caught and passed over):
             yardstick call's ms.
 
 The line before the last is a JSON object with one record per kernel
-(fused_knn, list_major_scan, bq_scan, select_k);
+(fused_knn, list_major_scan, bq_scan, select_k, beam_search);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the raft_tpu_torch package beside it, the script exits
 non-zero and prints no result.
@@ -270,6 +288,7 @@ def phase_kernels(torch, seed: int) -> None:
         "version")
     kernels_bq(torch, seed)
     kernels_select(torch, seed)
+    kernels_beam(torch, seed)
 
 
 def kernels_bq(torch, seed: int) -> None:
@@ -376,6 +395,107 @@ def kernels_select(torch, seed: int) -> None:
     log(f"[kernels] select_k: {cases} cases equal the plain version")
 
 
+def beam_equal(name, got, want) -> float:
+    """The beam kernel's (distances, ids, counts) against its plain
+    version's: all three must be equal. Returns the measured max |dd|
+    over the filled slots."""
+    import torch
+
+    torch.cuda.synchronize()
+    for what, g, w in zip(("distances", "ids", "counts"), got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            fail(f"{name}: {bad} {what} differ from the plain version")
+    fin = torch.isfinite(want[0])
+    err = (got[0][fin] - want[0][fin]).abs()
+    return float(err.max()) if err.numel() else 0.0
+
+
+def kernels_beam(torch, seed: int) -> None:
+    """The CAGRA beam kernel against its plain version on a 30,000 x 128
+    clustered index built on the card: every metric, dataset type, k,
+    itopk, width, degree and batch size of the contract, covered in
+    rotation, with real coarse seeds (-1 holes punched in), ragged
+    budgets and the BQ plane at bits 1 and 2."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops.beam_search import beam_search, beam_search_plain
+    from raft_tpu_torch.ops.bq_scan import auto_query_bits
+
+    res = Resources(device="cuda", seed=seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 3)
+    n, d = 30_000, 128
+    centers = torch.randn(300, d, generator=g, device="cuda") * 1.5
+    lab = torch.randint(0, 300, (n + 500,), generator=g, device="cuda")
+    pts = centers[lab] + torch.randn(n + 500, d, generator=g, device="cuda")
+    x, qx = pts[:n].contiguous(), pts[n:].contiguous()
+    index = cagra.build(res, cagra.CagraIndexParams(
+        graph_degree=64, intermediate_graph_degree=128,
+        build_algo=cagra.BuildAlgo.CLUSTER_JOIN), x)
+    scale = 127.0 / float(x.abs().max())
+    datasets = {torch.float32: (x, qx), torch.bfloat16: (x.to(torch.bfloat16),
+                                                         qx),
+                torch.int8: (torch.round(x * scale).to(torch.int8),
+                             qx * scale)}
+    planes = {}
+    metrics = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+               DistanceType.InnerProduct)
+    itopks, ks, qs = (32, 64, 128, 256, 512), (1, 10, 64), (1, 10, 500)
+    shapes = ((1, 32), (4, 32), (1, 64), (4, 64))
+    cases = i = 0
+    walked = scored = fresh = 0
+    for dtype, (data, queries) in datasets.items():
+        for metric in metrics:
+            for _ in range(3):
+                L, k = itopks[i % 5], min(ks[(i // 2) % 3], itopks[i % 5])
+                w, deg = shapes[i % 4]
+                q = qs[(i // 3) % 3]
+                bits = (0, 1, 2)[(i // 4) % 3]
+                samplings = 2 if i % 5 == 1 else 1
+                i += 1
+                qt = queries[:q]
+                c = w * deg
+                n_seeds = -(-max(L, c) * samplings // c) * c
+                seeds = cagra._make_seeds(
+                    data, index.seed_centers, index.seed_members, qt,
+                    n_seeds, metric, "coarse", 0)
+                seeds[:, 1::5] = -1                   # holes in the seeds
+                max_iters = L // w + 24
+                kw = dict(deg=deg)
+                if q > 1 and i % 2 == 0:              # ragged, one 0 budget
+                    ri = torch.randint(0, max_iters, (q,), generator=g,
+                                       device="cuda", dtype=torch.int32)
+                    ri[0] = 0
+                    kw["row_iters"] = ri
+                if bits:
+                    key = (dtype, bits)
+                    if key not in planes:
+                        planes[key] = cagra._build_bq_plane(
+                            data.to(torch.float32), bits, seed)
+                    rot, crot, recs = planes[key]
+                    kw.update(bq_records=recs, bq_qrot=qt @ rot.T,
+                              bq_crot=crot, bq_bits=bits,
+                              bq_query_bits=auto_query_bits(bits))
+                args = (qt, data, index.graph, seeds, k, L, w, max_iters,
+                        metric)
+                got = beam_search(*args, **kw)
+                torch.cuda.synchronize()
+                want = beam_search_plain(*args, **kw)
+                beam_equal(f"beam_search {metric.name} {dtype} k={k} L={L} "
+                           f"w={w} deg={deg} q={q} bits={bits} "
+                           f"samplings={samplings} "
+                           f"ragged={'row_iters' in kw}", got, want)
+                cases += 1
+                walked += int(want[2][:, 0].sum())
+                fresh += int(want[2][:, 1].sum())
+                scored += int(want[2][:, 2].sum())
+    log(f"[kernels] beam_search: {cases} cases equal the plain version bit "
+        f"for bit ({walked} iterations, {fresh} candidates, {scored} rows "
+        "scored in all, the same counts per query)")
+
+
 def make_data(torch, seed: int):
     """Clustered float32 data at SIFT-1M's shape, made on the card."""
     g = torch.Generator(device="cuda")
@@ -395,12 +515,14 @@ def recall(ids, truth) -> float:
 
 def _counted():
     """Every kernel wrapper's launch counter: name -> wrapper."""
+    from raft_tpu_torch.ops.beam_search import beam_search
     from raft_tpu_torch.ops.bq_scan import bq_list_major_scan
     from raft_tpu_torch.ops.fused_topk import fused_knn, select_k_tiles
     from raft_tpu_torch.ops.ivf_scan import list_major_scan
 
     return {"fused_knn": fused_knn, "list_major_scan": list_major_scan,
-            "bq_scan": bq_list_major_scan, "select_k": select_k_tiles}
+            "bq_scan": bq_list_major_scan, "select_k": select_k_tiles,
+            "beam_search": beam_search}
 
 
 def reset_launches() -> None:
@@ -607,6 +729,111 @@ def main_bq(torch, state: dict) -> None:
     state["select_k_err"] = select_equal(torch, f"select_k (64, {N_ROWS}) "
                                          f"k={K}", slab, K)
     state["bq_index"] = index
+    main_cagra(torch, state)
+
+
+def cagra_walk_args(state, queries, itopk: int, bq: bool):
+    """The beam walk ``cagra.search`` runs for one request tile at
+    search_width 4: the (args, kwargs) of ``beam_search``."""
+    from raft_tpu_torch.neighbors import cagra
+
+    sp = cagra.CagraSearchParams(itopk_size=itopk, search_width=4,
+                                 bq_traversal="on" if bq else "off")
+    return cagra.beam_search_args(sp, state["cagra_index"], queries, K)
+
+
+def main_cagra(torch, state: dict) -> None:
+    """The CAGRA path at SIFT-1M's shape, on the same data and ground
+    truth: the blobs-1M-128 config's first raft_cagra entry."""
+    from raft_tpu_torch.neighbors import cagra
+
+    res, x, queries, gt_i = (state["res"], state["x"], state["queries"],
+                             state["gt_i"])
+    reset_launches()
+    t0 = time.perf_counter()
+    index = cagra.build(res, cagra.CagraIndexParams(
+        graph_degree=32, intermediate_graph_degree=64,
+        build_algo=cagra.BuildAlgo.CLUSTER_JOIN, bq_bits=1), x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    empty = float((index.graph < 0).float().mean())
+    # device bytes the index holds: dataset, graph, seed and BQ planes
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        index.dataset, index.graph, index.seed_centers, index.seed_members,
+        index.bq_rotation, index.bq_center_rot, index.bq_records))
+    log(f"[main] cagra.build graph_degree=32 intermediate=64 cluster_join "
+        f"bq_bits=1: {build_s:.2f} s, graph {tuple(index.graph.shape)}, "
+        f"-1 entries {100 * empty:.4f}%, seed plane "
+        f"{tuple(index.seed_members.shape)}, index {nbytes} bytes")
+    state.update(cagra_index=index, cagra_build_s=build_s)
+    if index.size != N_ROWS or index.graph_degree != 32:
+        fail(f"cagra.build: size {index.size}, degree {index.graph_degree}")
+
+    for itopk, bq in ((64, "off"), (128, "off"), (64, "on")):
+        sp = cagra.CagraSearchParams(itopk_size=itopk, search_width=4,
+                                     bq_traversal=bq)
+        for batch, n_q in ((10, 1000), (500, N_QUERIES)):
+            outs, times = [], []
+            for s0 in range(0, n_q, batch):
+                t1 = time.perf_counter()
+                outs.append(cagra.search(res, sp, index,
+                                         queries[s0:s0 + batch], K))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            ids = torch.cat([o[1] for o in outs])
+            r = recall(ids, gt_i[:n_q])
+            # queries that found none of their 10: a walk that never
+            # reached the true neighbourhood, whatever its buffer
+            hits = (ids[:, :, None] == gt_i[:n_q, None, :]).any(dim=2)
+            lost = int((hits.sum(dim=1) == 0).sum())
+            ms = float(np.median(times[1:]))
+            tag = f"itopk{itopk}_bq{bq}_b{batch}"
+            state[f"cagra_recall_{tag}"] = r
+            state[f"cagra_ms_{tag}"] = ms
+            log(f"[main] cagra.search itopk={itopk} search_width=4 "
+                f"bq_traversal={bq} batch={batch}: recall@10 {r:.4f} over "
+                f"{n_q} queries ({lost} found none of their 10), median "
+                f"{ms:.3f} ms per batch")
+    # what the walk read, over the first 1,000 queries
+    from raft_tpu_torch.ops.beam_search import beam_search
+
+    for bq in (False, True):
+        counts = []
+        for s0 in (0, 500):
+            args, kw = cagra_walk_args(state, queries[s0:s0 + 500], 64, bq)
+            counts.append(beam_search(*args, **kw)[2])
+        counts = torch.cat(counts)
+        tot = counts.to(torch.int64).sum(dim=0).tolist()
+        share = tot[2] / max(tot[1], 1)
+        state[f"cagra_scored_share_bq{bq}"] = share
+        log(f"[main] cagra itopk=64 bq_traversal={'on' if bq else 'off'}: "
+            f"{tot[0] / 1000:.2f} live iterations, {tot[1] / 1000:.1f} "
+            f"candidates and {tot[2] / 1000:.1f} rows scored exactly per "
+            f"query ({100 * share:.3f}% of candidates)")
+    if state["cagra_recall_itopk128_bqoff_b500"] < 0.90:
+        fail("cagra recall@10 at itopk 128, batch 500 is below 0.90")
+    for batch in (10, 500):
+        on = state[f"cagra_recall_itopk64_bqon_b{batch}"]
+        off = state[f"cagra_recall_itopk64_bqoff_b{batch}"]
+        if on < off - 0.02:
+            fail(f"cagra BQ-on recall {on:.4f} is more than 0.02 below "
+                 f"BQ-off {off:.4f} at batch {batch}")
+
+    sp = cagra.CagraSearchParams(itopk_size=64, search_width=4)
+    before = cagra.search(res, sp, index, queries[:500], K)
+    buf = io.BytesIO()
+    cagra.save(index, buf)
+    buf.seek(0)
+    after = cagra.search(res, sp, cagra.load(res, buf), queries[:500], K)
+    if not (torch.equal(before[0], after[0])
+            and torch.equal(before[1], after[1])):
+        fail("cagra save -> load -> search is not bit-identical")
+    log(f"[main] cagra save -> load ({buf.getbuffer().nbytes} bytes) -> "
+        "search: bit-identical")
+    # select_k runs on two paths: its record counts the launches of both
+    for name, n in read_launches(("beam_search", "select_k"),
+                                 "CAGRA").items():
+        state["launches"][name] = state["launches"].get(name, 0) + n
 
 
 def select_equal(torch, name: str, v, k: int) -> float:
@@ -633,13 +860,20 @@ def phase_profile(torch, state: dict) -> None:
     and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_flat
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
 
     res, index, queries, bf = (state["res"], state["index"],
                                state["queries"], state["bf"])
     bq_index = state["bq_index"]
     bq_sp = ivf_bq.IvfBqSearchParams(n_probes=128)
+    cg_index = state["cagra_index"]
+    cg_sp = cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                    bq_traversal="off")
     requests = {
+        "cagra itopk=64 batch=10": lambda: cagra.search(
+            res, cg_sp, cg_index, queries[:10], K),
+        "cagra itopk=64 batch=500": lambda: cagra.search(
+            res, cg_sp, cg_index, queries[:500], K),
         "ivf_bq n_probes=128 batch=10": lambda: ivf_bq.search(
             res, bq_sp, bq_index, queries[:10], K),
         "ivf_bq n_probes=128 batch=500": lambda: ivf_bq.search(
@@ -739,6 +973,7 @@ def phase_times(torch, state: dict) -> list:
         f"rows, {union_rows} rows in the union of {uniq.numel()} lists")
     records.append(times_bq(torch, state))
     records.append(times_select(torch, state))
+    records.append(times_beam(torch, state))
     for name, fn in _counted().items():
         fn.launches = saved[name]
     return records
@@ -823,6 +1058,42 @@ def times_select(torch, state: dict) -> dict:
                    "raft_tpu/ops/fused_topk.py:290",
                    state["launches"]["select_k"], err, ms, plain_ms,
                    4 * b * n + 8 * b * k, {"f32": float(b * n)}, lib_ms)
+
+
+def times_beam(torch, state: dict) -> dict:
+    """The beam kernel at the main path's batch-500, itopk-64 request
+    (BQ traversal off), on that request's seeds, walked in one launch
+    (the request's query_tile of 256 walks it in two)."""
+    from raft_tpu_torch.ops.beam_search import beam_search, beam_search_plain
+
+    index, queries = state["cagra_index"], state["queries"]
+    q = queries[:500]
+    args, kw = cagra_walk_args(state, q, 64, False)
+    got = beam_search(*args, **kw)
+    rows_read = torch.zeros((index.size, 2), dtype=torch.bool, device="cuda")
+    want = beam_search_plain(*args, rows_read=rows_read, **kw)
+    err = beam_equal("beam_search main shape", got, want)
+    ms = median_ms(lambda: beam_search(*args, **kw), 20)
+    plain_ms = median_ms(lambda: beam_search_plain(*args, **kw), 3, 1)
+    # data-dependent work. Bytes: each distinct row scored once, each
+    # distinct parent's adjacency row once, the queries, seeds and output.
+    # Operations: 2d float32 per scored (query, row) pair and 2d per
+    # distinct scored row for its norm
+    d, deg, seeds = index.dim, index.graph_degree, args[3]
+    pairs = int(want[2][:, 2].to(torch.int64).sum())
+    rows = int(rows_read[:, 0].sum())
+    parents = int(rows_read[:, 1].sum())
+    nbytes = (rows * d * index.dataset.element_size() + parents * deg * 4
+              + 4 * q.numel() + 4 * seeds.numel() + 8 * 500 * K)
+    flops = 2.0 * d * (pairs + rows)
+    log(f"[times] beam_search work at q=500 itopk=64: {pairs} (query, row) "
+        f"pairs scored over {rows} distinct rows, {parents} distinct "
+        f"parents, {int(want[2][:, 0].sum())} live iterations; distances, "
+        "ids and counts equal the plain version's")
+    return _record("beam_search", "raft_tpu_torch/csrc/beam_search.cu",
+                   "raft_tpu/ops/beam_search.py:90",
+                   state["launches"]["beam_search"], err, ms, plain_ms,
+                   nbytes, {"f32": flops}, None)
 
 
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,

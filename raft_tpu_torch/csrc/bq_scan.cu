@@ -29,69 +29,18 @@
 // products) is `warp_tree_dot`'s halving tree over rounded products,
 // which is ops/bq_scan.tree_sum's order. So the prune decides as the
 // plain version does, bit for bit, and the survivor counts are equal.
+// The query side and the per-row estimate live in bq_estimate.cuh,
+// shared with beam_search.cu.
 //
 // Bound on the H100: per query, the code words and corrections of its
 // probed lists (read from L2 when many queries share a list), integer
 // popcount work per row, and the raw vector of each survivor only. At
 // small batches most SMs idle: one block per query.
-#include "topk_common.cuh"
+#include "bq_estimate.cuh"
 
 namespace raft_tpu_torch {
 
-constexpr int kBqThreads = 256;
-constexpr int kBqWarps = kBqThreads / 32;
 constexpr int kChunk = 1024;        // rows estimated between two merges
-constexpr int kMaxQueryBits = 8;
-
-enum ReduceOp { kMin = 0, kMax = 1 };
-
-template <int OP>
-__device__ __forceinline__ float combine(float a, float b) {
-  return OP == kMin ? fminf(a, b) : fmaxf(a, b);
-}
-
-// Block-wide reduction of one value per thread; every thread gets the
-// result. `red` holds kBqWarps floats of shared scratch.
-// sum_e a[e] * b[e] over e < n, in tree_sum's order: the products are
-// rounded, zero-padded to 32 * C lanes (C a power of two, 32 * C >= n),
-// and the upper half of the lanes is added to the lower half until one
-// is left. Lane l holds lanes l + 32 c; the halvings over c run in its
-// registers, the last five across the warp. Every lane gets the sum.
-template <int C>
-__device__ __forceinline__ float warp_tree_dot(const float* a,
-                                               const float* b, int n,
-                                               int lane) {
-  float v[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int e = lane + 32 * c;
-    v[c] = e < n ? __fmul_rn(a[e], b[e]) : 0.f;
-  }
-#pragma unroll
-  for (int h = C / 2; h >= 1; h >>= 1)
-#pragma unroll
-    for (int c = 0; c < h; ++c) v[c] = __fadd_rn(v[c], v[c + h]);
-  float s = v[0];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
-  return s;
-}
-
-template <int OP>
-__device__ float block_reduce(float v, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = combine<OP>(v, __shfl_xor_sync(kFull, v, o));
-  __syncthreads();  // `red` may still be read by the previous reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kBqWarps; ++w) r = combine<OP>(r, red[w]);
-  return r;
-}
 
 // C: lanes per thread of the tree sums, dim_ext <= 32 * C
 template <int C>
@@ -108,7 +57,6 @@ __global__ void __launch_bounds__(kBqThreads) bq_scan_kernel(
   const int row = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int W = de >> 5, words = bits * W;
-  const int levels = (1 << qbits) - 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qf = reinterpret_cast<float*>(smem_raw);  // d
@@ -143,39 +91,8 @@ __global__ void __launch_bounds__(kBqThreads) bq_scan_kernel(
     const float* crot = Crot + lid * de;
 
     // ---- the query side of this list: q~, lo/hi, |q~|^2, <Rq, Rc>
-    float lo_p = CUDART_INF_F, hi_p = -CUDART_INF_F;
-    for (int t = tid; t < de; t += kBqThreads) {
-      const float v = ip_metric ? qr[t] : __fsub_rn(qr[t], crot[t]);
-      qt[t] = v;
-      lo_p = fminf(lo_p, v);
-      hi_p = fmaxf(hi_p, v);
-    }
-    const float lo = block_reduce<kMin>(lo_p, red);
-    const float hi = block_reduce<kMax>(hi_p, red);  // qt is written
-    if (warp == 0) {
-      const float s2 = warp_tree_dot<C>(qt, qt, de, lane);
-      const float sip = ip_metric ? warp_tree_dot<C>(qr, crot, de, lane) : 0.f;
-      if (lane == 0) {
-        sums[0] = s2;
-        sums[1] = sip;
-      }
-    }
-    const float delta =
-        fmaxf(__fdiv_rn(__fsub_rn(hi, lo), (float)levels), 1e-30f);
-    // quantize and pack the bit-planes: one warp per 32-lane word, the
-    // ballot of bit j over the lanes is plane j's word
-    for (int w = warp; w < W; w += kBqWarps) {
-      const float v = rintf(__fdiv_rn(__fsub_rn(qt[w * 32 + lane], lo), delta));
-      const int u = (int)fminf(fmaxf(v, 0.f), (float)levels);
-      for (int jb = 0; jb < qbits; ++jb) {
-        const unsigned b = __ballot_sync(kFull, (u >> jb) & 1);
-        if (lane == 0) uw[jb * W + w] = (int)b;
-      }
-    }
-    __syncthreads();
-    const float qc2 = sums[0], base_ip = sums[1];
-    const float qcn = __fsqrt_rn(qc2);
-    const float qc2c = fmaxf(qc2, 0.f);
+    const BqQuery bq = bq_query_side<C>(qr, crot, qt, uw, red, sums, de,
+                                        qbits, ip_metric);
     const float kth = ld[k - 1];  // the threshold of the whole list
     const float* list_rn = rnorm + lid * m;
     const float* list_ew = errw + lid * m;
@@ -190,39 +107,11 @@ __global__ void __launch_bounds__(kBqThreads) bq_scan_kernel(
       // ---- estimate and prune
       for (int r = m0 + tid; r < m1; r += kBqThreads) {
         if (list_ids[r] < 0) continue;  // padding or filtered
-        const float rn = list_rn[r];
-        const int* cw = list_codes + (size_t)r * words;
-        float cross = 0.f;
-        for (int lev = 0; lev < bits; ++lev) {
-          int pcc = 0, acc = 0;
-          for (int w = 0; w < W; ++w) {
-            const int c = cw[lev * W + w];
-            pcc += __popc(c);
-            for (int jb = 0; jb < qbits; ++jb)
-              acc += __popc(uw[jb * W + w] ^ c) << jb;
-          }
-          // sum_j 2^j (pcc - popc(u_j ^ c)), an exact integer
-          const int ius = levels * pcc - acc;
-          const float ssum = (float)(2 * pcc - de);
-          const float qs =
-              __fadd_rn(__fmul_rn(delta, (float)ius), __fmul_rn(lo, ssum));
-          const float a = __fmul_rn(rn, list_cf[(size_t)r * bits + lev]);
-          cross = __fadd_rn(cross, __fmul_rn(a, qs));
-        }
-        float est;
-        if (ip_metric)
-          est = -__fadd_rn(base_ip, cross);
-        else
-          est = __fsub_rn(__fadd_rn(qc2c, __fmul_rn(rn, rn)),
-                          __fmul_rn(2.f, cross));
-        const float ew = list_ew[r];
-        const float recon2 = __fadd_rn(__fmul_rn(rn, rn), __fmul_rn(ew, ew));
-        const float t1 = __fmul_rn(qcn, ew);
-        const float rot = __fdiv_rn(__fmul_rn(t1, t1), (float)de);
-        const float qnt =
-            __fdiv_rn(__fmul_rn(__fmul_rn(delta, delta), recon2), 12.f);
-        const float margin = __fmul_rn(eps2, __fsqrt_rn(__fadd_rn(rot, qnt)));
-        if (__fsub_rn(est, margin) < kth) cidx[atomicAdd(&ncand, 1)] = r;
+        const float lb = bq_lower_bound(
+            list_codes + (size_t)r * words, list_cf + (size_t)r * bits,
+            list_rn[r], list_ew[r], uw, W, bits, qbits, de, bq, ip_metric,
+            eps2);
+        if (lb < kth) cidx[atomicAdd(&ncand, 1)] = r;
       }
       __syncthreads();
       const int nc = ncand;

@@ -1,1 +1,1 @@
-"""Nearest-neighbor indexes: brute force and IVF-Flat."""
+"""Nearest-neighbor indexes: brute force, IVF-Flat, IVF-BQ and CAGRA."""

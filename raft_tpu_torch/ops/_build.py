@@ -40,6 +40,9 @@ SIGNATURES = {
                 [_P] * 12 + [_I] * 9 + [_F] + [_P] * 4),
     "select_k": ("raft_select_k",
                  [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "beam_search": ("raft_beam_search",
+                    [_P, _P, _I, _P, _I, _I, _P, _I, _P] + [_I] * 7 + [_P]
+                    + [_I] * 5 + [_P, _P, _F, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -36,9 +36,17 @@ and the rest of the float work is op for op the same: the two engines'
 prune decisions, survivor counts, distances and ids are bit-identical.
 
 ``bq_list_major_scan.launches`` counts the kernel's launches.
+
+The per-row **record plane** of the CAGRA beam search's BQ traversal
+(:func:`bq_record_geometry`, :func:`pack_bq_records`,
+:func:`unpack_bq_records`) lives here too, byte for byte the JAX
+package's layout, and :func:`_block_estimate` also scores a separate row
+set per query (the beam's candidates).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -171,7 +179,12 @@ def _estimate_block(qt, codes_wb, rnorm_row, cfac_t, *, dim_ext: int,
     (m, bits·W) the packed sign words, ``rnorm_row`` (1, m) and
     ``cfac_t`` (bits, m) the corrections. Returns ``(cross (q, m),
     delta (q, 1))``, op for op as the JAX package's ``_estimate_block``:
-    ``<q~, s> = delta·<u, s> + lo·Σs`` with the integer parts exact."""
+    ``<q~, s> = delta·<u, s> + lo·Σs`` with the integer parts exact.
+
+    Each query may instead score its own m rows (the beam search's
+    candidates): ``codes_wb`` (q, m, bits·W), ``rnorm_row`` (q, m) and
+    ``cfac_t`` (bits, q, m); the arithmetic is the same, element by
+    element."""
     qt = qt[:, :dim_ext]
     q = qt.shape[0]
     w_cnt = dim_ext // 32
@@ -184,19 +197,19 @@ def _estimate_block(qt, codes_wb, rnorm_row, cfac_t, *, dim_ext: int,
     # packed query bit-planes: (q, W) int32 words per plane
     uw = [_pack_words(((u >> jbit) & 1).to(torch.bool))
           for jbit in range(query_bits)]
-    m = codes_wb.shape[0]
+    m = codes_wb.shape[-2]
     cross = qt.new_zeros((q, m))
     for lev in range(bits):
-        cw = codes_wb[:, lev * w_cnt:(lev + 1) * w_cnt]           # (m, W)
-        pcc = _popcount32(cw).sum(dim=1)                           # (m,)
+        cw = codes_wb[..., lev * w_cnt:(lev + 1) * w_cnt]      # (.., m, W)
+        pcc = _popcount32(cw).sum(dim=-1)                      # (.., m)
         ius = torch.zeros((q, m), dtype=torch.int64, device=qt.device)
         for jbit in range(query_bits):
-            acc = _popcount32(uw[jbit][:, None, :] ^ cw[None, :, :]).sum(
-                dim=2)                                             # (q, m)
-            ius = ius + ((pcc[None, :] - acc) << jbit)
+            acc = _popcount32(uw[jbit][:, None, :] ^ cw).sum(
+                dim=-1)                                        # (q, m)
+            ius = ius + ((pcc - acc) << jbit)
         ssum = (2 * pcc - dim_ext).to(torch.float32)
-        qs = delta * ius.to(torch.float32) + lo * ssum[None, :]
-        a = rnorm_row * cfac_t[lev:lev + 1, :]
+        qs = delta * ius.to(torch.float32) + lo * ssum
+        a = rnorm_row * cfac_t[lev]
         cross = cross + a * qs
     return cross, delta
 
@@ -227,6 +240,51 @@ def _block_estimate(qrot, crot, rnorm_row, errw_row, cfac_t, codes_wb, *,
     margin = estimator_margin(qcn, rnorm_row, errw_row, delta, dim_ext,
                               epsilon)
     return est, margin
+
+
+# ---------------------------------------------------------------------------
+# the per-row record plane of the beam search's BQ traversal
+# ---------------------------------------------------------------------------
+
+
+def bq_record_geometry(words: int, bits: int):
+    """Row geometry of the packed per-row BQ record plane, byte for byte
+    the JAX package's (the v5 CAGRA file carries it): a record is
+    ``words`` int32 code words, then ``rnorm | cfac[bits] | errw`` as
+    float32 bit patterns; records pad to a multiple of 4 lanes
+    (``rec_pad``) and ``rpt = 128 / gcd(rec_pad, 128)`` of them fill one
+    plane row of ``pw`` lanes. Returns ``(rec, rec_pad, rpt, pw)``."""
+    rec = words + bits + 2
+    rec_pad = -(-rec // 4) * 4
+    rpt = 128 // math.gcd(rec_pad, 128)
+    return rec, rec_pad, rpt, rpt * rec_pad
+
+
+def pack_bq_records(codes: torch.Tensor, rnorm: torch.Tensor,
+                    cfac: torch.Tensor, errw: torch.Tensor) -> torch.Tensor:
+    """Pack per-row estimator inputs into the record plane of
+    :func:`bq_record_geometry`: ``(ceil(n / rpt), pw)`` int32, pad
+    records all zero."""
+    n, words = codes.shape
+    bits = cfac.shape[1]
+    _, rec_pad, rpt, pw = bq_record_geometry(words, bits)
+    scal = torch.cat([rnorm[:, None], cfac, errw[:, None]], dim=1).to(
+        torch.float32).contiguous()
+    n_pad = -(-n // rpt) * rpt
+    rows = torch.zeros((n_pad, rec_pad), dtype=torch.int32,
+                       device=codes.device)
+    rows[:n, :words] = codes.to(torch.int32)
+    rows[:n, words:words + bits + 2] = scal.view(torch.int32)
+    return rows.reshape(n_pad // rpt, pw)
+
+
+def unpack_bq_records(records: torch.Tensor, n: int, words: int, bits: int):
+    """Exact inverse of :func:`pack_bq_records`: ``(codes (n, words)
+    int32, rnorm (n,), cfac (n, bits), errw (n,))``."""
+    _, rec_pad, _, _ = bq_record_geometry(words, bits)
+    rows = records.reshape(-1, rec_pad)[:n]
+    scal = rows[:, words:words + bits + 2].contiguous().view(torch.float32)
+    return rows[:, :words], scal[:, 0], scal[:, 1:1 + bits], scal[:, 1 + bits]
 
 
 def bq_list_major_scan(qf, qrot, centers_rot, codes, rnorm, cfac, errw,

@@ -7,10 +7,11 @@ imports JAX):
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Integer-valued inputs make every product exact: ids must be equal and
-distances equal to float32 rounding (1e-6 relative). The IVF-BQ scan
-runs on Gaussian data; it takes every sum in the plain version's order
-(``ops.bq_scan.tree_sum``), so its distances, ids and the rows each
-query reranked equal the plain version's bit for bit."""
+distances equal to float32 rounding (1e-6 relative). The IVF-BQ scan and
+the CAGRA beam search run on Gaussian data; they take every sum in their
+plain versions' order (``ops.bq_scan.tree_sum``), so their distances,
+ids and counts (rows reranked per query; live iterations, candidates and
+rows scored per query) equal the plain versions' bit for bit."""
 
 from __future__ import annotations
 
@@ -152,6 +153,136 @@ def test_bq_scan_kernel_matches_plain(dev, bq_indexes, bits, metric, k):
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[2], want[2])
         assert int(got[2][1]) == 0 and (got[1][1] == -1).all()
+
+
+def _beam_inputs(seed: int, n: int, d: int, q: int, deg: int, w: int,
+                 L: int, samplings: int):
+    """A clustered dataset, its exact k-NN graph (degree ``deg``, some
+    entries -1), random seeds with -1 holes, ragged row budgets with a
+    0, and queries, on the card."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((20, d)) * 3
+    x = (centers[rng.integers(0, 20, n)]
+         + rng.standard_normal((n, d))).astype(np.float32)
+    qs = (centers[rng.integers(0, 20, q)]
+          + rng.standard_normal((q, d))).astype(np.float32)
+    xt = torch.from_numpy(x)
+    dist = (xt * xt).sum(1)[:, None] + (xt * xt).sum(1)[None] - 2 * xt @ xt.T
+    dist.fill_diagonal_(float("inf"))
+    graph = torch.sort(dist, dim=1, stable=True).indices[:, :deg].to(
+        torch.int32)
+    graph[::7, deg - 3:] = -1
+    c = w * deg
+    s = -(-max(L, c) * samplings // c) * c
+    seeds = torch.from_numpy(rng.integers(0, n, (q, s))).to(torch.int32)
+    seeds[:, 1::5] = -1
+    row_iters = torch.from_numpy(rng.integers(0, L // w + 24, q)).to(
+        torch.int32)
+    row_iters[0] = 0
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(qs).cuda(),
+            graph.cuda(), seeds.cuda(), row_iters.cuda())
+
+
+def _bq_plane(x: torch.Tensor, bits: int, seed: int):
+    """The record plane of a BQ traversal index over x (the CAGRA build's
+    recipe: pinned rotation, codes about the global mean)."""
+    from raft_tpu_torch.ops.bq_scan import pack_bq_records
+
+    d = x.shape[1]
+    de = -(-d // 32) * 32
+    rot = torch.from_numpy(ivf_bq._pinned_rotation(seed, de, d)).cuda()
+    center = x.mean(dim=0, keepdim=True)
+    codes, rnorm, cfac, errw = ivf_bq._encode((x - center) @ rot.T, bits)
+    return pack_bq_records(codes, rnorm, cfac, errw), rot, center @ rot.T
+
+
+@pytest.mark.parametrize("case", [
+    # (metric, dtype, bq bits, k, L, w, deg, q, samplings)
+    (DistanceType.L2Expanded, torch.float32, 0, 10, 64, 4, 32, 60, 1),
+    (DistanceType.L2SqrtExpanded, torch.bfloat16, 0, 1, 32, 1, 32, 10, 2),
+    (DistanceType.InnerProduct, torch.float32, 0, 64, 128, 4, 64, 30, 1),
+    (DistanceType.L2Expanded, torch.int8, 0, 10, 256, 2, 64, 20, 1),
+    (DistanceType.L2Expanded, torch.float32, 0, 10, 512, 4, 64, 8, 1),
+    (DistanceType.L2Expanded, torch.float32, 1, 10, 64, 4, 32, 60, 2),
+    (DistanceType.InnerProduct, torch.bfloat16, 2, 10, 128, 4, 32, 30, 1),
+    (DistanceType.L2Expanded, torch.int8, 2, 1, 32, 1, 64, 20, 2),
+    # neither L nor C = w * deg a power of two
+    (DistanceType.L2Expanded, torch.float32, 1, 7, 100, 3, 24, 33, 2),
+], ids=lambda c: f"{c[0].name}-{str(c[1])[6:]}-bq{c[2]}-k{c[3]}-L{c[4]}"
+                 f"-w{c[5]}-deg{c[6]}")
+def test_beam_search_kernel_equals_plain(dev, case):
+    """The CAGRA walk's kernel takes every sum in the plain version's
+    order: ids, distances and the per-query counts are equal, on
+    Gaussian data, BQ traversal included."""
+    from raft_tpu_torch.ops.beam_search import beam_search, beam_search_plain
+
+    metric, dtype, bits, k, L, w, deg, q, samplings = case
+    x, qs, graph, seeds, row_iters = _beam_inputs(
+        k + L + w + deg + q + bits, 2000, 100, q, deg, w, L, samplings)
+    if dtype == torch.int8:
+        data = torch.clamp(torch.round(x * 20), -127, 127).to(torch.int8)
+        qs = torch.round(qs * 20)
+    else:
+        data = x.to(dtype)
+    kw = dict(row_iters=row_iters if q > 10 else None)
+    if bits:
+        recs, rot, crot = _bq_plane(data.to(torch.float32), bits, 5)
+        kw.update(bq_records=recs, bq_qrot=qs @ rot.T, bq_crot=crot,
+                  bq_bits=bits, bq_query_bits=auto_query_bits(bits))
+    args = (qs, data, graph, seeds, k, L, w, L // w + 24, metric)
+    before = beam_search.launches
+    got = beam_search(*args, **kw)
+    assert beam_search.launches == before + 1
+    want = beam_search_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2])
+    assert int(want[2][:, 1].sum()) > 0
+    if kw["row_iters"] is not None:
+        assert int(got[2][0, 0]) == 0       # a zero budget walks nothing
+    if bits and metric != DistanceType.InnerProduct:
+        # the estimate prunes: fewer rows are scored than proposed (with
+        # two seed chunks the buffer is full before the second one)
+        assert int(want[2][:, 2].sum()) < int(want[2][:, 1].sum())
+
+
+def test_cagra_search_auto_launches_the_kernel(dev):
+    """On a CUDA index, ``algo="auto"`` walks with the kernel, one launch
+    per query tile, a sample filter takes the ``torch`` engine, and
+    shapes past the kernel's limits raise."""
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops.beam_search import beam_search
+
+    x, qs, _, _, _ = _beam_inputs(9, 3000, 64, 300, 16, 1, 32, 1)
+    index = cagra.build(Resources(device="cuda"), cagra.CagraIndexParams(
+        graph_degree=16, intermediate_graph_degree=32,
+        build_algo=cagra.BuildAlgo.CLUSTER_JOIN, bq_bits=1), x)
+    sp = cagra.CagraSearchParams(itopk_size=64, search_width=2,
+                                 query_tile=128)
+    before = beam_search.launches
+    d, i = cagra.search(None, sp, index, qs, 10)
+    assert beam_search.launches == before + 3        # tiles 128, 128, 44
+    truth = torch.sort((x * x).sum(1)[None] - 2 * qs @ x.T, dim=1,
+                       stable=True).indices[:, :10]
+    hit = (i[:, :, None] == truth[:, None, :]).any(dim=2)
+    assert float(hit.float().mean()) >= 0.9
+    mask = np.ones(3000, bool)
+    mask[::2] = False
+    before = beam_search.launches
+    _, fi = cagra.search(None, sp, index, qs, 10,
+                         sample_filter=Bitset.from_mask(mask))
+    assert beam_search.launches == before
+    assert bool((fi % 2 == 1).all())
+    # past the kernel's shared-memory shapes ``auto`` raises, never walks
+    # with the plain version on the card
+    for kw, msg in (({"itopk_size": 513}, "itopk L <= 512"),
+                    ({"search_width": 17}, "w\\*deg <= 256")):
+        before = beam_search.launches
+        with pytest.raises(Exception, match=msg):
+            cagra.search(None, cagra.CagraSearchParams(**kw), index, qs, 10)
+        assert beam_search.launches == before
 
 
 @pytest.mark.parametrize("c", [12, 15, 128])

@@ -53,7 +53,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, raft_tpu_torch, raft_tpu_torch.neighbors.ivf_flat, "
             "raft_tpu_torch.neighbors.brute_force, raft_tpu_torch.ops._build, "
             "raft_tpu_torch.neighbors.ivf_bq, raft_tpu_torch.neighbors.refine, "
-            "raft_tpu_torch.matrix.select_k; "
+            "raft_tpu_torch.matrix.select_k, raft_tpu_torch.neighbors.cagra, "
+            "raft_tpu_torch.neighbors.nn_descent, "
+            "raft_tpu_torch.neighbors.cluster_join, "
+            "raft_tpu_torch.neighbors._exact, raft_tpu_torch.ops.beam_search; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'raft_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
