@@ -36,7 +36,19 @@ non-zero exit (nothing is caught and passed over):
             (ops/bq_scan.tree_sum): their distances, ids and counts
             (rows reranked per query; live iterations, candidates and
             rows scored per query) must equal the plain versions' bit
-            for bit.
+            for bit. The tiered scan (hot lists on the card, cold lists
+            in pinned host memory) on integer-valued and Gaussian data,
+            L2 and IP, k in {1, 10, 128}, q in {1, 10, 500}, sentinel
+            and repeated probes, -1 padding, a 1-D filter, and splits of
+            all-but-one hot, all-but-one cold and alternating: it equals
+            its plain version (ids exactly on integer data) and the
+            all-device scan kernel on the un-split planes bit for bit; a
+            pageable or device cold plane is refused, by the wrapper and
+            by the C entry. stream_read_sum over float32 and bfloat16,
+            n in {1, 1000, 2^22}, d in {100, 128}: on integer data equal
+            to its plain version and the float64 sum; on Gaussian data
+            both within 1e-6 sum|x| of the float64 sum per column (the
+            summation orders differ).
 4. main     SIFT-1M's shape (1,000,000 x 128 float32, 10,000 queries,
             k=10) on clustered data made from --seed. The IVF-Flat path:
             brute-force ground truth through the fused kernel in
@@ -44,7 +56,23 @@ non-zero exit (nothing is caught and passed over):
             sift-128-euclidean config); search at n_probes 32 and 128,
             batch 10 and 500 (recall@10, median ms per batch);
             n_probes=1024 equals brute force ties aside; save -> load ->
-            search is bit-identical. The IVF-BQ path on the same data:
+            search is bit-identical. The tiered path on the same index:
+            build_tiered(hot_fraction=0.5) (build s, hot and cold bytes,
+            the cold plane pinned and modeled host-resident, device
+            memory grown by the hot tier only); searches at n_probes 32
+            and 128, batch 10 and 500, each equal to the all-device
+            search bit for bit (ids and distances), with recall@10,
+            median ms and the cold bytes each request probes; one
+            placement epoch (batch-500 traffic at the centers of two
+            cold lists, probe_histogram window, plan_epoch(max_swaps=4),
+            apply_plan(width=4)): both lists hot, tier.swap_bytes = 2 x
+            swaps x block bytes, searches still bit-identical; the dual
+            roofline (stream_read_sum over the hot plane: device memory
+            GB/s; a timed pinned -> device copy of the cold plane: host
+            link GB/s; the stream kernel over the pinned plane in place:
+            what a kernel's own loads get) and each request's hot and
+            cold GB/s against them. The all-device scan must not launch
+            during the tiered searches. The IVF-BQ path on the same data:
             ivf_bq.build (n_lists=1024, bits 1, the vector plane kept);
             the same four searches (recall@10, median ms, rows
             reranked as a share of rows probed); n_probes=1024 recall
@@ -65,14 +93,17 @@ non-zero exit (nothing is caught and passed over):
             each of its kernels must have launched.
 5. times    per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
-            bound (the larger of bytes over 3.35 TB/s and operations
+            bound (the larger of bytes over 3.35 TB/s, host-link bytes
+            over 64 GB/s (PCIe Gen5 x16, one direction), and operations
             over their type's peak: float32 at 67 TFLOP/s, popcount and
             other int32 at 16 and 64 per clock per SM over 132 SMs at
             1.98 GHz; the H100 SXM's published figures) and one PyTorch
-            yardstick call's ms.
+            yardstick call's ms. The tiered scan's hot and cold GB/s
+            are printed against the two rooflines of the main phase.
 
 The line before the last is a JSON object with one record per kernel
-(fused_knn, list_major_scan, bq_scan, select_k, beam_search);
+(fused_knn, list_major_scan, bq_scan, select_k, beam_search, tier_scan,
+stream_read_sum);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the raft_tpu_torch package beside it, the script exits
 non-zero and prints no result.
@@ -91,6 +122,9 @@ import time
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+# PCIe Gen5 x16, one direction: half of the data sheet's 128 GB/s, which
+# counts both
+HOST_LINK_BYTES_PER_S = 64e9
 # operations per second by type: float32 outside the tensor cores (data
 # sheet); __popc and other 32-bit integer ops at 16 and 64 per clock per
 # SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
@@ -289,6 +323,8 @@ def phase_kernels(torch, seed: int) -> None:
     kernels_bq(torch, seed)
     kernels_select(torch, seed)
     kernels_beam(torch, seed)
+    kernels_tier(torch, seed)
+    kernels_stream(torch, seed)
 
 
 def kernels_bq(torch, seed: int) -> None:
@@ -496,6 +532,162 @@ def kernels_beam(torch, seed: int) -> None:
         "scored in all, the same counts per query)")
 
 
+def _split_tiers(torch, data, hot_lists, cold_lists):
+    """A tiered split of a packed (n_lists, m, d) plane on the card: the
+    hot lists' blocks stay on the card, the cold lists' go to pinned host
+    memory; with the slot maps."""
+    from raft_tpu_torch.neighbors.tiered import _slot_maps
+
+    hmap, cmap = _slot_maps(np.asarray(hot_lists), np.asarray(cold_lists),
+                            data.shape[0])
+    idx = torch.as_tensor(np.asarray(hot_lists), device=data.device)
+    cdx = torch.as_tensor(np.asarray(cold_lists), device=data.device)
+    return (data[idx].contiguous(), data[cdx].cpu().pin_memory(),
+            torch.from_numpy(hmap).to(data.device),
+            torch.from_numpy(cmap).to(data.device))
+
+
+def kernels_tier(torch, seed: int) -> None:
+    """The tiered scan kernel against its plain version and against the
+    all-device scan kernel on the un-split planes, on a 64-list packed
+    index with -1 padding; then a pageable and a device cold plane, which
+    the wrapper and the C entry must refuse."""
+    from raft_tpu_torch.core.validation import RaftError
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors._packing import pack_padded_lists, padded_extent
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops.ivf_scan import list_major_scan
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 4)
+    n_lists, ns, d = 64, 12_000, 128
+    labels = torch.from_numpy(rng.integers(0, n_lists, ns)).to(dev)
+    m = padded_extent(torch.bincount(labels, minlength=n_lists))
+    ids = torch.arange(ns, dtype=torch.int32, device=dev)
+    probes = torch.from_numpy(rng.integers(0, n_lists, (500, 12))).to(
+        dev, torch.int32)
+    probes[::3, 5:] = n_lists                     # sentinel slots
+    probes[1, 1] = probes[1, 0]                   # repeated probe
+    filt = torch.from_numpy(rng.integers(0, 2**31, -(-ns // 32))).to(
+        dev, torch.int32)
+    lists = np.arange(n_lists)
+    splits = {"alternate": (lists[::2], lists[1::2]),
+              "all-but-one hot": (lists[1:], lists[:1]),
+              "all-but-one cold": (lists[7:8], np.delete(lists, 7))}
+    kq_all = [(k, q) for k in (1, 10, 128) for q in (1, 10, 500)]
+    kq_few = [(1, 500), (10, 10), (128, 1)]
+    cases = 0
+    for exact in (True, False):
+        data = (_int_data(rng, (ns, d)) if exact
+                else rng.standard_normal((ns, d)).astype(np.float32))
+        data[100] = data[7]
+        (packed, indices), _ = pack_padded_lists(
+            labels, n_lists, m, [(torch.from_numpy(data).to(dev), 0),
+                                 (ids, -1)])
+        norms = torch.where(indices >= 0, (packed * packed).sum(dim=2),
+                            torch.full_like(indices, float("inf"),
+                                            dtype=torch.float32))
+        qf = torch.from_numpy(data[:500] + 0.5 if exact
+                              else data[:500] * 0.9).to(dev)
+        for split, (hot_lists, cold_lists) in splits.items():
+            hot, cold, hmap, cmap = _split_tiers(torch, packed, hot_lists,
+                                                 cold_lists)
+            for metric in (DistanceType.L2Expanded,
+                           DistanceType.InnerProduct):
+                for fw in (None, filt):
+                    for k, q in (kq_all if split == "alternate" else kq_few):
+                        args = (qf[:q], hot, cold, hmap, cmap, norms,
+                                indices, probes[:q], fw)
+                        name = (f"tier_scan {split} {metric.name} k={k} "
+                                f"q={q} filter={fw is not None} "
+                                f"exact={exact}")
+                        got = tiered_list_major_scan(*args, k=k,
+                                                     metric=metric,
+                                                     engine="cuda")
+                        whole = list_major_scan(
+                            qf[:q], packed, norms, indices, probes[:q], fw,
+                            k=k, metric=metric, engine="cuda")
+                        torch.cuda.synchronize()
+                        if not (torch.equal(got[0], whole[0])
+                                and torch.equal(got[1], whole[1])):
+                            fail(f"{name}: differs from the all-device scan "
+                                 "kernel on the un-split planes")
+                        want = tiered_list_major_scan(*args, k=k,
+                                                      metric=metric,
+                                                      engine="torch")
+                        compare(name, got, want, exact)
+                        cases += 1
+    # a cold plane that is not page-locked host memory is refused
+    z = torch.zeros(64, dtype=torch.int32, device=dev)
+    for what, bad in (("pageable", cold.clone()), ("device", cold.to(dev))):
+        try:
+            tiered_list_major_scan(qf, hot, bad, hmap, cmap, norms, indices,
+                                   probes, k=10,
+                                   metric=DistanceType.L2Expanded,
+                                   engine="cuda")
+        except RaftError:
+            pass
+        else:
+            fail(f"tier_scan took a {what} cold plane")
+        err = _build.load("tier_scan")(
+            z.data_ptr(), hot.data_ptr(), bad.data_ptr(), *[z.data_ptr()] * 8,
+            1, 1, 1, 1, 1, 0, 0, 0, *[z.data_ptr()] * 4,
+            torch.cuda.current_stream().cuda_stream)
+        if err == 0:
+            fail(f"the tier_scan C entry took a {what} cold plane")
+    log(f"[kernels] tier_scan: {cases} cases equal the all-device scan "
+        "kernel bit for bit and agree with the plain version; pageable "
+        "and device cold planes refused by the wrapper and the C entry")
+
+
+def kernels_stream(torch, seed: int) -> None:
+    """stream_read_sum against its plain version and the float64 sum:
+    integer data exactly (every partial sum is an integer below 2^24,
+    exact in any order), Gaussian data within 1e-6 sum|x| per column."""
+    from raft_tpu_torch.ops.fused_topk import (
+        stream_read_sum,
+        stream_read_sum_plain,
+    )
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 5)
+    cases = 0
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 1000, 1 << 22):
+            for d in (100, 128):
+                for exact in (True, False):
+                    x = (torch.randint(-3, 4, (n, d), generator=g,
+                                       device="cuda").float() if exact
+                         else torch.randn(n, d, generator=g, device="cuda"))
+                    x = x.to(dtype)
+                    got = stream_read_sum(x)
+                    want = stream_read_sum_plain(x)
+                    ref = x.double().sum(dim=0, keepdim=True)
+                    name = f"stream_read_sum {dtype} n={n} d={d}"
+                    if exact:
+                        if not (torch.equal(got, want)
+                                and torch.equal(got.double(), ref)):
+                            fail(f"{name}: integer sums differ")
+                    else:
+                        scale = x.double().abs().sum(dim=0, keepdim=True)
+                        for what, v in (("kernel", got), ("plain", want)):
+                            e = (v.double() - ref).abs() / scale
+                            if bool((e > 1e-6).any()):
+                                fail(f"{name}: {what} off the float64 sum "
+                                     "by more than 1e-6 sum|x|")
+                        worst = max(worst, float(
+                            ((got.double() - ref).abs() / scale).max()))
+                    if not torch.equal(stream_read_sum(x), got):
+                        fail(f"{name}: differs from run to run")
+                    cases += 1
+    log(f"[kernels] stream_read_sum: {cases} cases; integer data equal to "
+        "the plain version and the float64 sum, Gaussian data within "
+        f"{worst:.3g} sum|x| of the float64 sum (limit 1e-6); the same "
+        "result run to run")
+
+
 def make_data(torch, seed: int):
     """Clustered float32 data at SIFT-1M's shape, made on the card."""
     g = torch.Generator(device="cuda")
@@ -517,12 +709,18 @@ def _counted():
     """Every kernel wrapper's launch counter: name -> wrapper."""
     from raft_tpu_torch.ops.beam_search import beam_search
     from raft_tpu_torch.ops.bq_scan import bq_list_major_scan
-    from raft_tpu_torch.ops.fused_topk import fused_knn, select_k_tiles
+    from raft_tpu_torch.ops.fused_topk import (
+        fused_knn,
+        select_k_tiles,
+        stream_read_sum,
+    )
     from raft_tpu_torch.ops.ivf_scan import list_major_scan
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
 
     return {"fused_knn": fused_knn, "list_major_scan": list_major_scan,
             "bq_scan": bq_list_major_scan, "select_k": select_k_tiles,
-            "beam_search": beam_search}
+            "beam_search": beam_search, "tier_scan": tiered_list_major_scan,
+            "stream_read_sum": stream_read_sum}
 
 
 def reset_launches() -> None:
@@ -629,7 +827,206 @@ def phase_main(torch, seed: int, state: dict) -> None:
                                       "IVF-Flat")
     state.update(res=res, x=x, queries=queries, index=index, bf=bf,
                  gt_d=gt_d, gt_i=gt_i)
+    main_tiered(torch, state)
     main_bq(torch, state)
+
+
+def _probed_rows(torch, t, probes):
+    """Rows of the probed-list union of one request, split by tier: (hot
+    rows, cold rows, cold lists), from the tier fetch plan of the union."""
+    from raft_tpu_torch.ops.ivf_scan import unique_lists
+    from raft_tpu_torch.ops.tier_scan import tier_fetch_plan
+
+    uniq = unique_lists(probes, t.n_lists)
+    _, cold_fetch, _ = tier_fetch_plan(uniq, t.hot_slot_map,
+                                       t.cold_slot_map, t.n_lists)
+    live = uniq < t.n_lists
+    sizes = t.list_sizes.to(torch.int64)[uniq.clamp(max=t.n_lists - 1)
+                                         .to(torch.int64)]
+    cold = live & (cold_fetch >= 0)
+    hot = live & (cold_fetch < 0)
+    return int(sizes[hot].sum()), int(sizes[cold].sum()), int(cold.sum())
+
+
+def main_tiered(torch, state: dict) -> None:
+    """The tiered path on the IVF-Flat path's index: half the lists' blocks
+    in pinned host memory; searches bit-identical to the all-device index,
+    one placement epoch, and the dual roofline."""
+    from raft_tpu_torch.core import memwatch, tracing
+    from raft_tpu_torch.neighbors import ivf_flat, tiered
+    from raft_tpu_torch.ops.fused_topk import stream_read_sum
+    from raft_tpu_torch.ops.tier_scan import resolve_tier_engine
+    from raft_tpu_torch.serving.placement import plan_epoch
+
+    res, index, queries, gt_i = (state["res"], state["index"],
+                                 state["queries"], state["gt_i"])
+    # the all-device answers each tiered request must equal, first (their
+    # scan launches are not the tiered path's)
+    requests = [(p, b, n_q) for p in (32, 128)
+                for b, n_q in ((10, 1000), (500, N_QUERIES))]
+    want = {(p, b): [ivf_flat.search(res, ivf_flat.IvfFlatSearchParams(
+        n_probes=p), index, queries[s:s + b], K) for s in range(0, n_q, b)]
+        for p, b, n_q in requests}
+    torch.cuda.synchronize()
+
+    reset_launches()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    t = tiered.build_tiered(index, hot_fraction=0.5)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    grew = torch.cuda.memory_allocated() - alloc0
+    model = memwatch.index_memory_model(t)
+    mirrors = t.hot_lists.nbytes + t.cold_lists.nbytes
+    log(f"[main] tiered.build_tiered hot_fraction=0.5: {build_s:.3f} s, "
+        f"{t.n_hot} hot lists ({t.hot_bytes} bytes on the card), "
+        f"{t.n_cold} cold ({t.cold_bytes} bytes), block {t.block_bytes} "
+        f"bytes; cold plane pinned: {t.cold_data.is_pinned()}, memory_tier "
+        f"{memwatch.memory_tier(t.cold_data)}; modeled host-resident "
+        f"{model['host_resident_bytes']} bytes (cold plane + {mirrors} "
+        f"bytes of host list mirrors); device memory grew {grew} bytes")
+    if not (t.host_resident and t.cold_data.is_pinned()
+            and memwatch.memory_tier(t.cold_data) == "host"):
+        fail("the cold tier is not in pinned host memory")
+    if model["host_resident_bytes"] != t.cold_bytes + mirrors:
+        fail("the memory model does not count the cold tier as host bytes")
+    if not 0 <= grew - t.hot_bytes < (1 << 20):
+        fail(f"device memory grew {grew} bytes over a {t.hot_bytes}-byte "
+             "hot tier")
+
+    def run_requests(tag: str, key: str, n_first=None) -> None:
+        for p, b, n_q in requests:
+            n_q = min(n_q, n_first or n_q)
+            sp = tiered.TieredSearchParams(n_probes=p)
+            outs, times, hot_b, cold_b = [], [], [], []
+            for j, s in enumerate(range(0, n_q, b)):
+                t1 = time.perf_counter()
+                out = tiered.search(res, sp, t, queries[s:s + b], K)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                ref = want[p, b][j]
+                if not (torch.equal(out[0], ref[0])
+                        and torch.equal(out[1], ref[1])):
+                    fail(f"tiered search n_probes={p} batch={b} request {j} "
+                         f"{tag} differs from the all-device search")
+                outs.append(out)
+            for s in range(0, n_q, b):
+                probes = ivf_flat.coarse_probes(
+                    queries[s:s + b], t.centers, t.center_norms, t.metric,
+                    p, "exact")
+                hot_rows, cold_rows, _ = _probed_rows(torch, t, probes)
+                hot_b.append(hot_rows * DIM * 4)
+                cold_b.append(cold_rows * DIM * 4)
+            r = recall(torch.cat([o[1] for o in outs]), gt_i[:n_q])
+            ms = float(np.median(times[1:]))
+            state[f"tier_recall_p{p}_b{b}{key}"] = r
+            state[f"tier_ms_p{p}_b{b}{key}"] = ms
+            state[f"tier_hot_bytes_p{p}_b{b}{key}"] = float(np.mean(hot_b))
+            state[f"tier_cold_bytes_p{p}_b{b}{key}"] = float(np.mean(cold_b))
+            log(f"[main] tiered.search n_probes={p} batch={b} {tag}: "
+                f"recall@10 {r:.4f} over {n_q} queries, median {ms:.3f} ms "
+                f"per batch (all-device {state[f'ms_p{p}_b{b}']:.3f} ms), "
+                f"cold bytes probed per request mean "
+                f"{np.mean(cold_b):.0f} (min {min(cold_b)}, max "
+                f"{max(cold_b)}); ids and distances equal the all-device "
+                "search")
+
+    run_requests("before the epoch", "")
+
+    # one placement epoch: batch-500 traffic at the centers of two cold
+    # lists. The traffic probes one list a query, so the window holds the
+    # two targets alone and the plan must promote exactly them.
+    dev = t.centers.device
+    targets = [int(t.cold_lists[0]), int(t.cold_lists[t.n_cold // 2])]
+    window = torch.zeros(t.n_lists, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    for lid in targets:
+        traffic = (t.centers[lid][None, :].expand(500, -1)
+                   + 0.01 * torch.randn(500, DIM, generator=g, device=dev))
+        hot, cold, hmap, cmap = t.tier_arrays()
+        *_, window = tiered._tiered_search(
+            traffic, t, hot, cold, hmap, cmap, None, window, n_probes=1,
+            k=K, coarse_algo="exact",
+            scan_engine=resolve_tier_engine("auto", hot_data=hot, k=K))
+    plan = plan_epoch(window.cpu().numpy(), t.hot_lists, t.cold_lists,
+                      max_swaps=4)
+    b0 = tracing.get_counter("tier.swap_bytes")
+    t0 = time.perf_counter()
+    moved = tiered.apply_plan(t, plan.promotions, plan.demotions, width=4)
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    swap_bytes = tracing.get_counter("tier.swap_bytes") - b0
+    n_swaps = len(plan.promotions)
+    log(f"[main] placement epoch: window {int(window.sum())} probes on "
+        f"lists {targets}, hot share {plan.hot_window_fraction:.3f}; plan "
+        f"promotes {list(plan.promotions)}, demotes "
+        f"{list(plan.demotions)}; apply_plan moved {moved} bytes in "
+        f"{epoch_ms:.2f} ms (tier.swap_bytes +{swap_bytes:.0f}), "
+        f"generation {t.generation}")
+    if sorted(plan.promotions) != sorted(targets):
+        fail(f"the epoch promoted {plan.promotions}, not {targets}")
+    if not all(int(t.hot_slot_map[lid]) >= 0 for lid in targets):
+        fail("a targeted list is not hot after the epoch")
+    if not swap_bytes == moved == 2 * n_swaps * t.block_bytes:
+        fail(f"swap bytes {swap_bytes} != 2 x {n_swaps} x {t.block_bytes}")
+    run_requests("after the epoch", "_after", n_first=1000)
+    scans = _counted()["list_major_scan"].launches
+    if scans != 0:
+        fail(f"the all-device scan launched {scans} times on the tiered path")
+
+    # the dual roofline: a streamed read of the hot plane (device memory)
+    # and a pinned -> device copy of the cold plane (host link)
+    hot_flat = t.hot_data.reshape(-1, DIM)
+    hbm_ms = median_ms(lambda: stream_read_sum(hot_flat), 10)
+    dst = torch.empty(t.cold_data.shape, dtype=t.cold_data.dtype,
+                      device=dev)
+    link_ms = median_ms(lambda: dst.copy_(t.cold_data, non_blocking=True), 5)
+    state["hbm_gbps"] = hot_flat.numel() * 4 / hbm_ms / 1e6
+    state["link_gbps"] = t.cold_bytes / link_ms / 1e6
+    log(f"[main] rooflines: stream_read_sum over the hot plane "
+        f"{tuple(hot_flat.shape)} {hbm_ms:.4f} ms = {state['hbm_gbps']:.1f} "
+        f"GB/s (device memory); pinned -> device copy of the cold plane "
+        f"({t.cold_bytes} bytes) {link_ms:.3f} ms = "
+        f"{state['link_gbps']:.2f} GB/s (host link)")
+    # what a kernel's own loads get from pinned host memory: the stream
+    # kernel run over the cold plane in place (16-byte loads); its sums
+    # must equal the same kernel's over the device copy
+    cold_flat = t.cold_data.reshape(-1, DIM)
+    zero_copy = _zero_copy_sum(torch, cold_flat)
+    if not torch.equal(zero_copy, stream_read_sum(dst.reshape(-1, DIM))):
+        fail("the stream kernel read the pinned cold plane wrongly")
+    del dst
+    zc_ms = median_ms(lambda: _zero_copy_sum(torch, cold_flat), 5)
+    state["zero_copy_gbps"] = t.cold_bytes / zc_ms / 1e6
+    log(f"[main] the stream kernel reading the pinned cold plane in place "
+        f"(16-byte loads): {zc_ms:.3f} ms = {state['zero_copy_gbps']:.2f} "
+        "GB/s")
+    for p, b, _ in requests:
+        ms = state[f"tier_ms_p{p}_b{b}"]
+        hot_gbps = state[f"tier_hot_bytes_p{p}_b{b}"] / ms / 1e6
+        cold_gbps = state[f"tier_cold_bytes_p{p}_b{b}"] / ms / 1e6
+        log(f"[main] tiered n_probes={p} batch={b}: per request, hot rows "
+            f"at {hot_gbps:.2f} GB/s ({100 * hot_gbps / state['hbm_gbps']:.3f}"
+            f"% of the device memory roofline), cold rows at "
+            f"{cold_gbps:.2f} GB/s ({100 * cold_gbps / state['link_gbps']:.1f}"
+            "% of the host link roofline)")
+    state["launches"].update(read_launches(("tier_scan", "stream_read_sum"),
+                                           "tiered"))
+    state.update(tiered=t, tier_build_s=build_s, tier_epoch_ms=epoch_ms,
+                 tier_grew=grew)
+
+
+
+def _zero_copy_sum(torch, x):
+    """csrc/stream_read.cu's kernel over a pinned host tensor, read in place
+    through the unified address space: what a kernel's own 16-byte loads
+    get from pinned memory. The wrapper runs the plain version for CPU
+    tensors, so this launches through its helper; the launch is not
+    counted."""
+    from raft_tpu_torch.ops.fused_topk import _stream_launch
+
+    return _stream_launch(x.data_ptr(), False, True, *x.shape,
+                          torch.device("cuda"))
 
 
 def main_bq(torch, state: dict) -> None:
@@ -860,10 +1257,17 @@ def phase_profile(torch, state: dict) -> None:
     and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
+    from raft_tpu_torch.neighbors import (
+        brute_force,
+        cagra,
+        ivf_bq,
+        ivf_flat,
+        tiered,
+    )
 
     res, index, queries, bf = (state["res"], state["index"],
                                state["queries"], state["bf"])
+    tier_sp = tiered.TieredSearchParams(n_probes=128)
     bq_index = state["bq_index"]
     bq_sp = ivf_bq.IvfBqSearchParams(n_probes=128)
     cg_index = state["cagra_index"]
@@ -884,6 +1288,10 @@ def phase_profile(torch, state: dict) -> None:
         "ivf_flat n_probes=128 batch=500": lambda: ivf_flat.search(
             res, ivf_flat.IvfFlatSearchParams(n_probes=128), index,
             queries[:500], K),
+        "tiered n_probes=128 batch=10": lambda: tiered.search(
+            res, tier_sp, state["tiered"], queries[:10], K),
+        "tiered n_probes=128 batch=500": lambda: tiered.search(
+            res, tier_sp, state["tiered"], queries[:500], K),
         "brute_force batch=500": lambda: brute_force.search(
             res, bf, queries[:500], K),
     }
@@ -974,6 +1382,8 @@ def phase_times(torch, state: dict) -> list:
     records.append(times_bq(torch, state))
     records.append(times_select(torch, state))
     records.append(times_beam(torch, state))
+    records.append(times_tier(torch, state))
+    records.append(times_stream(torch, state))
     for name, fn in _counted().items():
         fn.launches = saved[name]
     return records
@@ -1096,11 +1506,102 @@ def times_beam(torch, state: dict) -> dict:
                    nbytes, {"f32": flops}, None)
 
 
+def times_tier(torch, state: dict) -> dict:
+    """The tiered scan at the main path's batch-500, n_probes=128 request,
+    after the placement epoch; its hot and cold GB/s against the two
+    rooflines, and the all-device scan's ms on the same request."""
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops.ivf_scan import list_major_scan
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    t, index, queries = state["tiered"], state["index"], state["queries"]
+    qf = queries[:500]
+    probes = ivf_flat.coarse_probes(qf, t.centers, t.center_norms, t.metric,
+                                    128, "exact")
+    hot, cold, hmap, cmap = t.tier_arrays()
+    args = (qf, hot, cold, hmap, cmap, t.data_norms, t.indices, probes, None)
+    kw = dict(k=K, metric=t.metric)
+    got = tiered_list_major_scan(*args, engine="cuda", **kw)
+    whole_args = (qf, index.data, index.data_norms, index.indices, probes,
+                  None)
+    whole = list_major_scan(*whole_args, engine="cuda", **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])):
+        fail("tier_scan main shape: differs from the all-device scan")
+    want = tiered_list_major_scan(*args, engine="torch", **kw)
+    err = compare("tier_scan main shape", got, want, exact_ids=False)
+    ms = median_ms(lambda: tiered_list_major_scan(*args, engine="cuda",
+                                                  **kw), 20)
+    whole_ms = median_ms(lambda: list_major_scan(*whole_args, engine="cuda",
+                                                 **kw), 20)
+    plain_ms = median_ms(lambda: tiered_list_major_scan(
+        *args, engine="torch", **kw), 3, 1)
+    # data-dependent work: the union's rows read once per tier (real rows:
+    # tiles of padding are skipped), the norm and id planes of the union
+    # on the card, the queries, probes and output; 2d float32 operations
+    # per (query, probed row) pair
+    hot_rows, cold_rows, n_cold = _probed_rows(torch, t, probes)
+    probed_rows = int(t.list_sizes.to(torch.int64)[probes.to(torch.int64)]
+                      .sum())
+    d = t.dim
+    hot_bytes = hot_rows * d * 4
+    cold_bytes = cold_rows * d * 4
+    nbytes = (hot_bytes + (hot_rows + cold_rows) * 8 + 4 * 500 * d
+              + 4 * probes.numel() + 8 * 500 * K)
+    flops = 2.0 * probed_rows * d
+    log(f"[times] tier_scan work at q=500 n_probes=128: {probed_rows} probed "
+        f"rows; the union holds {hot_rows} hot rows ({hot_bytes} bytes on "
+        f"the card) and {cold_rows} cold rows of {n_cold} cold lists "
+        f"({cold_bytes} bytes over the host link); the all-device scan "
+        f"takes {whole_ms:.4f} ms on this request; the tier scan reads the "
+        f"hot rows at {hot_bytes / ms / 1e6:.1f} GB/s (device memory "
+        f"roofline {state['hbm_gbps']:.1f} GB/s) and the cold rows at "
+        f"{cold_bytes / ms / 1e6:.2f} GB/s (host link roofline "
+        f"{state['link_gbps']:.2f} GB/s; a kernel's 16-byte loads read "
+        f"pinned memory at {state['zero_copy_gbps']:.2f} GB/s); ids and "
+        "distances equal the all-device scan's")
+    state["tier_whole_ms"] = whole_ms
+    return _record("tier_scan", "raft_tpu_torch/csrc/tier_scan.cu",
+                   "raft_tpu/ops/tier_scan.py:328",
+                   state["launches"]["tier_scan"], err, ms, plain_ms, nbytes,
+                   {"f32": flops}, None, link_bytes=cold_bytes)
+
+
+def times_stream(torch, state: dict) -> dict:
+    """stream_read_sum over the hot plane, (n_hot * m, 128) float32."""
+    from raft_tpu_torch.ops.fused_topk import (
+        stream_read_sum,
+        stream_read_sum_plain,
+    )
+
+    x = state["tiered"].hot_data.reshape(-1, DIM)
+    got = stream_read_sum(x)
+    want = stream_read_sum_plain(x)
+    ref = x.double().sum(dim=0, keepdim=True)
+    scale = x.double().abs().sum(dim=0, keepdim=True)
+    if bool(((got.double() - ref).abs() > 1e-6 * scale).any()):
+        fail("stream_read_sum main shape: off the float64 sum by more than "
+             "1e-6 sum|x|")
+    err = float((got - want).abs().max())
+    ms = median_ms(lambda: stream_read_sum(x), 20)
+    plain_ms = median_ms(lambda: stream_read_sum_plain(x), 20)
+    lib_ms = median_ms(lambda: torch.sum(x, dim=0), 20)
+    n, d = x.shape
+    return _record("stream_read_sum", "raft_tpu_torch/csrc/stream_read.cu",
+                   "raft_tpu/ops/fused_topk.py:398",
+                   state["launches"]["stream_read_sum"], err, ms, plain_ms,
+                   4 * n * d + 4 * d, {"f32": float(n * d)}, lib_ms)
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-            ops: dict, lib_ms):
+            ops: dict, lib_ms, link_bytes: int = 0):
     """One kernel's record; ``ops`` counts operations by type (keys of
-    PEAK_OPS_PER_S), each type's time over its peak bounds the call."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    PEAK_OPS_PER_S), each type's time over its peak bounds the call;
+    ``nbytes`` move over device memory and ``link_bytes`` over the host
+    link, each at its own rate (the two run at once, so the larger time
+    bounds the call)."""
+    t_bytes = max(nbytes / PEAK_BYTES_PER_S,
+                  link_bytes / HOST_LINK_BYTES_PER_S) * 1e3
     t_ops = max(n / PEAK_OPS_PER_S[kind] * 1e3 for kind, n in ops.items())
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1109,7 +1610,8 @@ def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
            "library_ms": lib_ms}
     log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}), bound "
-        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes} bytes, "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes} bytes"
+        + (f" + {link_bytes} host-link bytes" if link_bytes else "") + ", "
         + ", ".join(f"{n:.4g} {kind}" for kind, n in ops.items()) + " ops)")
     return rec
 

@@ -8,11 +8,13 @@
 // top-k across the walk. Here the wrapper first turns the probes into
 // (list, query) pairs, grouped by list (CSR over the sorted union); one
 // block takes one list and up to 64 of the queries that probed it:
-//   1. ivf_scan_partial_kernel: the block gathers its queries' rows,
-//      streams the list 64 rows at a time (float32 FMA products through
-//      shared memory), computes min-space `norms - 2 ip` (L2) or `-ip`
-//      (IP) for rows with id >= 0, and keeps a top-k per query. It writes
-//      the list's top-k into the query's probe slot: (q, n_probes, k).
+//   1. ivf_scan_partial_kernel: the block runs scan_list_block
+//      (ivf_scan_body.cuh, shared with the tiered scan): it gathers its
+//      queries' rows, streams the list 64 rows at a time (float32 FMA
+//      products through shared memory), computes min-space `norms - 2 ip`
+//      (L2) or `-ip` (IP) for rows with id >= 0, and keeps a top-k per
+//      query. It writes the list's top-k into the query's probe slot:
+//      (q, n_probes, k).
 //   2. merge_partials_kernel (topk_common.cuh) merges the probe slots per
 //      query in (distance, smallest id) order; IP is negated back.
 // Membership is exact by construction: a block only scores queries that
@@ -26,7 +28,7 @@
 // query tile" property, without scoring queries that did not probe the
 // list), and the products are 2 * pairs * list_size * d float32
 // operations on the CUDA cores. Tiles of padding (all ids -1) are skipped.
-#include "topk_common.cuh"
+#include "ivf_scan_body.cuh"
 
 namespace raft_tpu_torch {
 
@@ -42,67 +44,10 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_partial_kernel(
   const int start = offs[j] + blockIdx.y * kQT;
   const int cnt = min(kQT, offs[j + 1] - start);
   if (cnt <= 0) return;  // block-uniform: no queries for this chunk
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Xs = Qs + kDK * kStride;
-  float* Ds = Xs + kDK * kStride;
-  float* Ld = Ds + kQT * kStride;
-  int* Li = reinterpret_cast<int*>(Ld + kQT * k);
-  int* qidx = Li + kQT * k;
-  __shared__ int ids_s[kDT];
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
   const size_t lid = (size_t)uniq[j];
-  const XT* list = data + lid * m * d;
-  const float* list_norms = norms + lid * m;
-  const int* list_ids = ids_g + (size_t)j * m;
-
-  init_lists(Ld, Li, kQT * k);
-  if (tid < kQT) qidx[tid] = tid < cnt ? pair_q[start + tid] : -1;
-
-  for (int m0 = 0; m0 < m; m0 += kDT) {
-    const int nx = min(kDT, m - m0);
-    __syncthreads();
-    if (tid < kDT) ids_s[tid] = tid < nx ? list_ids[m0 + tid] : -1;
-    // skip a tile that holds only padding or filtered rows
-    if (!__syncthreads_or(tid < kDT && ids_s[tid] >= 0)) continue;
-    float acc[4][4];
-    dot_tile<XT>(acc, Q, qidx, cnt, list + (size_t)m0 * d, nx, d, Qs, Xs);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tx + 16 * jj;
-        float v = CUDART_INF_F;
-        if (c < nx && ids_s[c] >= 0) {
-          const float ip = acc[i][jj];
-          v = ip_metric ? -ip
-                        : __fsub_rn(list_norms[m0 + c], __fmul_rn(2.f, ip));
-        }
-        Ds[r * kStride + c] = v;
-      }
-    }
-    __syncthreads();
-    for (int r = warp; r < cnt; r += kThreads / 32) {
-#pragma unroll
-      for (int h = 0; h < kDT; h += 32) {
-        const float v = Ds[r * kStride + h + lane];
-        warp_insert(Ld + r * k, Li + r * k, k, v, ids_s[h + lane],
-                    v < CUDART_INF_F);
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int e = tid; e < cnt * k; e += kThreads) {
-    const int r = e / k, c = e % k;
-    const size_t o = ((size_t)qidx[r] * p + pair_slot[start + r]) * k + c;
-    pd[o] = Ld[e];
-    pi[o] = Li[e];
-  }
+  scan_list_block<XT>(Q, data + lid * m * d, norms + lid * m,
+                      ids_g + (size_t)j * m, pair_q, pair_slot, start, cnt,
+                      p, d, m, k, ip_metric, pd, pi);
 }
 
 template <typename XT>
@@ -112,9 +57,7 @@ cudaError_t launch_scan(const float* Q, const XT* data, const float* norms,
                         int d, int m, int k, int ip_metric, int cap,
                         int max_chunks, float* pd, int* pi, float* outd,
                         int* outi, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * kDK + kQT) * kStride * sizeof(float) +
-                      (size_t)kQT * k * (sizeof(float) + sizeof(int)) +
-                      kQT * sizeof(int);
+  const size_t smem = scan_smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
       ivf_scan_partial_kernel<XT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

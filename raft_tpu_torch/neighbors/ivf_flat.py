@@ -24,7 +24,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
-from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core import memwatch, tracing
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.core.serialize import (
     check_version,
@@ -264,6 +264,13 @@ def extend(res: Optional[Resources], index: IvfFlatIndex, new_vectors,
         sizes = torch.bincount(all_labels.to(torch.int64),
                                minlength=index.n_lists).to(torch.int32)
         max_size = padded_extent(sizes)   # one host sync per extend
+        # the opt-in capacity gate: the repack is the allocation, so its
+        # padded layout is admitted before any tensor is made
+        memwatch.admit(
+            memwatch.packed_layout_bytes(
+                index.n_lists, int(max_size),
+                index.dim * all_vecs.element_size()),
+            "ivf_flat.extend")
         (data, indices), sizes = pack_padded_lists(
             all_labels, index.n_lists, max_size,
             [(all_vecs, 0), (all_ids, -1)], sizes=sizes)
@@ -294,27 +301,42 @@ def extend(res: Optional[Resources], index: IvfFlatIndex, new_vectors,
 # ---------------------------------------------------------------------------
 
 
+def coarse_probes(qf, centers, center_norms, metric: DistanceType,
+                  n_probes: int, coarse_algo: str) -> torch.Tensor:
+    """The coarse stage, ``select_clusters``: a GEMM against the centers
+    and the top-``n_probes`` lists per float32 query, (q, n_probes)
+    int32. Shared with the tiered index."""
+    ip = qf @ centers.T
+    score = (ip if metric == DistanceType.InnerProduct
+             else -(center_norms[None, :] - 2.0 * ip))
+    return coarse_select(score, n_probes, coarse_algo)
+
+
+def metric_epilog(qf, best_d, metric: DistanceType) -> torch.Tensor:
+    """The scan's min-space top-k to the metric's distances, the epilog
+    of ``ivf_flat.py:567-572``: + ||q||^2, clamp at 0, sqrt for
+    L2SqrtExpanded; inner products pass through. Shared with the tiered
+    index."""
+    if metric == DistanceType.InnerProduct:
+        return best_d
+    q_sq = (qf * qf).sum(dim=1, keepdim=True)
+    fin = torch.isfinite(best_d)
+    best_d = torch.where(fin, torch.clamp(best_d + q_sq, min=0.0), best_d)
+    if metric == DistanceType.L2SqrtExpanded:
+        best_d = torch.where(fin, torch.sqrt(best_d), best_d)
+    return best_d
+
+
 def _search_impl(queries, index: IvfFlatIndex, filter_words, *,
                  n_probes: int, k: int, coarse_algo: str, scan_engine: str):
     """Coarse select + list-major probe scan + metric epilog."""
-    metric = index.metric
     qf = queries.to(torch.float32)
-    # coarse: ``select_clusters`` (GEMM + top-n_probes over centers)
-    ip = qf @ index.centers.T
-    score = (ip if metric == DistanceType.InnerProduct
-             else -(index.center_norms[None, :] - 2.0 * ip))
-    probes = coarse_select(score, n_probes, coarse_algo)
+    probes = coarse_probes(qf, index.centers, index.center_norms,
+                           index.metric, n_probes, coarse_algo)
     best_d, best_i = list_major_scan(
         qf, index.data, index.data_norms, index.indices, probes,
-        filter_words, k=k, metric=metric, engine=scan_engine)
-    if metric != DistanceType.InnerProduct:
-        # the epilog of ``ivf_flat.py:567-572``: + ||q||^2, clamp, sqrt
-        q_sq = (qf * qf).sum(dim=1, keepdim=True)
-        fin = torch.isfinite(best_d)
-        best_d = torch.where(fin, torch.clamp(best_d + q_sq, min=0.0), best_d)
-        if metric == DistanceType.L2SqrtExpanded:
-            best_d = torch.where(fin, torch.sqrt(best_d), best_d)
-    return best_d, best_i
+        filter_words, k=k, metric=index.metric, engine=scan_engine)
+    return metric_epilog(qf, best_d, index.metric), best_i
 
 
 def search(res: Optional[Resources], params: IvfFlatSearchParams,

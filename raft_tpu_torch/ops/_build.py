@@ -28,6 +28,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature of each library's entry: name -> (symbol, argtypes)
 SIGNATURES = {
     "fused_knn": ("raft_fused_knn",
@@ -43,6 +44,9 @@ SIGNATURES = {
     "beam_search": ("raft_beam_search",
                     [_P, _P, _I, _P, _I, _I, _P, _I, _P] + [_I] * 7 + [_P]
                     + [_I] * 5 + [_P, _P, _F, _P, _P, _P, _P]),
+    "tier_scan": ("raft_tier_scan", [_P] * 11 + [_I] * 8 + [_P] * 5),
+    "stream_read": ("raft_stream_read_sum",
+                    [_P, _I, _I, _L, _I, _L, _I, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

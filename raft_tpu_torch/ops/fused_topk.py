@@ -19,10 +19,18 @@ parallel, each keeping a top-k in shared memory, and the per-chunk lists
 merge per row in (value, smallest column) order. It is bound by one
 read of the (b, n) input.
 
+``stream_read_sum`` replaces the JAX package's Pallas kernel
+``_stream_kernel`` (reached through ``_stream_read_impl``) with
+``csrc/stream_read.cu``: a column sum of (n, d) that reads each element
+once, the device-memory roofline probe. Blocks sum contiguous row ranges
+with 16-byte loads, then a second pass adds the per-block rows in a
+fixed order (the result is the same from run to run).
+
 Each wrapper runs its kernel for CUDA tensors and its plain version
-(``fused_knn_plain``, ``select_k_tiles_plain``) for CPU tensors; it
-never falls back from one to the other. ``fused_knn.launches`` and
-``select_k_tiles.launches`` count the kernels' launches.
+(``fused_knn_plain``, ``select_k_tiles_plain``, ``stream_read_sum_plain``)
+for CPU tensors; it never falls back from one to the other.
+``fused_knn.launches``, ``select_k_tiles.launches`` and
+``stream_read_sum.launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -273,3 +281,66 @@ def select_k_tiles(values: torch.Tensor, k: int, select_min: bool = True
 
 
 select_k_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# stream probe
+# ---------------------------------------------------------------------------
+
+_STREAM_BLOCKS_PER_SM = 4   # row ranges per SM (csrc/stream_read.cu)
+
+
+def stream_read_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`stream_read_sum`: the float32
+    column sum, (1, d)."""
+    return torch.sum(x, dim=0, keepdim=True, dtype=torch.float32)
+
+
+def stream_read_sum(x: torch.Tensor) -> torch.Tensor:
+    """Column sum of ``x`` (n, d), float32 or bfloat16, accumulated in
+    float32 and returned as (1, d) float32 — a pure streamed read of
+    ``x``, the probe that bandwidth-bound kernels are held against.
+
+    CUDA tensors run ``csrc/stream_read.cu`` and must be contiguous (a
+    copy would measure the copy); CPU tensors run
+    :func:`stream_read_sum_plain`."""
+    expect(x.ndim == 2, "stream_read_sum expects (n, d)")
+    if x.device.type == "cpu":
+        return stream_read_sum_plain(x)
+    expect(x.dtype in (torch.float32, torch.bfloat16),
+           f"stream_read_sum: kernel takes float32/bfloat16, got {x.dtype}")
+    expect(x.is_contiguous(), "stream_read_sum: x must be contiguous")
+    n, d = x.shape
+    if n == 0 or d == 0:
+        return torch.zeros((1, d), dtype=torch.float32, device=x.device)
+    vec = (d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+    out = _stream_launch(x.data_ptr(), x.dtype == torch.bfloat16, vec, n, d,
+                         x.device)
+    stream_read_sum.launches += 1
+    return out
+
+
+def _stream_launch(ptr: int, bf16: bool, vec: bool, n: int, d: int,
+                   device: torch.device) -> torch.Tensor:
+    """Launch ``csrc/stream_read.cu`` on the (n, d) rows at address
+    ``ptr`` (device memory, or pinned host memory read in place through
+    the unified address space); returns the (1, d) float32 sums on
+    ``device``. ``vec`` takes the 16-byte loads (the caller checks the
+    row width and alignment)."""
+    from raft_tpu_torch.ops import _build
+
+    launch = _build.load("stream_read")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = max(1, min(_STREAM_BLOCKS_PER_SM * sms, -(-n // 64)))
+    rows = -(-n // blocks)
+    blocks = -(-n // rows)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
+    out = torch.empty((1, d), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = launch(ptr, int(bf16), int(vec), n, d, rows, blocks,
+                 partial.data_ptr(), out.data_ptr(), stream)
+    _build.check(err, "stream_read_sum")
+    return out
+
+
+stream_read_sum.launches = 0

@@ -70,6 +70,26 @@ def resolve_scan_engine(engine: str, *, data=None, filter_words=None,
     return engine
 
 
+def probe_histogram(probes: torch.Tensor, counts: torch.Tensor,
+                    n_valid=None) -> torch.Tensor:
+    """``counts`` plus a ``bincount`` of the probed list ids: the
+    per-list traffic window that tiered placement reads. ``probes`` is
+    the (q, n_probes) selection, ``counts`` the (n_lists,) running plane;
+    rows at and past ``n_valid`` (pad rows) count nothing. Ids outside
+    the list range (the sentinel ``n_lists``) are dropped, and negative
+    ids count from the end, as the JAX package's ``.at[].add(mode="drop")``
+    does. Returns a new plane of ``counts``' type."""
+    n_lists = counts.shape[0]
+    ids = probes.to(torch.int64)
+    if n_valid is not None:
+        valid = torch.arange(ids.shape[0], device=ids.device) < n_valid
+        ids = torch.where(valid[:, None], ids, n_lists)
+    ids = ids.reshape(-1)
+    ids = torch.where(ids < 0, ids + n_lists, ids)
+    ids = ids[(ids >= 0) & (ids < n_lists)]
+    return counts + torch.bincount(ids, minlength=n_lists).to(counts.dtype)
+
+
 def ragged_row_probes(sizes, n_probes_list, tile: int):
     """Expand one packed tile's per-request row ranges into the per-ROW
     probe-budget plane (host side): rows of request ``j`` carry
@@ -225,6 +245,25 @@ def _scan_pairs(probes: torch.Tensor, n_lists: int):
             (order % p).to(torch.int32))
 
 
+def _launch_glue(qf, indices, probes, filter_words, k: int):
+    """What both scan kernels (this one and ``csrc/tier_scan.cu``) take
+    besides the rows: float32 queries, the (list, query) pairs of
+    :func:`_scan_pairs`, the union's id planes with a shared filter
+    folded in, the (q, n_probes, k) partial lists filled with (+inf, -1)
+    and the (q, k) outputs."""
+    q, p = probes.shape
+    dev = qf.device
+    uniq, offs, pair_q, pair_slot = _scan_pairs(probes, indices.shape[0])
+    ids_g = union_id_planes(indices, uniq, filter_words).to(
+        torch.int32).contiguous()
+    pd = torch.full((q, p, k), float("inf"), dtype=torch.float32, device=dev)
+    pi = torch.full((q, p, k), -1, dtype=torch.int32, device=dev)
+    outd = torch.empty((q, k), dtype=torch.float32, device=dev)
+    outi = torch.empty((q, k), dtype=torch.int32, device=dev)
+    return (qf.to(torch.float32).contiguous(), uniq, offs, pair_q, pair_slot,
+            ids_g, pd, pi, outd, outi)
+
+
 def _scan_cuda(qf, data, data_norms, indices, probes, filter_words, *,
                k: int, metric: DistanceType):
     dev = data.device
@@ -248,14 +287,8 @@ def _scan_cuda(qf, data, data_norms, indices, probes, filter_words, *,
     from raft_tpu_torch.ops import _build
 
     launch = _build.load("ivf_scan")
-    uniq, offs, pair_q, pair_slot = _scan_pairs(probes, n_lists)
-    ids_g = union_id_planes(indices, uniq, filter_words).to(
-        torch.int32).contiguous()
-    qf = qf.to(torch.float32).contiguous()
-    pd = torch.full((q, p, k), float("inf"), dtype=torch.float32, device=dev)
-    pi = torch.full((q, p, k), -1, dtype=torch.int32, device=dev)
-    outd = torch.empty((q, k), dtype=torch.float32, device=dev)
-    outi = torch.empty((q, k), dtype=torch.int32, device=dev)
+    (qf, uniq, offs, pair_q, pair_slot, ids_g, pd, pi, outd,
+     outi) = _launch_glue(qf, indices, probes, filter_words, k)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = launch(qf.data_ptr(), data.data_ptr(),
                  int(data.dtype == torch.bfloat16), data_norms.data_ptr(),

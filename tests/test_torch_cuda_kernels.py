@@ -11,7 +11,10 @@ distances equal to float32 rounding (1e-6 relative). The IVF-BQ scan and
 the CAGRA beam search run on Gaussian data; they take every sum in their
 plain versions' order (``ops.bq_scan.tree_sum``), so their distances,
 ids and counts (rows reranked per query; live iterations, candidates and
-rows scored per query) equal the plain versions' bit for bit."""
+rows scored per query) equal the plain versions' bit for bit. The tiered
+scan (cold lists in pinned host memory) equals the all-device scan kernel
+bit for bit on any data; ``stream_read_sum`` equals the float64 sum on
+integer data and is within 1e-6 sum|x| of it on Gaussian data."""
 
 from __future__ import annotations
 
@@ -319,3 +322,207 @@ def test_select_k_kernel_matches_plain(dev, select_min, k, n, dtype):
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
     assert (got[1][5] == -1).all()
+
+
+def _tier_inputs(dev, seed: int, integer: bool):
+    """A small packed index on the card (24 lists of 136 slots, -1
+    padding past 100), its queries and probes (sentinel slots, a repeated
+    probe) and a shared filter."""
+    rng = np.random.default_rng(seed)
+    n_lists, m, d = 24, 136, 64
+    raw = (rng.integers(-3, 4, (n_lists, m, d)) if integer
+           else rng.standard_normal((n_lists, m, d)))
+    data = torch.from_numpy(raw.astype(np.float32)).to(dev)
+    indices = torch.arange(n_lists * m, dtype=torch.int32,
+                           device=dev).reshape(n_lists, m)
+    indices[:, 100:] = -1
+    norms = torch.where(indices >= 0, (data * data).sum(dim=2),
+                        torch.full_like(indices, float("inf"),
+                                        dtype=torch.float32))
+    qraw = (rng.integers(-3, 4, (150, d)) if integer
+            else rng.standard_normal((150, d)))
+    qf = torch.from_numpy(qraw.astype(np.float32)).to(dev)
+    probes = torch.from_numpy(rng.integers(0, n_lists, (150, 6))).to(
+        dev, torch.int32)
+    probes[::4, 3:] = n_lists
+    probes[1, 1] = probes[1, 0]
+    words = torch.from_numpy(rng.integers(0, 2**31, -(-n_lists * m // 32))
+                             ).to(dev, torch.int32)
+    return data, norms, indices, qf, probes, words
+
+
+def _tiers(data, hot_lists, cold_lists):
+    """The split planes: hot on the card, cold in pinned host memory."""
+    from raft_tpu_torch.neighbors.tiered import _slot_maps
+
+    n_lists = data.shape[0]
+    hmap, cmap = _slot_maps(np.asarray(hot_lists), np.asarray(cold_lists),
+                            n_lists)
+    hot = data[torch.as_tensor(hot_lists, device=data.device)].contiguous()
+    cold = data[torch.as_tensor(cold_lists, device=data.device)].cpu()
+    return (hot, cold.pin_memory(), torch.from_numpy(hmap).to(data.device),
+            torch.from_numpy(cmap).to(data.device))
+
+
+TIER_SPLITS = {"alternate": (list(range(0, 24, 2)), list(range(1, 24, 2))),
+               "one-cold": (list(range(1, 24)), [0]),
+               "one-hot": ([5], [i for i in range(24) if i != 5])}
+
+
+@pytest.mark.parametrize("split", list(TIER_SPLITS))
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+def test_tier_scan_kernel_matches_plain_and_all_device_scan(dev, metric, k,
+                                                            split):
+    """The dual-source kernel equals its plain version (ids exactly, on
+    integer data), and the all-device scan kernel on the un-split planes
+    bit for bit, on integer and Gaussian data."""
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    for integer in (True, False):
+        data, norms, indices, qf, probes, words = _tier_inputs(
+            dev, k, integer)
+        hot, cold, hmap, cmap = _tiers(data, *TIER_SPLITS[split])
+        for fw in (None, words):
+            args = (qf, hot, cold, hmap, cmap, norms, indices, probes, fw)
+            before = tiered_list_major_scan.launches
+            got = tiered_list_major_scan(*args, k=k, metric=metric,
+                                         engine="cuda")
+            assert tiered_list_major_scan.launches == before + 1
+            whole = list_major_scan(qf, data, norms, indices, probes, fw,
+                                    k=k, metric=metric, engine="cuda")
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], whole[1])
+            assert torch.equal(got[0], whole[0])
+            if integer:
+                _check(got, tiered_list_major_scan(*args, k=k, metric=metric,
+                                                   engine="torch"))
+
+
+def test_tier_scan_refuses_a_pageable_cold_tier(dev):
+    """A pageable cold plane raises at the wrapper, and the C entry itself
+    refuses a cold pointer that is not page-locked host memory."""
+    from raft_tpu_torch.core.validation import RaftError
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    data, norms, indices, qf, probes, _ = _tier_inputs(dev, 0, True)
+    hot, cold, hmap, cmap = _tiers(data, *TIER_SPLITS["alternate"])
+    before = tiered_list_major_scan.launches
+    for bad in (cold.clone(), cold.to(dev)):       # pageable, device
+        with pytest.raises(RaftError, match="pinned"):
+            tiered_list_major_scan(qf, hot, bad, hmap, cmap, norms, indices,
+                                   probes, k=10,
+                                   metric=DistanceType.L2Expanded,
+                                   engine="cuda")
+        z = torch.zeros(64, dtype=torch.int32, device=dev)
+        err = _build.load("tier_scan")(
+            z.data_ptr(), hot.data_ptr(), bad.data_ptr(), *[z.data_ptr()] * 8,
+            1, 1, 1, 1, 1, 0, 0, 0, *[z.data_ptr()] * 4,
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+    assert tiered_list_major_scan.launches == before
+
+
+@pytest.mark.parametrize("d", [100, 128])
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_read_sum_kernel_matches_plain(dev, dtype, n, d):
+    """Integer-valued data: every partial sum is an integer below 2^24,
+    exact in any order, so the kernel equals the plain version and the
+    float64 sum. Gaussian data: both within 1e-6 x sum|x| of the float64
+    sum per column (the summation orders differ)."""
+    from raft_tpu_torch.ops.fused_topk import (
+        stream_read_sum,
+        stream_read_sum_plain,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + d)
+    for integer in (True, False):
+        x = (torch.randint(-3, 4, (n, d), generator=g, device=dev).float()
+             if integer else torch.randn(n, d, generator=g, device=dev))
+        x = x.to(dtype)
+        before = stream_read_sum.launches
+        got = stream_read_sum(x)
+        assert stream_read_sum.launches == before + 1
+        want = stream_read_sum_plain(x)
+        ref = x.double().sum(dim=0, keepdim=True)
+        assert got.shape == (1, d) and got.dtype == torch.float32
+        if integer:
+            assert torch.equal(got, want)
+            assert torch.equal(got.double(), ref)
+        else:
+            tol = 1e-6 * x.double().abs().sum(dim=0, keepdim=True)
+            assert bool(((got.double() - ref).abs() <= tol).all())
+            assert bool(((want.double() - ref).abs() <= tol).all())
+        assert torch.equal(stream_read_sum(x), got)     # run to run
+
+
+def test_tiered_search_on_the_card(dev):
+    """A tiered index on the card: the cold tier is pinned host memory,
+    search launches the dual-source kernel (and not the all-device one)
+    and equals ivf_flat.search bit for bit, before and after an epoch."""
+    from raft_tpu_torch.core import memwatch
+    from raft_tpu_torch.neighbors import ivf_flat, tiered
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    res = Resources(device="cuda", seed=4)
+    rng = np.random.default_rng(4)
+    centers = rng.standard_normal((50, 48)) * 3
+    x = (centers[rng.integers(0, 50, 8000)]
+         + rng.standard_normal((8000, 48))).astype(np.float32)
+    q = torch.from_numpy(x[:300] + 0.1).to(dev)
+    index = ivf_flat.build(res, ivf_flat.IvfFlatIndexParams(n_lists=32), x)
+    t = tiered.build_tiered(index, hot_fraction=0.5)
+    assert t.host_resident and t.cold_data.is_pinned()
+    assert memwatch.memory_tier(t.cold_data) == "host"
+    sp = tiered.TieredSearchParams(n_probes=8)
+    want = ivf_flat.search(res, ivf_flat.IvfFlatSearchParams(n_probes=8),
+                           index, q, 10)
+    for _ in range(2):
+        scans, tiers = list_major_scan.launches, \
+            tiered_list_major_scan.launches
+        got = tiered.search(res, sp, t, q, 10)
+        torch.cuda.synchronize()
+        assert tiered_list_major_scan.launches == tiers + 1
+        assert list_major_scan.launches == scans
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        promo, demo = [int(t.cold_lists[0])], [int(t.hot_lists[0])]
+        tiered.apply_plan(t, promo, demo, width=1)
+        assert int(t.hot_slot_map[promo[0]]) >= 0
+
+
+def test_memory_ledger_live_headroom(dev):
+    """Live device stats: a tensor's bytes leave the headroom while it
+    lives, and come back when it is freed, although the caching allocator
+    keeps them reserved; a live ledger sizes the hot tier from that."""
+    from raft_tpu_torch.core import memwatch
+    from raft_tpu_torch.neighbors import ivf_flat, tiered
+
+    stats = memwatch.device_memory_stats()
+    assert stats["supported"]
+    card = stats["devices"][torch.cuda.current_device()]
+    assert 0 < card["in_use_bytes"] <= card["peak_bytes"] <= card[
+        "limit_bytes"]
+    ledger = memwatch.MemoryLedger()
+    torch.cuda.synchronize()
+    before = ledger.headroom_bytes()
+    x = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    during = ledger.headroom_bytes()
+    del x
+    after = ledger.headroom_bytes()
+    assert torch.cuda.memory_reserved() - torch.cuda.memory_allocated() \
+        >= 1 << 28
+    assert before - during == 1 << 28
+    assert after == before
+    index = ivf_flat.build(Resources(device="cuda"),
+                           ivf_flat.IvfFlatIndexParams(n_lists=16),
+                           torch.randn(4000, 32, device=dev))
+    block = index.max_list_size * 32 * 4
+    assert tiered.resolve_hot_slots(index, ledger=ledger) == 15
+    ledger.reserve("hold", int(ledger.headroom_bytes()) - 3 * block)
+    assert tiered.resolve_hot_slots(index, ledger=ledger,
+                                    safety_fraction=0.0) == 3

@@ -1,6 +1,7 @@
 """The port's plain ``fused_knn`` against the JAX package's Pallas kernel
 (``raft_tpu.ops.fused_topk.fused_knn``, interpret mode) on the same
-inputs, for all six metrics.
+inputs, for all six metrics; and the plain ``stream_read_sum`` against
+the JAX package's ``stream_read_sum`` (interpret mode).
 
 Tolerances: on integer-valued inputs every product and sum is exact in
 any order, so ids must be EXACTLY equal (smallest id first on ties,
@@ -23,7 +24,12 @@ from raft_tpu.distance.types import DistanceType as JD
 from raft_tpu.ops.fused_topk import fused_knn as j_fused_knn
 from raft_tpu_torch.core.validation import RaftError
 from raft_tpu_torch.distance.types import DistanceType
-from raft_tpu_torch.ops.fused_topk import fused_knn, fused_knn_plain
+from raft_tpu_torch.ops.fused_topk import (
+    fused_knn,
+    fused_knn_plain,
+    stream_read_sum,
+    stream_read_sum_plain,
+)
 
 METRICS = [DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
            DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded,
@@ -133,3 +139,41 @@ def test_rejects_bad_arguments():
         fused_knn(torch.zeros((2, 5)), x, 3)
     with pytest.raises(RaftError):
         fused_knn(torch.zeros((2, 4)), x, 3, DistanceType.L1)
+
+
+@pytest.mark.parametrize("shape", [(1, 128), (37, 100), (300, 128),
+                                   (1000, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stream_read_sum_plain_matches_reference(dtype, shape):
+    """Column sums against the JAX package's Pallas ``stream_read_sum`` in
+    interpret mode, ragged shapes included. Integer-valued data: every
+    partial sum is an integer below 2^24, so both are exact in any order
+    and equal; on Gaussian data they agree to float32 rounding of the
+    sums (the orders differ)."""
+    import jax.numpy as jnp
+
+    from raft_tpu.ops.fused_topk import stream_read_sum as j_stream
+
+    rng = np.random.default_rng(sum(shape))
+    for x, exact in ((rng.integers(-8, 9, shape).astype(np.float32), True),
+                     (rng.standard_normal(shape).astype(np.float32), False)):
+        want = np.asarray(j_stream(jnp.asarray(x, getattr(jnp, dtype)),
+                                   interpret=True))
+        got = stream_read_sum_plain(
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+        assert got.dtype == torch.float32 and got.shape == (1, shape[1])
+        if exact:
+            assert np.array_equal(got.numpy(), want)
+        else:
+            scale = np.abs(x).sum(axis=0, keepdims=True)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=float(scale.max()) * 1e-6)
+
+
+def test_stream_read_sum_cpu_dispatch_and_checks():
+    x = torch.arange(12.0).reshape(4, 3)
+    before = stream_read_sum.launches
+    assert torch.equal(stream_read_sum(x), torch.tensor([[18.0, 22.0, 26.0]]))
+    assert stream_read_sum.launches == before
+    with pytest.raises(RaftError):
+        stream_read_sum(torch.zeros(5))

@@ -173,3 +173,18 @@ def test_resolve_scan_engine():
         "cuda", data=data.to(torch.bfloat16)) == "cuda"
     with pytest.raises(Exception, match="scan_engine"):
         t_scan.resolve_scan_engine("pallas", data=data)
+
+
+def test_probe_histogram_matches_reference():
+    rng = np.random.default_rng(3)
+    probes = rng.integers(0, 9, (7, 4)).astype(np.int32)
+    probes[1, 2:] = 9                              # sentinel slots drop
+    probes[2, 0] = -1                              # counts from the end
+    counts = rng.integers(0, 5, 9).astype(np.int32)
+    for n_valid in (None, 5, 0):
+        want = np.asarray(j_scan.probe_histogram(
+            jnp.asarray(probes), jnp.asarray(counts), n_valid))
+        got = t_scan.probe_histogram(torch.from_numpy(probes),
+                                     torch.from_numpy(counts), n_valid)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
