@@ -20,7 +20,9 @@ non-zero exit (nothing is caught and passed over):
             IVF-BQ scan over bits 1, 2, 3 (query bits 4, 4, 8), L2 and
             IP, d = 100 (padded lanes), k in {1, 10, 128}, a 1-D filter,
             sentinel and repeated probes and a query that probes
-            nothing; select_k over min and max, k in {1, 10, 64}, n in
+            nothing, at batch 1, 10 and 500 with the wrapper's cluster
+            size and (k = 10) every cluster size it can choose;
+            select_k over min and max, k in {1, 10, 64}, n in
             {16384, 100003}, ties, +-inf and NaN rows, float32 and
             bfloat16; the CAGRA beam search on a 30,000 x 128 index
             built on the card (cluster-join, degree 64, its first 32
@@ -40,9 +42,12 @@ non-zero exit (nothing is caught and passed over):
             in pinned host memory) on integer-valued and Gaussian data,
             L2 and IP, k in {1, 10, 128}, q in {1, 10, 500}, sentinel
             and repeated probes, -1 padding, a 1-D filter, and splits of
-            all-but-one hot, all-but-one cold and alternating: it equals
-            its plain version (ids exactly on integer data) and the
-            all-device scan kernel on the un-split planes bit for bit; a
+            all-but-one hot, all-but-one cold and alternating, then
+            rings smaller than the probed cold set (several waves), a
+            request that probes no cold list and an index with no cold
+            tier: it equals its plain version (ids exactly on integer
+            data) and the all-device scan kernel on the un-split planes
+            bit for bit, and stages each probed cold list once; a
             pageable or device cold plane is refused, by the wrapper and
             by the C entry. stream_read_sum over float32 and bfloat16,
             n in {1, 1000, 2^22}, d in {100, 128}: on integer data equal
@@ -62,20 +67,26 @@ non-zero exit (nothing is caught and passed over):
             memory grown by the hot tier only); searches at n_probes 32
             and 128, batch 10 and 500, each equal to the all-device
             search bit for bit (ids and distances), with recall@10,
-            median ms and the cold bytes each request probes; one
+            median ms, the cold bytes each request probes and the bytes
+            and waves it staged (tier.cold_bytes_staged, each probed
+            cold list once); one
             placement epoch (batch-500 traffic at the centers of two
             cold lists, probe_histogram window, plan_epoch(max_swaps=4),
             apply_plan(width=4)): both lists hot, tier.swap_bytes = 2 x
             swaps x block bytes, searches still bit-identical; the dual
             roofline (stream_read_sum over the hot plane: device memory
             GB/s; a timed pinned -> device copy of the cold plane: host
-            link GB/s; the stream kernel over the pinned plane in place:
-            what a kernel's own loads get) and each request's hot and
-            cold GB/s against them. The all-device scan must not launch
+            link GB/s), the ring copy's rate (bytes staged by three
+            batch-500 requests over their copies' device time, from
+            torch.profiler) against the link roofline, and each
+            request's hot and cold GB/s against them. The all-device
+            scan must not launch
             during the tiered searches. The IVF-BQ path on the same data:
             ivf_bq.build (n_lists=1024, bits 1, the vector plane kept);
             the same four searches (recall@10, median ms, rows
-            reranked as a share of rows probed); n_probes=1024 recall
+            reranked as a share of rows probed), each request then
+            held against the plain scan on distances, ids and rows
+            reranked; n_probes=1024 recall
             on 1,000 queries; save -> load -> search bit-identical; and
             matrix.select_k(k=10) over a (64, 1,000,000) slab of squared
             distances equals brute force's ids, ties aside. The CAGRA
@@ -99,7 +110,10 @@ non-zero exit (nothing is caught and passed over):
             other int32 at 16 and 64 per clock per SM over 132 SMs at
             1.98 GHz; the H100 SXM's published figures) and one PyTorch
             yardstick call's ms. The tiered scan's hot and cold GB/s
-            are printed against the two rooflines of the main phase.
+            are printed against the two rooflines of the main phase; the
+            IVF-BQ scan is timed at every cluster size at batch 10 and
+            500; both redesigned kernels print their earlier design's
+            times beside theirs.
 
 The line before the last is a JSON object with one record per kernel
 (fused_knn, list_major_scan, bq_scan, select_k, beam_search, tier_scan,
@@ -135,6 +149,13 @@ PEAK_OPS_PER_S = {"f32": 67e12, "popc": 16 * _SM_CLOCKS_PER_S,
                   "int32": 64 * _SM_CLOCKS_PER_S}
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS = 1024
+# the kernels' times in their earlier design (one block a query; cold rows
+# read in place from pinned memory), at the same requests, as PERF.md
+# records them (NVIDIA H100 80GB HBM3 at 700 W): bq_scan at n_probes 128
+# by batch (torch.profiler at batch 10, CUDA events at batch 500),
+# tier_scan at n_probes 128, batch 500
+EARLIER_BQ_MS = {10: 9.5415, 500: 12.6976}
+EARLIER_TIER_MS = 28.2238
 
 
 def log(msg: str) -> None:
@@ -335,10 +356,12 @@ def kernels_bq(torch, seed: int) -> None:
     from raft_tpu_torch.neighbors import ivf_bq
     from raft_tpu_torch.ops.bq_scan import auto_query_bits, bq_list_major_scan
 
+    from raft_tpu_torch.ops.bq_scan import CLUSTER_SIZES, _bq_scan_cuda
+
     dev = torch.device("cuda")
     res = Resources(device="cuda", seed=seed)
     rng = np.random.default_rng(seed + 1)
-    n, d, n_lists, nq = 20_000, 100, 64, 300
+    n, d, n_lists, nq = 20_000, 100, 64, 500
     centers = rng.standard_normal((40, d)) * 3
     x = (centers[rng.integers(0, 40, n)]
          + rng.standard_normal((n, d))).astype(np.float32)
@@ -353,6 +376,7 @@ def kernels_bq(torch, seed: int) -> None:
     filt = torch.from_numpy(rng.integers(0, 2**31, -(-n // 32))).to(
         dev, torch.int32)
     cases = rows = 0
+    chosen = {}
     for bits in (1, 2, 3):
         for metric in (DistanceType.L2Expanded, DistanceType.InnerProduct):
             idx = ivf_bq.build(res, ivf_bq.IvfBqIndexParams(
@@ -362,25 +386,46 @@ def kernels_bq(torch, seed: int) -> None:
             qrot = qf @ idx.rotation.T
             crot = idx.centers @ idx.rotation.T
             for fw in (None, filt):
+                args = (qf, qrot, crot, idx.codes, idx.rnorm, idx.cfac,
+                        idx.errw, idx.indices, idx.data, idx.data_norms,
+                        probes, fw)
                 for k in (1, 10, 128):
-                    args = (qf, qrot, crot, idx.codes, idx.rnorm, idx.cfac,
-                            idx.errw, idx.indices, idx.data, idx.data_norms,
-                            probes, fw)
                     kw = dict(k=k, metric=metric, epsilon=3.0,
                               query_bits=auto_query_bits(bits))
-                    got = bq_list_major_scan(*args, engine="cuda", **kw)
-                    torch.cuda.synchronize()
                     want = bq_list_major_scan(*args, engine="torch", **kw)
                     name = (f"bq_scan bits={bits} {metric.name} k={k} "
                             f"filter={fw is not None}")
-                    bq_equal(name, got, want)
-                    if int(got[2][4]) != 0:
-                        fail(f"{name}: a query that probes nothing "
-                             "reranked rows")
-                    cases += 1
-                    rows += int(got[2].sum())
+                    # the wrapper's own cluster size at batch 1, 10, 500;
+                    # at k = 10 every cluster size it can choose too
+                    sizes = [None] + (list(CLUSTER_SIZES) if k == 10 else [])
+                    for q in (1, 10, nq):
+                        sub = [a[:q] if i in (0, 1, 10) else a
+                               for i, a in enumerate(args)]
+                        want_q = (want if q == nq else bq_list_major_scan(
+                            *sub, engine="torch", **kw))
+                        for c in sizes:
+                            got = (bq_list_major_scan(*sub, engine="cuda",
+                                                      **kw) if c is None
+                                   else _bq_scan_cuda(*sub, cluster=c, **kw))
+                            used = bq_list_major_scan.last_cluster
+                            if c is None:
+                                chosen[q] = used
+                            elif used != c:
+                                fail(f"{name} q={q}: cluster {c} asked, "
+                                     f"{used} launched")
+                            bq_equal(f"{name} q={q} cluster={used}", got,
+                                     want_q)
+                            if q > 4 and int(got[2][4]) != 0:
+                                fail(f"{name}: a query that probes nothing "
+                                     "reranked rows")
+                            cases += 1
+                            rows += int(got[2].sum())
+    if chosen[10] <= 1:
+        fail(f"bq_scan at batch 10 launched a cluster of {chosen[10]}")
     log(f"[kernels] bq_scan: {cases} cases equal the plain version bit for "
-        f"bit ({rows} rows reranked in all, the same count per query)")
+        f"bit ({rows} rows reranked in all, the same count per query); "
+        f"every cluster size {list(CLUSTER_SIZES)} at batch 1, 10 and {nq}; "
+        f"the wrapper chose clusters of {chosen} CTAs by batch")
 
 
 def bq_equal(name, got, want) -> float:
@@ -618,8 +663,11 @@ def kernels_tier(torch, seed: int) -> None:
                                                       engine="torch")
                         compare(name, got, want, exact)
                         cases += 1
+    staged = kernels_tier_staging(torch, packed, norms, indices, qf, probes,
+                                  filt)
     # a cold plane that is not page-locked host memory is refused
     z = torch.zeros(64, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
     for what, bad in (("pageable", cold.clone()), ("device", cold.to(dev))):
         try:
             tiered_list_major_scan(qf, hot, bad, hmap, cmap, norms, indices,
@@ -631,14 +679,83 @@ def kernels_tier(torch, seed: int) -> None:
         else:
             fail(f"tier_scan took a {what} cold plane")
         err = _build.load("tier_scan")(
-            z.data_ptr(), hot.data_ptr(), bad.data_ptr(), *[z.data_ptr()] * 8,
-            1, 1, 1, 1, 1, 0, 0, 0, *[z.data_ptr()] * 4,
-            torch.cuda.current_stream().cuda_stream)
+            z.data_ptr(), hot.data_ptr(), bad.data_ptr(),
+            *[z.data_ptr()] * 10, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0,
+            *[z.data_ptr()] * 8, stream, stream, None)
         if err == 0:
             fail(f"the tier_scan C entry took a {what} cold plane")
-    log(f"[kernels] tier_scan: {cases} cases equal the all-device scan "
-        "kernel bit for bit and agree with the plain version; pageable "
-        "and device cold planes refused by the wrapper and the C entry")
+    log(f"[kernels] tier_scan: {cases} cases and {staged} staging cases "
+        "equal the all-device scan kernel bit for bit and agree with the "
+        "plain version; pageable and device cold planes refused by the "
+        "wrapper and the C entry")
+
+
+def kernels_tier_staging(torch, packed, norms, indices, qf, probes,
+                         filt) -> int:
+    """The staging edge cases of the tiered scan on integer-valued data:
+    rings smaller than the probed cold set (waves of one list and of
+    three), a request that probes no cold list, and an index with no
+    cold tier. Each must equal the all-device kernel and the plain
+    version bit for bit and stage each probed cold list once, its live
+    rows rounded up to the 64-row tile."""
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.ops.ivf_scan import list_major_scan, live_rows
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    n_lists, m, d = packed.shape
+    lists = np.arange(n_lists)
+    real = live_rows(indices).cpu().numpy()
+    tile_rows = np.minimum(-(-real // 64) * 64, m)
+    big = int(tile_rows.max()) * d * 4
+    cases = {
+        "waves of one list": (lists[::2], lists[1::2], 2 * big, probes),
+        "waves of three lists": (lists[::2], lists[1::2], 7 * big, probes),
+        "no cold list probed": (lists[::2], lists[1::2], 1 << 31,
+                                (probes // 2) * 2),   # even lists only
+        "no cold tier": (lists, lists[:0], 1 << 31, probes),
+    }
+    n = 0
+    for name, (hot_lists, cold_lists, ws, pr) in cases.items():
+        hot, cold, hmap, cmap = _split_tiers(torch, packed, hot_lists,
+                                             cold_lists)
+        cold_probed = sorted(set(pr.flatten().tolist()) & set(
+            cold_lists.tolist()))
+        for metric in (DistanceType.L2Expanded, DistanceType.InnerProduct):
+            for q in (10, 500):
+                args = (qf[:q], hot, cold, hmap, cmap, norms, indices,
+                        pr[:q], None)
+                c0 = tracing.counters("tier.")
+                got = tiered_list_major_scan(*args, k=10, metric=metric,
+                                             engine="cuda",
+                                             workspace_bytes=ws)
+                c1 = tracing.counters("tier.")
+                delta = {key: c1[key] - c0.get(key, 0.0) for key in c1}
+                whole = list_major_scan(qf[:q], packed, norms, indices,
+                                        pr[:q], None, k=10, metric=metric,
+                                        engine="cuda")
+                torch.cuda.synchronize()
+                label = f"tier_scan {name} {metric.name} q={q}"
+                if not (torch.equal(got[0], whole[0])
+                        and torch.equal(got[1], whole[1])):
+                    fail(f"{label}: differs from the all-device scan kernel")
+                compare(label, got, tiered_list_major_scan(
+                    *args, k=10, metric=metric, engine="torch"), True)
+                probed = sorted(set(pr[:q].flatten().tolist())
+                                & set(cold_probed))
+                want_bytes = int(tile_rows[probed].sum()) * d * 4
+                if (delta.get("tier.cold_lists_staged", 0) != len(probed)
+                        or delta.get("tier.cold_bytes_staged", 0)
+                        != want_bytes):
+                    fail(f"{label}: staged {delta} for {len(probed)} probed "
+                         f"cold lists of {want_bytes} bytes")
+                waves = delta.get("tier.stage_waves", 0)
+                if name.startswith("waves") and q == 500 and waves < 3:
+                    fail(f"{label}: {waves} waves, not several")
+                if not probed and waves != 0:
+                    fail(f"{label}: {waves} waves without a cold list")
+                n += 1
+    return n
 
 
 def kernels_stream(torch, seed: int) -> None:
@@ -898,38 +1015,57 @@ def main_tiered(torch, state: dict) -> None:
         for p, b, n_q in requests:
             n_q = min(n_q, n_first or n_q)
             sp = tiered.TieredSearchParams(n_probes=p)
-            outs, times, hot_b, cold_b = [], [], [], []
+            outs, times, hot_b, cold_b, staged = [], [], [], [], []
             for j, s in enumerate(range(0, n_q, b)):
+                c0 = tracing.counters("tier.")
                 t1 = time.perf_counter()
                 out = tiered.search(res, sp, t, queries[s:s + b], K)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t1) * 1e3)
+                c1 = tracing.counters("tier.")
+                staged.append({name: c1[name] - c0.get(name, 0.0)
+                               for name in c1})
                 ref = want[p, b][j]
                 if not (torch.equal(out[0], ref[0])
                         and torch.equal(out[1], ref[1])):
                     fail(f"tiered search n_probes={p} batch={b} request {j} "
                          f"{tag} differs from the all-device search")
                 outs.append(out)
-            for s in range(0, n_q, b):
+            for j, s in enumerate(range(0, n_q, b)):
                 probes = ivf_flat.coarse_probes(
                     queries[s:s + b], t.centers, t.center_norms, t.metric,
                     p, "exact")
-                hot_rows, cold_rows, _ = _probed_rows(torch, t, probes)
+                hot_rows, cold_rows, n_cold = _probed_rows(torch, t, probes)
                 hot_b.append(hot_rows * DIM * 4)
                 cold_b.append(cold_rows * DIM * 4)
+                # each probed cold list staged once, its real rows rounded
+                # up to the scan's 64-row tile: never fewer bytes
+                got = staged[j]
+                if (got.get("tier.cold_lists_staged", 0) != n_cold
+                        or got.get("tier.cold_bytes_staged", 0)
+                        < cold_rows * DIM * 4):
+                    fail(f"tiered search n_probes={p} batch={b} request {j} "
+                         f"{tag}: staged {got} for {n_cold} probed cold "
+                         f"lists of {cold_rows * DIM * 4} bytes")
+            st_b = [x.get("tier.cold_bytes_staged", 0) for x in staged]
+            waves = [x.get("tier.stage_waves", 0) for x in staged]
             r = recall(torch.cat([o[1] for o in outs]), gt_i[:n_q])
             ms = float(np.median(times[1:]))
             state[f"tier_recall_p{p}_b{b}{key}"] = r
             state[f"tier_ms_p{p}_b{b}{key}"] = ms
             state[f"tier_hot_bytes_p{p}_b{b}{key}"] = float(np.mean(hot_b))
             state[f"tier_cold_bytes_p{p}_b{b}{key}"] = float(np.mean(cold_b))
+            state[f"tier_staged_bytes_p{p}_b{b}{key}"] = float(np.mean(st_b))
             log(f"[main] tiered.search n_probes={p} batch={b} {tag}: "
                 f"recall@10 {r:.4f} over {n_q} queries, median {ms:.3f} ms "
                 f"per batch (all-device {state[f'ms_p{p}_b{b}']:.3f} ms), "
                 f"cold bytes probed per request mean "
                 f"{np.mean(cold_b):.0f} (min {min(cold_b)}, max "
-                f"{max(cold_b)}); ids and distances equal the all-device "
-                "search")
+                f"{max(cold_b)}), staged over the host link (counted, "
+                f"tier.cold_bytes_staged) mean {np.mean(st_b):.0f} (min "
+                f"{min(st_b):.0f}, max {max(st_b):.0f}) in {min(waves):.0f}"
+                f"-{max(waves):.0f} waves; each probed cold list staged "
+                "once; ids and distances equal the all-device search")
 
     run_requests("before the epoch", "")
 
@@ -988,19 +1124,8 @@ def main_tiered(torch, state: dict) -> None:
         f"GB/s (device memory); pinned -> device copy of the cold plane "
         f"({t.cold_bytes} bytes) {link_ms:.3f} ms = "
         f"{state['link_gbps']:.2f} GB/s (host link)")
-    # what a kernel's own loads get from pinned host memory: the stream
-    # kernel run over the cold plane in place (16-byte loads); its sums
-    # must equal the same kernel's over the device copy
-    cold_flat = t.cold_data.reshape(-1, DIM)
-    zero_copy = _zero_copy_sum(torch, cold_flat)
-    if not torch.equal(zero_copy, stream_read_sum(dst.reshape(-1, DIM))):
-        fail("the stream kernel read the pinned cold plane wrongly")
     del dst
-    zc_ms = median_ms(lambda: _zero_copy_sum(torch, cold_flat), 5)
-    state["zero_copy_gbps"] = t.cold_bytes / zc_ms / 1e6
-    log(f"[main] the stream kernel reading the pinned cold plane in place "
-        f"(16-byte loads): {zc_ms:.3f} ms = {state['zero_copy_gbps']:.2f} "
-        "GB/s")
+    ring_copy(torch, state, t, want[128, 500])
     for p, b, _ in requests:
         ms = state[f"tier_ms_p{p}_b{b}"]
         hot_gbps = state[f"tier_hot_bytes_p{p}_b{b}"] / ms / 1e6
@@ -1017,16 +1142,54 @@ def main_tiered(torch, state: dict) -> None:
 
 
 
-def _zero_copy_sum(torch, x):
-    """csrc/stream_read.cu's kernel over a pinned host tensor, read in place
-    through the unified address space: what a kernel's own 16-byte loads
-    get from pinned memory. The wrapper runs the plain version for CPU
-    tensors, so this launches through its helper; the launch is not
-    counted."""
-    from raft_tpu_torch.ops.fused_topk import _stream_launch
+def ring_copy(torch, state: dict, t, want) -> None:
+    """The tiered scan's staged copies at the batch-500, n_probes=128
+    request, read from the device's own timeline: torch.profiler over
+    three such requests (each still equal to the all-device search); the
+    bytes staged (``tier.cold_bytes_staged``) over the summed device time
+    of their host -> device copies is the ring copy's achieved rate,
+    against the pinned -> device roofline."""
+    from torch.profiler import ProfilerActivity, profile
 
-    return _stream_launch(x.data_ptr(), False, True, *x.shape,
-                          torch.device("cuda"))
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.neighbors import tiered
+
+    sp = tiered.TieredSearchParams(n_probes=128)
+    c0 = tracing.counters("tier.")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [tiered.search(state["res"], sp, t,
+                              state["queries"][s:s + 500], K)
+                for s in range(0, 1500, 500)]
+        torch.cuda.synchronize()
+    c1 = tracing.counters("tier.")
+    for j, out in enumerate(outs):
+        if not (torch.equal(out[0], want[j][0])
+                and torch.equal(out[1], want[j][1])):
+            fail(f"profiled tiered request {j} differs from the all-device "
+                 "search")
+    nbytes, lists = (c1.get(name, 0.0) - c0.get(name, 0.0)
+                     for name in ("tier.cold_bytes_staged",
+                                  "tier.cold_lists_staged"))
+    copies = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key.startswith("Memcpy HtoD")]
+    count = sum(e.count for e in copies)
+    us = sum(e.self_device_time_total for e in copies)
+    kinds = ", ".join(f"{e.key} x{e.count}" for e in copies)
+    if not us:
+        state["ring_gbps"] = None
+        log("[main] the ring copy's rate: not measured (the profiler shows "
+            "no host -> device copy on the device)")
+        return
+    state["ring_gbps"] = nbytes / us / 1e3
+    log(f"[main] the ring copy of three batch-500, n_probes=128 tiered "
+        f"requests (torch.profiler, device time of the copies): "
+        f"{nbytes:.0f} bytes staged in {lists:.0f} lists, {count} host -> "
+        f"device copies ({kinds}) busy {us / 1e3:.3f} ms = "
+        f"{state['ring_gbps']:.2f} GB/s "
+        f"({100 * state['ring_gbps'] / state['link_gbps']:.1f}% of the "
+        f"pinned -> device roofline {state['link_gbps']:.2f} GB/s)")
 
 
 def main_bq(torch, state: dict) -> None:
@@ -1053,18 +1216,12 @@ def main_bq(torch, state: dict) -> None:
     list_sizes = index.list_sizes.to(torch.int64)
     for n_probes in (32, 128):
         sp = ivf_bq.IvfBqSearchParams(n_probes=n_probes)
-        # rows reranked against rows probed, over 1,000 queries
-        surv = probed = 0
+        # rows probed over the first 1,000 queries
+        probed = 0
         for s0 in range(0, 1000, 500):
-            qb = queries[s0:s0 + 500]
-            _, _, sv = ivf_bq._search_impl(
-                qb, index, None, n_probes=n_probes, k=K,
-                scan_engine="cuda")
-            surv += int(sv.sum())
-            probes = ivf_bq.coarse_probes(index, qb, n_probes)[0]
+            probes = ivf_bq.coarse_probes(index, queries[s0:s0 + 500],
+                                          n_probes)[0]
             probed += int(list_sizes[probes.to(torch.int64)].sum())
-        share = surv / probed
-        state[f"bq_survivors_p{n_probes}"] = share
         for batch, n_q in ((10, 1000), (500, N_QUERIES)):
             outs, times = [], []
             for s0 in range(0, n_q, batch):
@@ -1073,13 +1230,37 @@ def main_bq(torch, state: dict) -> None:
                                           queries[s0:s0 + batch], K))
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t1) * 1e3)
+            # every request against the plain scan, after the timing: the
+            # search's ids and distances, and the rows each query reranked
+            # (the kernel's count, from the same request's scan again)
+            surv = 0
+            for j, s0 in enumerate(range(0, n_q, batch)):
+                qb = queries[s0:s0 + batch]
+                name = (f"ivf_bq.search n_probes={n_probes} batch={batch} "
+                        f"request {j}")
+                want = ivf_bq._search_impl(qb, index, None,
+                                           n_probes=n_probes, k=K,
+                                           scan_engine="torch")
+                got = ivf_bq._search_impl(qb, index, None, n_probes=n_probes,
+                                          k=K, scan_engine="cuda")
+                bq_equal(name, got, want)
+                if not (torch.equal(outs[j][0], got[0])
+                        and torch.equal(outs[j][1], got[1])):
+                    fail(f"{name}: the scan run again differs from the "
+                         "search")
+                if s0 < 1000:
+                    surv += int(got[2].sum())
+            share = surv / probed
+            state[f"bq_survivors_p{n_probes}"] = share
             ids = torch.cat([o[1] for o in outs])
             r = recall(ids, gt_i[:n_q])
             ms = float(np.median(times[1:]))
             log(f"[main] ivf_bq.search n_probes={n_probes} batch={batch}: "
                 f"recall@10 {r:.4f} over {n_q} queries, median {ms:.3f} ms "
                 f"per batch, rows reranked {surv} of {probed} probed "
-                f"({100 * share:.3f}%)")
+                f"({100 * share:.3f}%) over the first 1000 queries; every "
+                "request equals the plain scan on distances, ids and rows "
+                "reranked")
             state[f"bq_recall_p{n_probes}_b{batch}"] = r
             state[f"bq_ms_p{n_probes}_b{batch}"] = ms
     if state["bq_recall_p128_b500"] < 0.95:
@@ -1312,9 +1493,16 @@ def phase_profile(torch, state: dict) -> None:
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0
                   and not e.key.startswith("raft_tpu.")]
-        busy_us = sum(e.self_device_time_total for e in events) / 5
+        # copies (the tiered scan's staging runs on a side stream, beside
+        # the kernels) are shown apart from the kernels' busy time
+        copies = [e for e in events if e.key.startswith("Memcpy")]
+        busy_us = sum(e.self_device_time_total for e in events
+                      if e not in copies) / 5
+        copy_us = sum(e.self_device_time_total for e in copies) / 5
         log(f"[profile] {label}: wall {wall_us:.1f} us per request, device "
-            f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}%), "
+            f"busy (kernels) {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}"
+            f"%), copies {copy_us:.1f} us "
+            f"({sum(e.count for e in copies) // 5} a request), "
             f"{sum(e.count for e in events) // 5} device ops per request")
         events.sort(key=lambda e: -e.self_device_time_total)
         for e in events[:6]:
@@ -1392,7 +1580,12 @@ def phase_times(torch, state: dict) -> list:
 def times_bq(torch, state: dict) -> dict:
     """The IVF-BQ scan at the main path's batch-500, n_probes=128 request."""
     from raft_tpu_torch.neighbors import ivf_bq
-    from raft_tpu_torch.ops.bq_scan import _bq_scan_torch, bq_list_major_scan
+    from raft_tpu_torch.ops.bq_scan import (
+        CLUSTER_SIZES,
+        _bq_scan_cuda,
+        _bq_scan_torch,
+        bq_list_major_scan,
+    )
     from raft_tpu_torch.ops.ivf_scan import unique_lists
 
     index, queries = state["bq_index"], state["queries"]
@@ -1410,6 +1603,29 @@ def times_bq(torch, state: dict) -> dict:
     err = bq_equal("bq_scan main shape", got, want)
     ms = median_ms(lambda: bq_list_major_scan(*args, engine="cuda", **kw),
                    20)
+    # every cluster size at batch 10 and 500 (the wrapper picks one), each
+    # held against the plain version before it is timed
+    for q in (10, 500):
+        sub = [a[:q] if i in (0, 1, 10) else a for i, a in enumerate(args)]
+        want_q = want if q == 500 else _bq_scan_torch(*sub, **kw)
+        bq_list_major_scan(*sub, engine="cuda", **kw)
+        chosen = bq_list_major_scan.last_cluster
+        for c in CLUSTER_SIZES:
+            got_c = _bq_scan_cuda(*sub, cluster=c, **kw)
+            if bq_list_major_scan.last_cluster != c:
+                fail(f"bq_scan q={q}: cluster {c} asked, "
+                     f"{bq_list_major_scan.last_cluster} launched")
+            err = max(err, bq_equal(f"bq_scan q={q} n_probes=128 cluster={c}",
+                                    got_c, want_q))
+        by_size = {c: median_ms(lambda c=c: _bq_scan_cuda(
+            *sub, cluster=c, **kw), 10) for c in CLUSTER_SIZES}
+        state[f"bq_ms_by_cluster_b{q}"] = by_size
+        log(f"[times] bq_scan q={q} n_probes=128 by cluster size: "
+            + ", ".join(f"{c}: {v:.4f} ms" for c, v in by_size.items())
+            + f"; the wrapper chooses {chosen}; every size equals the plain "
+            "version on distances, ids and rows reranked (the earlier one-"
+            f"block-a-query kernel: {EARLIER_BQ_MS[q]} ms, NVIDIA H100 80GB "
+            "HBM3, 700 W)")
     plain_ms = median_ms(
         lambda: bq_list_major_scan(*args, engine="torch", **kw), 3, 1)
     # data-dependent work. Bytes: the union's code and correction rows
@@ -1464,6 +1680,21 @@ def times_select(torch, state: dict) -> dict:
     ms = median_ms(lambda: select_k_tiles(v, k), 20)
     plain_ms = median_ms(lambda: select_k_tiles_plain(v, k), 5)
     lib_ms = median_ms(lambda: torch.topk(v, k, dim=1, largest=False), 20)
+    # the shape of the CAGRA build's launches (cluster-join: one per
+    # cluster and pass, a cluster's (m, m) squared distances with an
+    # infinite diagonal, k = 64; m ~ 1M / 489 clusters of ~2,048 rows)
+    x = state["x"][:2048]
+    nr = (x * x).sum(dim=1)
+    slab = torch.clamp(nr[:, None] + nr[None, :] - 2.0 * (x @ x.T), min=0.0)
+    slab.fill_diagonal_(float("inf"))
+    select_equal(torch, "select_k 2048 x 2048 k=64 (CAGRA build)", slab, k)
+    c_ms = median_ms(lambda: select_k_tiles(slab, k), 20)
+    c_plain = median_ms(lambda: select_k_tiles_plain(slab, k), 5)
+    c_lib = median_ms(lambda: torch.topk(slab, k, dim=1, largest=False), 20)
+    c_bound = (4 * slab.numel() + 8 * 2048 * k) / PEAK_BYTES_PER_S * 1e3
+    log(f"[times] select_k at the CAGRA build's shape (2048 x 2048, k=64): "
+        f"{c_ms:.4f} ms (plain {c_plain:.3f} ms, torch.topk {c_lib:.4f} ms), "
+        f"bound {c_bound:.4f} ms by bytes")
     return _record("select_k", "raft_tpu_torch/csrc/select_k.cu",
                    "raft_tpu/ops/fused_topk.py:290",
                    state["launches"]["select_k"], err, ms, plain_ms,
@@ -1557,10 +1788,16 @@ def times_tier(torch, state: dict) -> dict:
         f"hot rows at {hot_bytes / ms / 1e6:.1f} GB/s (device memory "
         f"roofline {state['hbm_gbps']:.1f} GB/s) and the cold rows at "
         f"{cold_bytes / ms / 1e6:.2f} GB/s (host link roofline "
-        f"{state['link_gbps']:.2f} GB/s; a kernel's 16-byte loads read "
-        f"pinned memory at {state['zero_copy_gbps']:.2f} GB/s); ids and "
-        "distances equal the all-device scan's")
+        f"{state['link_gbps']:.2f} GB/s, the ring copies on the device "
+        + ("not measured" if state["ring_gbps"] is None
+           else f"{state['ring_gbps']:.2f} GB/s")
+        + "); ids and distances equal the all-device scan's")
     state["tier_whole_ms"] = whole_ms
+    log(f"[times] tier_scan: {ms:.4f} ms against the earlier in-place "
+        f"kernel's {EARLIER_TIER_MS} ms on this request (NVIDIA H100 80GB "
+        "HBM3, 700 W), "
+        f"the all-device scan {whole_ms:.4f} ms and the cold bytes' link "
+        f"time {cold_bytes / HOST_LINK_BYTES_PER_S * 1e3:.4f} ms")
     return _record("tier_scan", "raft_tpu_torch/csrc/tier_scan.cu",
                    "raft_tpu/ops/tier_scan.py:328",
                    state["launches"]["tier_scan"], err, ms, plain_ms, nbytes,

@@ -6,8 +6,10 @@ so a ``torch.profiler`` trace of the port lines up with a trace of the
 reference. Counters and gauges keep the JAX package's names and
 semantics (``raft_tpu/core/tracing.py``): counters only grow (the tiered
 swap counts ``tier.swaps``, ``tier.swap_bytes``,
-``tier.promote_cold_bytes``; the capacity gate ``memory.gate.*``), gauges
-hold the last value set. Spans, histograms and the lifetime ledger are
+``tier.promote_cold_bytes``; the tiered scan's staging counts
+``tier.cold_bytes_staged``, ``tier.cold_lists_staged`` and
+``tier.stage_waves``, the port's own; the capacity gate
+``memory.gate.*``), gauges hold the last value set. Spans, histograms and the lifetime ledger are
 not ported yet.
 """
 

@@ -10,9 +10,10 @@ tier** in pinned host memory (:func:`host_put`). Centers, norms, ids,
 slot maps and list sizes stay resident in device memory, so coarse
 selection, membership masks and filters are the all-device index's, and
 :func:`search` returns the all-device ``ivf_flat.search``'s results bit
-for bit. On the card the probe scan is the dual-source kernel
-(:mod:`raft_tpu_torch.ops.tier_scan`): it reads probed cold lists in
-place over the host link.
+for bit. On the card the probe scan is the staged dual-source kernel
+(:mod:`raft_tpu_torch.ops.tier_scan`): each request copies its probed
+cold lists once over the host link into a device ring sized from
+``Resources.workspace_limit_bytes``, and scores them there.
 
 A placement epoch (:mod:`raft_tpu_torch.serving.placement`) only permutes
 which lists occupy the fixed hot slots: :func:`apply_plan` swaps blocks
@@ -161,9 +162,11 @@ class TieredIvf(_TieredPlanes):
     host_resident: bool          # is the cold tier in pinned host memory?
     generation: int = 0          # apply_plan bumps it  # guarded-by: _swap_lock
     # serializes placement writes against searches. Re-entrant: a search
-    # holds it from its snapshot (tier_arrays) through its launches,
-    # because apply_plan updates the tiers in place, so a search must not
-    # launch against a generation other than the one it read.
+    # holds it from its snapshot (tier_arrays) through its staged copies
+    # and launches, because apply_plan updates the tiers in place, so a
+    # search must not copy or launch against a generation other than the
+    # one it read. The scan joins its copy stream back into the current
+    # stream, so apply_plan's writes there are ordered after its copies.
     _swap_lock: threading.RLock = dataclasses.field(
         default_factory=threading.RLock, repr=False, compare=False)
 
@@ -406,20 +409,23 @@ def apply_plan(tiered, promotions, demotions, width: int,
 def _tiered_search(queries, tiered: TieredIvf, hot_data, cold_data,
                    hot_slot_map, cold_slot_map, filter_words,
                    probe_counts=None, n_valid=None, *, n_probes: int, k: int,
-                   coarse_algo: str, scan_engine: str):
+                   coarse_algo: str, scan_engine: str,
+                   workspace_bytes: Optional[int] = None):
     """Coarse select + tiered probe scan + metric epilog — the serving
     body. The coarse stage and epilog are ``ivf_flat.search``'s; only the
     scan is the tiered one, so results equal the all-device index's bit
     for bit. With ``probe_counts`` the (n_lists,) traffic plane is
     returned too, with this batch's probes added (rows at and past
-    ``n_valid`` left out). ``scan_engine`` arrives resolved."""
+    ``n_valid`` left out). ``scan_engine`` arrives resolved;
+    ``workspace_bytes`` sizes the kernel's staging ring."""
     qf = queries.to(torch.float32)
     probes = coarse_probes(qf, tiered.centers, tiered.center_norms,
                            tiered.metric, n_probes, coarse_algo)
     best_d, best_i = tiered_list_major_scan(
         qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
         tiered.data_norms, tiered.indices, probes, filter_words, k=k,
-        metric=tiered.metric, engine=scan_engine)
+        metric=tiered.metric, engine=scan_engine,
+        workspace_bytes=workspace_bytes)
     best_d = metric_epilog(qf, best_d, tiered.metric)
     if probe_counts is not None:
         return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
@@ -454,6 +460,7 @@ def search(res: Optional[Resources], params: TieredSearchParams,
                 return _tiered_search(
                     qt, tiered, hot_data, cold_data, hot_map, cold_map, fw,
                     n_probes=n_probes, k=k, coarse_algo=params.coarse_algo,
-                    scan_engine=scan_engine)
+                    scan_engine=scan_engine,
+                    workspace_bytes=res.workspace_limit_bytes)
 
             return tile_queries(run, queries, filter_words, query_tile)

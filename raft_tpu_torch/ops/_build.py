@@ -38,13 +38,13 @@ SIGNATURES = {
                  [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   _I, _I, _I, _P, _P, _P, _P, _P]),
     "bq_scan": ("raft_bq_scan",
-                [_P] * 12 + [_I] * 9 + [_F] + [_P] * 4),
+                [_P] * 15 + [_I] * 10 + [_F] + [_P] * 5),
     "select_k": ("raft_select_k",
                  [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "beam_search": ("raft_beam_search",
                     [_P, _P, _I, _P, _I, _I, _P, _I, _P] + [_I] * 7 + [_P]
                     + [_I] * 5 + [_P, _P, _F, _P, _P, _P, _P]),
-    "tier_scan": ("raft_tier_scan", [_P] * 11 + [_I] * 8 + [_P] * 5),
+    "tier_scan": ("raft_tier_scan", [_P] * 13 + [_I] * 10 + [_P] * 11),
     "stream_read": ("raft_stream_read_sum",
                     [_P, _I, _I, _L, _I, _L, _I, _P, _P, _P]),
 }
@@ -117,6 +117,16 @@ def load(name: str):
             fn.restype = ctypes.c_int
             _loaded[name] = lib
     return getattr(lib, SIGNATURES[name][0])
+
+
+def constant(name: str, symbol: str) -> int:
+    """The value of library ``name``'s ``int symbol(void)``: a constant of
+    its source that a wrapper plans with."""
+    load(name)
+    fn = getattr(_loaded[name], symbol)
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def check(err: int, what: str) -> None:

@@ -19,10 +19,13 @@ Engines (``bq_list_major_scan``):
 
 - ``cuda``: the hand-written kernel ``csrc/bq_scan.cu``, which replaces
   the JAX package's Pallas kernel ``_bq_scan_kernel`` (reached through
-  ``_bq_scan_pallas``). One block walks one query's sorted probes; its
-  threads estimate a list's rows in parallel, its warps rerank the
-  survivors, and a shared-memory top-k per query takes them in. A raw
-  vector is read only for a survivor.
+  ``_bq_scan_pallas``). A first kernel computes the query side of every
+  (query, probed list) pair in parallel; then a thread block cluster of
+  :func:`bq_cluster_size` CTAs walks one query's sorted probes: its CTAs
+  split each list's live rows, estimate them against the threshold the
+  list started with, rerank their survivors, and the leader CTA merges
+  them into the query's top-k. A raw vector is read only for a
+  survivor.
 - ``torch``: the plain version ``_bq_scan_torch``, the twin of
   ``_bq_scan_xla``: one step per list of the sorted probed-list union,
   the same estimate, margin, prune and exact rerank, and
@@ -46,6 +49,7 @@ set per query (the beam's candidates).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -55,6 +59,7 @@ from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors.filters import test_filter
 from raft_tpu_torch.ops.ivf_scan import (
     _merge_smallest_id,
+    live_rows,
     sorted_probes,
     union_id_planes,
     unique_lists,
@@ -72,6 +77,22 @@ CUDA_MAX_K = 128
 #: largest dimension the kernel takes (its tree sums hold dim_ext / 32
 #: lanes per thread, at most 32)
 CUDA_MAX_DIM = 1024
+
+#: cluster sizes the kernel takes (16 is the H100's non-portable largest)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def bq_cluster_size(q: int, *, n_sm: int, ctas_per_sm: int) -> int:
+    """The kernel's cluster size for a batch of ``q`` queries: the largest
+    of :data:`CLUSTER_SIZES` whose ``q x size`` CTAs do not exceed
+    ``ctas_per_sm x n_sm`` (1 when even one CTA a query does), where
+    ``ctas_per_sm`` is the walk kernel's resident CTAs per SM (the
+    library's ``raft_bq_walk_ctas_per_sm()``). A small batch spreads each
+    query's walk over up to 16 SMs; a large one fills the card with one
+    CTA a query."""
+    budget = ctas_per_sm * n_sm
+    return max([c for c in CLUSTER_SIZES if max(q, 1) * c <= budget],
+               default=1)
 
 
 def auto_query_bits(bits: int) -> int:
@@ -397,7 +418,12 @@ def _walk_plan(probes: torch.Tensor, n_lists: int):
 
 def _bq_scan_cuda(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
                   data, data_norms, probes, filter_words, *, k: int,
-                  metric: DistanceType, epsilon: float, query_bits: int):
+                  metric: DistanceType, epsilon: float, query_bits: int,
+                  cluster=None):
+    """The kernel's wrapper. ``cluster`` forces a cluster size of
+    :data:`CLUSTER_SIZES` (the card tests run each); by default it is
+    :func:`bq_cluster_size` of the batch. The size launched is kept in
+    ``bq_list_major_scan.last_cluster``."""
     dev = data.device
     q, d = qf.shape
     n_lists, m, words = codes.shape
@@ -434,26 +460,44 @@ def _bq_scan_cuda(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
     from raft_tpu_torch.ops import _build
 
     launch = _build.load("bq_scan")
+    if cluster is None:
+        props = torch.cuda.get_device_properties(dev)
+        cluster = bq_cluster_size(
+            q, n_sm=props.multi_processor_count,
+            ctas_per_sm=_build.constant("bq_scan", "raft_bq_walk_ctas_per_sm"))
+    expect(cluster in CLUSTER_SIZES,
+           f"bq_list_major_scan: cluster size must be one of "
+           f"{CLUSTER_SIZES}, got {cluster}")
     uniq, upos = _walk_plan(probes, n_lists)
     ids_g = union_id_planes(indices, uniq, filter_words).to(
         torch.int32).contiguous()
+    live = live_rows(ids_g).contiguous()
     qf = qf.to(torch.float32).contiguous()
     qrot = qrot.to(torch.float32).contiguous()
     crot = centers_rot.to(torch.float32).contiguous()
+    # the query side of every (query, probe slot): bit-planes and scalars
+    side_words = torch.empty((q * p * query_bits * dim_ext // 32,),
+                             dtype=torch.int32, device=dev)
+    side_scal = torch.empty((q * p * 5,), dtype=torch.float32, device=dev)
     outd = torch.empty((q, k), dtype=torch.float32, device=dev)
     outi = torch.empty((q, k), dtype=torch.int32, device=dev)
-    surv = torch.empty((q,), dtype=torch.int32, device=dev)
+    surv = torch.zeros((q,), dtype=torch.int32, device=dev)
+    used = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = launch(qf.data_ptr(), qrot.data_ptr(), crot.data_ptr(),
                  codes.data_ptr(), rnorm.data_ptr(), cfac.data_ptr(),
                  errw.data_ptr(), data.data_ptr(), data_norms.data_ptr(),
-                 ids_g.data_ptr(), uniq.data_ptr(), upos.data_ptr(), q, p, d,
-                 dim_ext, m, bits, query_bits, k,
-                 int(metric == DistanceType.InnerProduct), 2.0 * epsilon,
-                 outd.data_ptr(), outi.data_ptr(), surv.data_ptr(), stream)
+                 ids_g.data_ptr(), uniq.data_ptr(), upos.data_ptr(),
+                 live.data_ptr(), side_words.data_ptr(),
+                 side_scal.data_ptr(), q, p, d, dim_ext, m, bits, query_bits,
+                 k, int(metric == DistanceType.InnerProduct), cluster,
+                 2.0 * epsilon, outd.data_ptr(), outi.data_ptr(),
+                 surv.data_ptr(), ctypes.addressof(used), stream)
     _build.check(err, "bq_list_major_scan")
     bq_list_major_scan.launches += 1
+    bq_list_major_scan.last_cluster = used.value
     return outd, outi, surv
 
 
 bq_list_major_scan.launches = 0
+bq_list_major_scan.last_cluster = 0

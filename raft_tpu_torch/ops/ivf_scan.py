@@ -156,6 +156,16 @@ def union_id_planes(indices: torch.Tensor, uniq: torch.Tensor,
     return ids_g
 
 
+def live_rows(ids_g: torch.Tensor) -> torch.Tensor:
+    """(n,) int32: each (n, m) id plane's rows up to its last live one
+    (id >= 0), 0 for a plane with none. The rows past it are padding or
+    filtered, which no scan reads: the extent the kernels of the tiered
+    and IVF-BQ scans walk and stage."""
+    pos = torch.arange(1, ids_g.shape[1] + 1, dtype=torch.int32,
+                       device=ids_g.device)
+    return torch.where(ids_g >= 0, pos, torch.zeros_like(pos)).amax(dim=1)
+
+
 def list_major_scan(qf, data, data_norms, indices, probes, filter_words=None,
                     *, k: int, metric: DistanceType, engine: str = "torch"):
     """Run the probe scan list-major; returns the pre-epilog top-k

@@ -14,11 +14,15 @@ its results equal the all-device scan's on the same lists bit for bit.
 - ``cuda``: the hand-written kernel ``csrc/tier_scan.cu``, which replaces
   the JAX package's Pallas kernel ``_tier_scan_kernel`` with
   ``_cold_dma`` (reached through ``_tier_scan_pallas`` /
-  ``tiered_list_major_scan``). It is the all-device scan kernel's block
-  body (``csrc/ivf_scan_body.cuh``) with each list's row pointer taken
-  from its tier: hot rows from device memory, cold rows read in place
-  from pinned host memory over the host link, so the link carries only
-  the probed cold lists. On the H100 the cold bytes over PCIe bound it
+  ``tiered_list_major_scan``). The probed cold lists are staged through
+  the copy engine: :func:`tier_stage_plan` packs their real rows into a
+  device ring in waves (taking turns in its halves when the ring, sized
+  from the workspace budget, is smaller than the probed cold set); one C
+  call scans the hot lists, copies the waves on a side stream and scans
+  each on another once its copies are done, with the all-device scan's
+  block body (``csrc/ivf_scan_body.cuh``) and merge. Each probed cold
+  list crosses the host link once per request; no kernel reads host
+  memory. The bytes staged count into ``tier.cold_bytes_staged``
   (PERF.md).
 - ``torch``: the plain version, the twin of the JAX package's
   ``_tier_scan_xla`` (``tier_scan.py:262-310``): the op order of the
@@ -31,8 +35,15 @@ its results equal the all-device scan's on the same lists bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
+import threading
+from typing import Optional
+
+import numpy as np
 import torch
 
+from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.core.validation import expect
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors.filters import test_filter
@@ -41,10 +52,19 @@ from raft_tpu_torch.ops.ivf_scan import (
     CUDA_MAX_K,
     _launch_glue,
     _merge_smallest_id,
+    live_rows,
     unique_lists,
 )
 
 TIER_ENGINES = ("auto", "cuda", "torch")
+
+#: rows of one tile of the scan body (kDT in csrc/topk_common.cuh): the
+#: staging unit of a cold list
+STAGE_TILE = 64
+
+#: waves a probed cold set that fits the ring is cut into, so that each
+#: wave's scan overlaps the next wave's copies
+PIPELINE_WAVES = 4
 
 
 def resolve_tier_engine(engine: str, *, hot_data=None, filter_words=None,
@@ -121,17 +141,94 @@ def tier_fetch_plan(uniq: torch.Tensor, hot_slot_map: torch.Tensor,
             cold_seq.to(torch.int32))
 
 
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """Where a request's probed cold lists go in the device ring, longest
+    first (:func:`tier_stage_plan`). Per staged list: ``steps`` its
+    position in the union, ``slots`` its cold slot, ``rows`` the rows
+    copied and ``offsets`` its ring row offset; ``wave_end[w]`` is the end
+    of wave w in those arrays, and the ring holds ``ring_rows`` rows."""
+
+    steps: np.ndarray        # (n,) int64
+    slots: np.ndarray        # (n,) int32
+    rows: np.ndarray         # (n,) int32
+    offsets: np.ndarray      # (n,) int64
+    wave_end: np.ndarray     # (n_waves,) int32
+    ring_rows: int
+    reuse: bool              # do waves take turns in two halves?
+
+    @property
+    def n_waves(self) -> int:
+        return len(self.wave_end)
+
+
+def tier_stage_plan(cold_fetch, step_rows, m: int,
+                    capacity_rows: int) -> StagePlan:
+    """The staging plan of one request (host side). ``cold_fetch`` is the
+    union's per-step cold slot (-1 on hot and sentinel steps), as
+    :func:`tier_fetch_plan` gives it; ``step_rows`` each step's rows up to
+    its last live one (:func:`~raft_tpu_torch.ops.ivf_scan.live_rows`). A
+    cold list stages those rows rounded up to the scan body's tile
+    (:data:`STAGE_TILE`), never past ``m``: the tiles after them hold
+    only padding, which the body skips unread.
+
+    The lists fill waves greedily, longest first (ties in union order):
+    a scan launch lasts at least its longest list's walk, so the last
+    wave, whose scan nothing overlaps, gets the shortest. When they fit in
+    ``capacity_rows`` the ring holds them all, one after the other, in
+    waves of about a :data:`PIPELINE_WAVES`-th of them (each wave's scan
+    overlaps the next one's copies); otherwise the ring is two halves of
+    ``max(capacity_rows // 2, largest list)`` rows (at least two lists,
+    the TPU kernel's double buffer), a wave fills a half, and wave w
+    reuses half ``w % 2`` (``reuse``)."""
+    cold_fetch = np.asarray(cold_fetch, np.int64)
+    steps = np.nonzero(cold_fetch >= 0)[0]
+    live = np.asarray(step_rows, np.int64)[steps]
+    rows = np.minimum(-(-live // STAGE_TILE) * STAGE_TILE, m)
+    longest = np.argsort(-rows, kind="stable")
+    steps, rows = steps[longest], rows[longest]
+    total = int(rows.sum())
+    n = len(steps)
+    reuse = n > 0 and total > capacity_rows
+    biggest = int(rows.max()) if n else 0
+    if reuse:
+        wave_rows = max(int(capacity_rows) // 2, biggest)
+    else:
+        wave_rows = max(-(-total // PIPELINE_WAVES), biggest)
+    offsets = np.zeros(n, np.int64)
+    wave_end, used, start = [], 0, 0
+    for i, r in enumerate(rows.tolist()):
+        if used + r > wave_rows:
+            wave_end.append(i)
+            start = (len(wave_end) % 2) * wave_rows if reuse \
+                else start + used
+            used = 0
+        offsets[i] = start + used
+        used += r
+    if n:
+        wave_end.append(n)
+    ring_rows = wave_rows * min(len(wave_end), 2) if reuse else total
+    return StagePlan(steps=steps.astype(np.int64),
+                     slots=cold_fetch[steps].astype(np.int32),
+                     rows=rows.astype(np.int32), offsets=offsets,
+                     wave_end=np.asarray(wave_end, np.int32),
+                     ring_rows=int(ring_rows), reuse=bool(reuse))
+
+
 def tiered_list_major_scan(qf, hot_data, cold_data, hot_slot_map,
                            cold_slot_map, data_norms, indices, probes,
                            filter_words=None, *, k: int,
-                           metric: DistanceType, engine: str = "torch"):
+                           metric: DistanceType, engine: str = "torch",
+                           workspace_bytes: Optional[int] = None):
     """Run the probe scan over a tiered index; returns the pre-epilog
     top-k ``(best_d, best_i)``, (q, k) float32 and int32, in the
     ``list_major_scan`` convention (min-space ``norms - 2 x.y`` for L2
     with +inf pads, raw inner products for IP with -inf pads, ties to the
     smallest id, sentinel probe slots inert). ``engine`` is resolved
     (``cuda`` or ``torch``); a hot tier on the CPU always takes the plain
-    engine."""
+    engine. ``workspace_bytes`` (the caller's
+    ``Resources.workspace_limit_bytes``, that attribute's default when
+    None) sizes the kernel's staging ring."""
     expect(engine in ("cuda", "torch"),
            f"tiered_list_major_scan engine must be cuda|torch, got "
            f"{engine!r}")
@@ -139,7 +236,8 @@ def tiered_list_major_scan(qf, hot_data, cold_data, hot_slot_map,
             data_norms, indices, probes, filter_words)
     if engine == "torch" or hot_data.device.type == "cpu":
         return _tier_scan_torch(*args, k=k, metric=metric)
-    return _tier_scan_cuda(*args, k=k, metric=metric)
+    return _tier_scan_cuda(*args, k=k, metric=metric,
+                           workspace_bytes=workspace_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -182,9 +280,25 @@ def _tier_scan_torch(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
 # ---------------------------------------------------------------------------
 
 
+_side_streams = {}   # device index -> (copy, scan) streams  # guarded-by: _side_streams_lock
+_side_streams_lock = threading.Lock()
+
+
+def _side_stream_handles(dev: torch.device) -> list:
+    """The raw handles of ``dev``'s two side streams: the staged copies'
+    and the cold waves' scans'."""
+    with _side_streams_lock:
+        pair = _side_streams.get(dev.index)
+        if pair is None:
+            pair = _side_streams[dev.index] = tuple(
+                torch.cuda.Stream(device=dev) for _ in range(2))
+    return [st.cuda_stream for st in pair]
+
+
 def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
                     data_norms, indices, probes, filter_words, *, k: int,
-                    metric: DistanceType):
+                    metric: DistanceType,
+                    workspace_bytes: Optional[int] = None):
     dev = hot_data.device
     q, d = qf.shape
     m = hot_data.shape[1]
@@ -200,8 +314,8 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
     expect(cold_data.numel() == 0 or (cold_data.device.type == "cpu"
                                       and cold_data.is_pinned()),
            "tiered_list_major_scan: the cold tier must be pinned host "
-           "memory (torch.Tensor.pin_memory()); the kernel reads it in "
-           "place and never copies a pageable plane")
+           "memory (torch.Tensor.pin_memory()); the kernel stages it with "
+           "asynchronous copies, which a pageable plane would serialize")
     expect(hot_data.is_contiguous() and cold_data.is_contiguous()
            and data_norms.is_contiguous() and indices.is_contiguous(),
            "tiered_list_major_scan: tiers, norms and indices must be "
@@ -222,19 +336,54 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
     launch = _build.load("tier_scan")
     (qf, uniq, offs, pair_q, pair_slot, ids_g, pd, pi, outd,
      outi) = _launch_glue(qf, indices, probes, filter_words, k)
+    cap = uniq.shape[0]
+    # the request's one host sync: each union step's list, cold slot and
+    # live rows (a filter folded in), for the staging plan
+    live = uniq < n_lists
+    lidc = uniq.clamp(max=n_lists - 1).to(torch.int64)
+    cold_fetch = torch.where(live, cold_slot_map.to(torch.int32)[lidc],
+                             torch.full_like(uniq, -1))
+    uniq_h, cold_h, rows_h = torch.stack(
+        [uniq, cold_fetch, live_rows(ids_g)]).cpu().numpy()
+    if workspace_bytes is None:
+        workspace_bytes = Resources.workspace_limit_bytes
+    plan = tier_stage_plan(cold_h, rows_h, m, workspace_bytes // (4 * d))
+    # the hot steps longest first, as the plan orders the cold ones
+    hot_steps = np.nonzero((uniq_h < n_lists) & (cold_h < 0))[0]
+    hot_steps = hot_steps[np.argsort(-rows_h[hot_steps], kind="stable")]
+    n_hot = len(hot_steps)
+    ring_off = np.full(cap, -1, np.int64)
+    ring_off[plan.steps] = plan.offsets
+    # one upload: the steps in launch order, then each step's ring offset
+    tables = torch.from_numpy(np.concatenate(
+        [hot_steps, plan.steps, ring_off]).astype(np.int64)).to(dev)
+    n_steps = n_hot + len(plan.steps)
+    ring = (torch.empty((plan.ring_rows, d), dtype=torch.float32,
+                        device=dev) if plan.ring_rows else None)
+    wave_end = (plan.wave_end + n_hot).astype(np.int32)
     hot_map = hot_slot_map.to(torch.int32).contiguous()
-    cold_map = cold_slot_map.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = launch(qf.data_ptr(), hot_data.data_ptr(),
                  cold_data.data_ptr() if cold_data.numel() else None,
-                 hot_map.data_ptr(), cold_map.data_ptr(),
+                 hot_map.data_ptr(),
                  data_norms.data_ptr(), ids_g.data_ptr(), uniq.data_ptr(),
-                 offs.data_ptr(), pair_q.data_ptr(), pair_slot.data_ptr(), q,
-                 p, d, m, k, int(metric == DistanceType.InnerProduct),
-                 uniq.shape[0], -(-q // _QUERY_GROUP), pd.data_ptr(),
-                 pi.data_ptr(), outd.data_ptr(), outi.data_ptr(), stream)
+                 offs.data_ptr(), pair_q.data_ptr(), pair_slot.data_ptr(),
+                 tables.data_ptr(), tables[n_steps:].data_ptr(),
+                 None if ring is None else ring.data_ptr(), q, p, d, m, k,
+                 int(metric == DistanceType.InnerProduct),
+                 -(-q // _QUERY_GROUP), n_hot,
+                 plan.n_waves, int(plan.reuse), wave_end.ctypes.data,
+                 plan.slots.ctypes.data,
+                 plan.offsets.ctypes.data, plan.rows.ctypes.data,
+                 pd.data_ptr(), pi.data_ptr(), outd.data_ptr(),
+                 outi.data_ptr(), stream, *_side_stream_handles(dev))
     _build.check(err, "tiered_list_major_scan")
     tiered_list_major_scan.launches += 1
+    tracing.inc_counters({
+        "tier.cold_bytes_staged": float(int(plan.rows.sum()) * d * 4),
+        "tier.cold_lists_staged": float(len(plan.steps)),
+        "tier.stage_waves": float(plan.n_waves),
+    })
     return outd, outi
 
 

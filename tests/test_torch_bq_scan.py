@@ -7,12 +7,15 @@ integer data); both sides get the same rotated queries and centers, so every dif
 Ids must be equal, distances equal to rtol 1e-5, and the number of rows
 each query reranked equal to a replay of ``_bq_scan_xla``'s steps with
 the JAX package's own estimate and merge. The CUDA engine's walk (one
-query at a time over its sorted probes, survivors reranked alone, every
-sum in ``tree_sum``'s order) is checked by emulating it with plain
-tensor code, bit for bit on Gaussian data too.
+query at a time over its sorted probes, each list's live rows split
+over a cluster's CTAs against the list-start threshold, survivors
+reranked alone, every sum in ``tree_sum``'s order) is checked by
+emulating it with plain tensor code, bit for bit on Gaussian data too.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +31,11 @@ from raft_tpu_torch import Resources
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import ivf_bq as t_bq
 from raft_tpu_torch.ops import bq_scan as t_scan
-from raft_tpu_torch.ops.ivf_scan import _merge_smallest_id, union_id_planes
+from raft_tpu_torch.ops.ivf_scan import (
+    _merge_smallest_id,
+    live_rows,
+    union_id_planes,
+)
 
 N_LISTS, N, D, Q = 12, 1500, 40, 24
 CPU = Resources(device="cpu")
@@ -209,17 +216,24 @@ def test_duplicates_order_by_smallest_id():
     assert gd[0].tolist() == [0.0, 0.0, 0.0]
 
 
-def _emulate_cuda_walk(args, *, k, metric, query_bits):
+def _emulate_cluster_walk(args, *, k, metric, query_bits, cluster=1,
+                          chunk=1024):
     """The kernel's decomposition in plain code: each query walks its own
-    sorted probes (positions into the union from ``_walk_plan``), the
-    threshold is read at the start of each list, and only the survivor
-    rows are reranked and merged."""
+    sorted probes (positions into the union from ``_walk_plan``) and
+    reads the threshold at the start of each list. A list's live rows
+    (``live_rows``) are cut in rounds of ``cluster`` slices of at most
+    ``chunk`` rows, as the cluster's CTAs cut them; each slice is pruned
+    against the list-start threshold and reranked alone, only the
+    survivors that beat the list-start k-th entry are kept, and a round's
+    kept survivors merge together, taken in reverse CTA order (the
+    leader's order does not matter)."""
     (qf, qrot, crot, codes, rnorm, cfac, errw, indices, data, norms, probes,
      fw) = args
     n_lists = indices.shape[0]
     ip_metric = metric == DistanceType.InnerProduct
     uniq, upos = t_scan._walk_plan(probes, n_lists)
     ids_g = union_id_planes(indices, uniq, fw)
+    live = live_rows(ids_g)
     q = qf.shape[0]
     out_d = torch.full((q, k), float("inf"))
     out_i = torch.full((q, k), -1, dtype=torch.int32)
@@ -229,21 +243,36 @@ def _emulate_cuda_walk(args, *, k, metric, query_bits):
         for j in upos[r].tolist():
             if j < 0:
                 continue
-            lid = int(uniq[j])
+            lid, n_live = int(uniq[j]), int(live[j])
             est, margin = t_scan._block_estimate(
                 qrot[r:r + 1], crot[lid:lid + 1], rnorm[lid][None],
                 errw[lid][None], cfac[lid].T, codes[lid],
                 dim_ext=crot.shape[1], bits=cfac.shape[2],
                 query_bits=query_bits, epsilon=3.0, ip_metric=ip_metric)
-            rows = torch.nonzero((ids_g[j] >= 0)
-                                 & ((est - margin)[0] < bd[0, k - 1]))[:, 0]
-            surv[r] += rows.numel()
-            ip = t_scan.tree_sum(data[lid][rows] * qf[r])
-            ex = -ip if ip_metric else torch.clamp(
-                t_scan.tree_sum(qf[r] * qf[r]) + norms[lid][rows] - 2.0 * ip,
-                min=0.0)
-            bd, bi = _merge_smallest_id(bd, bi, ex[None], ids_g[j][rows][None],
-                                        k)
+            kth = bd[0, k - 1]                  # the list-start threshold
+            kth_id = int(bi[0, k - 1])
+            per = min(chunk, -(-n_live // cluster)) if n_live else 1
+            for base in range(0, n_live, per * cluster):
+                parts = []
+                for rank in range(cluster):
+                    r0 = base + rank * per
+                    r1 = min(n_live, r0 + per)
+                    sl = torch.arange(r0, max(r0, r1))
+                    rows = sl[(ids_g[j][sl] >= 0)
+                              & ((est - margin)[0][sl] < kth)]
+                    surv[r] += rows.numel()
+                    ip = t_scan.tree_sum(data[lid][rows] * qf[r])
+                    ex = -ip if ip_metric else torch.clamp(
+                        t_scan.tree_sum(qf[r] * qf[r]) + norms[lid][rows]
+                        - 2.0 * ip, min=0.0)
+                    # only those that beat the list-start k-th entry
+                    ids = ids_g[j][rows]
+                    keep = (ex < kth) | ((ex == kth) & (ids < kth_id))
+                    parts.append((ex[keep], ids[keep]))
+                parts.reverse()
+                bd, bi = _merge_smallest_id(
+                    bd, bi, torch.cat([p[0] for p in parts])[None],
+                    torch.cat([p[1] for p in parts])[None], k)
         out_d[r], out_i[r] = bd[0], bi[0]
     if ip_metric:
         out_d = -out_d
@@ -283,11 +312,50 @@ def test_cuda_walk_decomposition_matches_plain(metric, data):
         args = _gaussian_args(metric)
     want = t_scan.bq_list_major_scan(*args, k=10, metric=metric, epsilon=3.0,
                                      engine="torch", query_bits=4)
-    got = _emulate_cuda_walk(args, k=10, metric=metric, query_bits=4)
+    got = _emulate_cluster_walk(args, k=10, metric=metric, query_bits=4)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2])
     assert torch.equal(got[0], want[0])
     assert int(got[2][5]) == 0 < int(got[2].sum())
+
+
+@pytest.mark.parametrize("cluster,chunk", [(1, 1024), (2, 1024), (8, 1024),
+                                           (16, 1024), (1, 16), (4, 7)])
+@pytest.mark.parametrize("data", ["integer", "gaussian"])
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+def test_cluster_split_walk_matches_plain(metric, data, cluster, chunk):
+    """The cluster walk's split (each list's live rows cut into
+    ``cluster`` slices per round, every slice pruned against the
+    list-start threshold, a round's survivors merged together) equals
+    the plain scan bit for bit: distances, ids and rows reranked, with a
+    shared filter, sentinel, repeated and empty probes."""
+    if data == "integer":
+        a = _index(2, metric)
+        args = _torch_args(a, a["words1"])
+    else:
+        args = _gaussian_args(metric)
+    want = t_scan.bq_list_major_scan(*args, k=10, metric=metric, epsilon=3.0,
+                                     engine="torch", query_bits=4)
+    got = _emulate_cluster_walk(args, k=10, metric=metric, query_bits=4,
+                                cluster=cluster, chunk=chunk)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[0], want[0])
+
+
+def test_cluster_size_follows_the_batch():
+    # the H100's 132 SMs at the walk kernel's 4 resident CTAs an SM
+    size = functools.partial(t_scan.bq_cluster_size, n_sm=132, ctas_per_sm=4)
+    assert [size(q) for q in (0, 1, 10, 16, 33)] == [16] * 5
+    assert [size(q) for q in (34, 66)] == [8, 8]
+    assert [size(q) for q in (67, 132)] == [4, 4]
+    assert [size(q) for q in (133, 264)] == [2, 2]
+    assert [size(q) for q in (265, 500, 10_000)] == [1, 1, 1]
+    assert size(10, n_sm=8) == 2 and size(100, n_sm=8) == 1
+    assert size(10, ctas_per_sm=2) == 16 and size(20, ctas_per_sm=2) == 8
+    assert all(size(q) in t_scan.CLUSTER_SIZES for q in range(0, 600, 7))
 
 
 @pytest.mark.parametrize("n", [1, 3, 32, 50, 64, 100, 128, 129])

@@ -11,10 +11,12 @@ distances equal to float32 rounding (1e-6 relative). The IVF-BQ scan and
 the CAGRA beam search run on Gaussian data; they take every sum in their
 plain versions' order (``ops.bq_scan.tree_sum``), so their distances,
 ids and counts (rows reranked per query; live iterations, candidates and
-rows scored per query) equal the plain versions' bit for bit. The tiered
-scan (cold lists in pinned host memory) equals the all-device scan kernel
-bit for bit on any data; ``stream_read_sum`` equals the float64 sum on
-integer data and is within 1e-6 sum|x| of it on Gaussian data."""
+rows scored per query) equal the plain versions' bit for bit, the IVF-BQ
+scan at every cluster size. The tiered scan (cold lists in pinned host
+memory, staged into a device ring, in waves when the ring is small)
+equals the all-device scan kernel bit for bit on any data;
+``stream_read_sum`` equals the float64 sum on integer data and is within
+1e-6 sum|x| of it on Gaussian data."""
 
 from __future__ import annotations
 
@@ -156,6 +158,43 @@ def test_bq_scan_kernel_matches_plain(dev, bq_indexes, bits, metric, k):
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[2], want[2])
         assert int(got[2][1]) == 0 and (got[1][1] == -1).all()
+
+
+@pytest.mark.parametrize("q", [1, 10, 90])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_bq_scan_cluster_sizes_equal_plain(dev, bq_indexes, cluster, q):
+    """Every cluster size the wrapper can choose gives the plain version's
+    distances, ids and rows reranked bit for bit (L2 and IP, bits 1 and
+    3, with a shared filter); the wrapper's own choice for 10 queries is
+    a cluster of more than one CTA."""
+    from raft_tpu_torch.ops import bq_scan
+
+    indexes, qf = bq_indexes
+    qf = qf[:q]
+    rng = np.random.default_rng(cluster + q)
+    for bits, metric in ((1, DistanceType.L2Expanded),
+                         (3, DistanceType.InnerProduct)):
+        idx = indexes[bits, metric]
+        probes = torch.from_numpy(rng.integers(0, idx.n_lists, (q, 8))).to(
+            dev, torch.int32)
+        probes[::3, 5:] = idx.n_lists
+        words = torch.from_numpy(rng.integers(0, 2**31, -(-6000 // 32))).to(
+            dev, torch.int32)
+        args = (qf, qf @ idx.rotation.T, idx.centers @ idx.rotation.T,
+                idx.codes, idx.rnorm, idx.cfac, idx.errw, idx.indices,
+                idx.data, idx.data_norms, probes, words)
+        kw = dict(k=10, metric=metric, epsilon=3.0,
+                  query_bits=auto_query_bits(bits))
+        got = bq_scan._bq_scan_cuda(*args, cluster=cluster, **kw)
+        assert bq_list_major_scan.last_cluster == cluster
+        want = bq_list_major_scan(*args, engine="torch", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[2], want[2])
+        if q == 10:
+            bq_list_major_scan(*args, engine="cuda", **kw)
+            assert bq_list_major_scan.last_cluster > 1
 
 
 def _beam_inputs(seed: int, n: int, d: int, q: int, deg: int, w: int,
@@ -356,12 +395,26 @@ def _tiers(data, hot_lists, cold_lists):
     from raft_tpu_torch.neighbors.tiered import _slot_maps
 
     n_lists = data.shape[0]
-    hmap, cmap = _slot_maps(np.asarray(hot_lists), np.asarray(cold_lists),
-                            n_lists)
-    hot = data[torch.as_tensor(hot_lists, device=data.device)].contiguous()
-    cold = data[torch.as_tensor(cold_lists, device=data.device)].cpu()
+    hot_lists = np.asarray(hot_lists, np.int64)
+    cold_lists = np.asarray(cold_lists, np.int64)
+    hmap, cmap = _slot_maps(hot_lists, cold_lists, n_lists)
+    hot = data[torch.from_numpy(hot_lists).to(data.device)].contiguous()
+    cold = data[torch.from_numpy(cold_lists).to(data.device)].cpu()
     return (hot, cold.pin_memory(), torch.from_numpy(hmap).to(data.device),
             torch.from_numpy(cmap).to(data.device))
+
+
+def _tier_c_entry(hot, cold):
+    """The tier_scan C entry called with a cold plane and nothing to do:
+    returns its error code (the cold plane's check comes first)."""
+    from raft_tpu_torch.ops import _build
+
+    z = torch.zeros(64, dtype=torch.int32, device=hot.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return _build.load("tier_scan")(
+        z.data_ptr(), hot.data_ptr(), cold.data_ptr(), *[z.data_ptr()] * 10,
+        1, 1, 1, 1, 1, 0, 0, 0, 0, 0, *[z.data_ptr()] * 8, stream, stream,
+        None)
 
 
 TIER_SPLITS = {"alternate": (list(range(0, 24, 2)), list(range(1, 24, 2))),
@@ -405,7 +458,6 @@ def test_tier_scan_refuses_a_pageable_cold_tier(dev):
     """A pageable cold plane raises at the wrapper, and the C entry itself
     refuses a cold pointer that is not page-locked host memory."""
     from raft_tpu_torch.core.validation import RaftError
-    from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
 
     data, norms, indices, qf, probes, _ = _tier_inputs(dev, 0, True)
@@ -417,13 +469,68 @@ def test_tier_scan_refuses_a_pageable_cold_tier(dev):
                                    probes, k=10,
                                    metric=DistanceType.L2Expanded,
                                    engine="cuda")
-        z = torch.zeros(64, dtype=torch.int32, device=dev)
-        err = _build.load("tier_scan")(
-            z.data_ptr(), hot.data_ptr(), bad.data_ptr(), *[z.data_ptr()] * 8,
-            1, 1, 1, 1, 1, 0, 0, 0, *[z.data_ptr()] * 4,
-            torch.cuda.current_stream().cuda_stream)
-        assert err != 0
+        assert _tier_c_entry(hot, bad) != 0
     assert tiered_list_major_scan.launches == before
+    assert _tier_c_entry(hot, cold) == 0            # pinned: taken
+
+
+TIER_STAGE_CASES = ["waves of one list", "waves of two lists",
+                    "no cold list probed", "no cold tier"]
+
+
+@pytest.mark.parametrize("case", TIER_STAGE_CASES)
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+def test_tier_scan_staged_cases_equal_all_device_scan(dev, metric, case):
+    """The staging edge cases: a ring smaller than the probed cold set
+    (several waves, each half of the ring reused), a request that probes
+    no cold list and an index with no cold tier (no wave, one scan).
+    Each equals the all-device scan kernel and the plain version bit for
+    bit, with and without a shared filter, and stages each probed cold
+    list once: its real rows rounded up to the 64-row tile."""
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
+
+    data, norms, indices, qf, probes, words = _tier_inputs(dev, 7, True)
+    n_lists, m, d = data.shape
+    lists = list(range(n_lists))
+    block = 128 * d * 4                 # 100 real rows -> 128 staged
+    workspace, per_wave = 1 << 30, n_lists
+    hot_lists, cold_lists = TIER_SPLITS["alternate"]
+    if case == "waves of one list":
+        workspace, per_wave = 2 * block, 1
+    elif case == "waves of two lists":
+        workspace, per_wave = 5 * block, 2
+    elif case == "no cold list probed":
+        probes = (probes // 2) * 2      # even lists (and the sentinel 24)
+    else:
+        hot_lists, cold_lists = lists, []
+    hot, cold, hmap, cmap = _tiers(data, hot_lists, cold_lists)
+    cold_probed = sorted({int(v) for v in probes.flatten().tolist()}
+                         & set(cold_lists))
+    for fw in (None, words):
+        args = (qf, hot, cold, hmap, cmap, norms, indices, probes, fw)
+        c0 = tracing.counters("tier.")
+        got = tiered_list_major_scan(*args, k=10, metric=metric,
+                                     engine="cuda", workspace_bytes=workspace)
+        c1 = tracing.counters("tier.")
+        staged = c1.get("tier.cold_bytes_staged", 0.0) - c0.get(
+            "tier.cold_bytes_staged", 0.0)
+        n_waves = c1.get("tier.stage_waves", 0.0) - c0.get(
+            "tier.stage_waves", 0.0)
+        whole = list_major_scan(qf, data, norms, indices, probes, fw, k=10,
+                                metric=metric, engine="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], whole[1])
+        assert torch.equal(got[0], whole[0])
+        _check(got, tiered_list_major_scan(*args, k=10, metric=metric,
+                                           engine="torch"))
+        if fw is None:
+            assert staged == len(cold_probed) * block
+            assert n_waves == -(-len(cold_probed) // per_wave)
+            if per_wave < n_lists:
+                assert n_waves > 2
 
 
 @pytest.mark.parametrize("d", [100, 128])

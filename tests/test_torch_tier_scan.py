@@ -212,3 +212,124 @@ def test_kernel_wrapper_refuses_a_pageable_cold_tier(int_planes):
             t(arrays["indices"]), t(probes), None, k=10,
             metric=DistanceType.L2Expanded)
     assert t_tier.tiered_list_major_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the staging plan of the kernel (host side)
+# ---------------------------------------------------------------------------
+
+STAGE_M = 300                    # padded list extent of the plan tests
+
+
+def _stage_inputs(seed: int):
+    """A union of 40 steps over 60 lists (some cold, sentinel steps at the
+    end) and every list's real rows, up to the padded extent."""
+    rng = np.random.default_rng(seed)
+    n_lists = 60
+    sizes = rng.integers(0, STAGE_M + 1, n_lists)
+    sizes[:3] = [0, STAGE_M, 64]                   # empty, full, one tile
+    cold_lists = np.sort(rng.choice(n_lists, 35, replace=False))
+    hot_lists = np.setdiff1d(np.arange(n_lists), cold_lists)
+    hmap, cmap = t_tiered._slot_maps(hot_lists, cold_lists, n_lists)
+    uniq = np.full(40, n_lists, np.int32)
+    uniq[:36] = np.sort(rng.choice(n_lists, 36, replace=False))
+    return n_lists, sizes, hmap, cmap, uniq
+
+
+def _cold_fetch(n_lists, cmap, uniq):
+    live = uniq < n_lists
+    return np.where(live, cmap[np.minimum(uniq, n_lists - 1)], -1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stage_plan_names_the_cold_steps_of_tier_fetch_plan(seed):
+    """The plan stages exactly the steps the JAX package's
+    ``tier_fetch_plan`` fetches from the cold tier, each once with its
+    slot, longest first and, among lists of equal rows, in its cold order
+    (``cold_seq``)."""
+    n_lists, sizes, hmap, cmap, uniq = _stage_inputs(seed)
+    _, cold_fetch, cold_seq = (np.asarray(a) for a in j_tier.tier_fetch_plan(
+        jnp.asarray(uniq), jnp.asarray(hmap), jnp.asarray(cmap), n_lists))
+    rows = sizes[np.minimum(uniq, n_lists - 1)]
+    plan = t_tier.tier_stage_plan(_cold_fetch(n_lists, cmap, uniq), rows,
+                                  STAGE_M, 10**9)
+    named = np.nonzero(cold_fetch >= 0)[0]
+    assert np.array_equal(np.sort(plan.steps), named)
+    assert np.array_equal(plan.slots, cold_fetch[plan.steps])
+    key = list(zip(-plan.rows.astype(np.int64), cold_seq[plan.steps]))
+    assert key == sorted(key)
+    # a ring that holds them all: one after the other, a few waves
+    assert not plan.reuse and plan.ring_rows == int(plan.rows.sum())
+    assert np.array_equal(plan.offsets, np.cumsum(plan.rows) - plan.rows)
+    assert 1 < plan.n_waves <= 2 * t_tier.PIPELINE_WAVES
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stage_plan_rows_are_real_rows_rounded_to_the_tile(seed):
+    n_lists, sizes, _, cmap, uniq = _stage_inputs(seed)
+    rows = sizes[np.minimum(uniq, n_lists - 1)]
+    plan = t_tier.tier_stage_plan(_cold_fetch(n_lists, cmap, uniq), rows,
+                                  STAGE_M, 10**9)
+    real = rows[plan.steps]
+    want = np.minimum(-(-real // t_tier.STAGE_TILE) * t_tier.STAGE_TILE,
+                      STAGE_M)
+    assert np.array_equal(plan.rows, want)
+    assert (plan.rows >= real).all() and (plan.rows <= STAGE_M).all()
+    assert ((plan.rows % t_tier.STAGE_TILE == 0)
+            | (plan.rows == STAGE_M)).all()
+
+
+@pytest.mark.parametrize("groups", [2, 3, 5, 11, "all"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stage_plan_waves_cover_each_cold_list_once(seed, groups):
+    """For rings from two lists up to the whole probed cold set: every
+    staged list lies in exactly one wave; a ring smaller than the set
+    takes wave w in half w % 2, and staging the waves in turn into it
+    (each wave over what the wave two before left) reads every list of a
+    wave back intact."""
+    n_lists, sizes, _, cmap, uniq = _stage_inputs(seed)
+    rows = sizes[np.minimum(uniq, n_lists - 1)]
+    fetch = _cold_fetch(n_lists, cmap, uniq)
+    whole = t_tier.tier_stage_plan(fetch, rows, STAGE_M, 10**9)
+    biggest = int(whole.rows.max())
+    cap = (int(whole.rows.sum()) if groups == "all"
+           else groups * biggest)
+    plan = t_tier.tier_stage_plan(fetch, rows, STAGE_M, cap)
+    assert np.array_equal(plan.steps, whole.steps)
+    assert np.array_equal(plan.rows, whole.rows)
+    assert plan.wave_end[-1] == len(plan.steps)
+    assert (np.diff(plan.wave_end) > 0).all()
+    assert plan.ring_rows <= max(cap, 2 * biggest)
+    assert plan.reuse == (groups != "all")
+    assert plan.n_waves > 1
+    # the cold plane's blocks carry their slot and row in every value
+    rng_vals = np.arange(STAGE_M, dtype=np.float32)
+    ring = np.full((plan.ring_rows, 1), np.nan, np.float32)
+    begin = 0
+    half = plan.ring_rows // 2
+    for w, end in enumerate(plan.wave_end.tolist()):
+        for i in range(begin, end):
+            o, r = int(plan.offsets[i]), int(plan.rows[i])
+            if plan.reuse:
+                assert w % 2 * half <= o and o + r <= (w % 2 + 1) * half
+            assert 0 <= o and o + r <= plan.ring_rows
+            ring[o:o + r, 0] = 1000 * plan.slots[i] + rng_vals[:r]
+        for i in range(begin, end):
+            o, r = int(plan.offsets[i]), int(plan.rows[i])
+            assert np.array_equal(ring[o:o + r, 0],
+                                  1000 * plan.slots[i] + rng_vals[:r])
+        begin = end
+
+
+def test_stage_plan_without_cold_steps():
+    plan = t_tier.tier_stage_plan(np.array([-1, -1, -1]),
+                                  np.array([5, 64, 0]), 100, 10**6)
+    assert plan.n_waves == 0 and plan.ring_rows == 0 and not plan.reuse
+    assert len(plan.steps) == len(plan.rows) == 0
+
+
+def test_live_rows_end_at_the_last_live_id():
+    ids = torch.tensor([[3, 4, -1, 7, -1, -1],      # a filtered hole
+                        [-1, -1, -1, -1, -1, -1],   # empty (or all filtered)
+                        [1, 2, 3, 4, 5, 6]], dtype=torch.int32)
+    assert t_scan.live_rows(ids).tolist() == [4, 0, 6]
