@@ -17,6 +17,10 @@ non-zero exit (nothing is caught and passed over):
             fused_knn over six metrics, k in {1, 10, 64}, q in {1, 10,
             500}, a ragged n, float32 and bfloat16; the IVF scan with
             sentinel probe slots, -1 padding, a 1-D filter and IP; the
+            IVF scan's work items on a list of 1,300 rows (three row
+            chunks) probed by most queries, short, empty and padded
+            lists, batch 1, 10 and 500, k in {1, 10, 128}, d 128
+            (float32 and bfloat16), 100, 33 and 300; the
             IVF-BQ scan over bits 1, 2, 3 (query bits 4, 4, 8), L2 and
             IP, d = 100 (padded lanes), k in {1, 10, 128}, a 1-D filter,
             sentinel and repeated probes and a query that probes
@@ -30,7 +34,8 @@ non-zero exit (nothing is caught and passed over):
             float32, bfloat16 and int8, k in {1, 10, 64}, itopk in {32,
             64, 128, 256, 512}, search_width in {1, 4}, q in {1, 10,
             500}, seeds with -1 holes, ragged row_iters with a 0, two
-            random samplings, BQ traversal off and at bits 1 and 2. Ids
+            random samplings, BQ traversal off and at bits 1 and 2, and
+            every cluster size (1-16) forced at q 1, 10 and 90. Ids
             must be equal on integer-valued data (every product exact);
             on Gaussian data distances agree to |dd| <= 1e-4 (1 + |d|)
             and 99% of ids agree. The IVF-BQ scan and the beam search
@@ -58,7 +63,9 @@ non-zero exit (nothing is caught and passed over):
             k=10) on clustered data made from --seed. The IVF-Flat path:
             brute-force ground truth through the fused kernel in
             500-query requests; IVF-Flat build (n_lists=1024, the
-            sift-128-euclidean config); search at n_probes 32 and 128,
+            sift-128-euclidean config); two same-seed balanced k-means
+            fits of all 1M rows and a second IVF-Flat build, each
+            torch.equal to the first; search at n_probes 32 and 128,
             batch 10 and 500 (recall@10, median ms per batch);
             n_probes=1024 equals brute force ties aside; save -> load ->
             search is bit-identical. The tiered path on the same index:
@@ -93,7 +100,10 @@ non-zero exit (nothing is caught and passed over):
             path on the same data: cagra.build with the blobs-1M-128
             config's first raft_cagra entry (graph_degree 32,
             intermediate 64, cluster_join) plus bq_bits=1 (build s, -1
-            share of the graph, index bytes); search at itopk 64 and
+            share of the graph, index bytes; the build must launch the
+            wide-row select_k kernel 0 times); two same-seed builds on
+            the first 200,000 rows (a cut for the time limit) with
+            equal graphs and planes; search at itopk 64 and
             128, search_width 4, batch 10 and 500 (recall@10, median
             ms), BQ traversal off; at itopk 64 with it on (recall, rows
             scored exactly as a share of candidates); save -> load ->
@@ -112,8 +122,10 @@ non-zero exit (nothing is caught and passed over):
             yardstick call's ms. The tiered scan's hot and cold GB/s
             are printed against the two rooflines of the main phase; the
             IVF-BQ scan is timed at every cluster size at batch 10 and
-            500; both redesigned kernels print their earlier design's
-            times beside theirs.
+            500; the IVF scan and the beam walk also at batch 10 (the
+            walk with its cluster size at both batches), matrix.select_k
+            (AUTO) at the CAGRA build's shape; the redesigned kernels
+            print their earlier design's times beside theirs.
 
 The line before the last is a JSON object with one record per kernel
 (fused_knn, list_major_scan, bq_scan, select_k, beam_search, tier_scan,
@@ -156,6 +168,20 @@ N_LISTS = 1024
 # tier_scan at n_probes 128, batch 500
 EARLIER_BQ_MS = {10: 9.5415, 500: 12.6976}
 EARLIER_TIER_MS = 28.2238
+# the IVF-Flat scan and the beam walk before their redesign, at n_probes
+# 128 / itopk 64, batch 500 (PERF.md, the same card)
+EARLIER_SCAN_MS = 6.2678
+EARLIER_BEAM_MS = 0.3397
+# the rows of the second CAGRA build that checks reproducibility: a cut of
+# the 1M rows that keeps the run inside its time limit
+CAGRA_REPRO_ROWS = 200_000
+
+
+def cagra_params(cagra):
+    """The blobs-1M-128 config's first raft_cagra entry, with bq_bits=1."""
+    return cagra.CagraIndexParams(
+        graph_degree=32, intermediate_graph_degree=64,
+        build_algo=cagra.BuildAlgo.CLUSTER_JOIN, bq_bits=1)
 
 
 def log(msg: str) -> None:
@@ -341,11 +367,67 @@ def phase_kernels(torch, seed: int) -> None:
                         cases += 1
     log(f"[kernels] list_major_scan: {cases} cases agree with the plain "
         "version")
+    kernels_scan_items(torch, seed)
     kernels_bq(torch, seed)
     kernels_select(torch, seed)
     kernels_beam(torch, seed)
     kernels_tier(torch, seed)
     kernels_stream(torch, seed)
+
+
+def kernels_scan_items(torch, seed: int) -> None:
+    """The IVF scan's work items across their shapes, on integer data
+    (exact ids): a list of 1,300 rows (three 512-row chunks) probed by
+    most queries (several query groups), short, empty and padded lists,
+    batch 1, 10 and 500 (narrow and wide items), k in {1, 10, 128}, d
+    128 (float32 and bfloat16), 100, 33 (element copies) and 300 (queries
+    staged a stage at a time), L2 and IP."""
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.ops.ivf_scan import list_major_scan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 9)
+    sizes = [1300, 7, 0, 515, 64, 0, 200, 33]
+    n_lists, m = len(sizes), max(sizes) + 9
+    cases = 0
+    for d, dtype in ((128, torch.float32), (128, torch.bfloat16),
+                     (100, torch.float32), (33, torch.float32),
+                     (300, torch.float32)):
+        data = np.zeros((n_lists, m, d), np.float32)
+        indices = np.full((n_lists, m), -1, np.int32)
+        row = 0
+        for lid, size in enumerate(sizes):
+            data[lid, :size] = rng.integers(-3, 4, (size, d))
+            indices[lid, :size] = np.arange(row, row + size)
+            row += size
+        pt = torch.from_numpy(data).to(dev, dtype)
+        it = torch.from_numpy(indices).to(dev)
+        pf = pt.to(torch.float32)
+        norms = torch.where(it >= 0, (pf * pf).sum(dim=2),
+                            torch.full_like(it, float("inf"),
+                                            dtype=torch.float32))
+        for q in (1, 10, 500):
+            qf = torch.from_numpy(rng.integers(-3, 4, (q, d)).astype(
+                np.float32)).to(dev)
+            probes = rng.integers(0, n_lists, (q, 5)).astype(np.int32)
+            probes[: q * 3 // 4, 0] = 0
+            probes[::5, 3:] = n_lists
+            probes = torch.from_numpy(probes).to(dev)
+            for metric in (DistanceType.L2Expanded,
+                           DistanceType.InnerProduct):
+                for k in (1, 10, 128):
+                    args = (qf, pt, norms, it, probes, None)
+                    got = list_major_scan(*args, k=k, metric=metric,
+                                          engine="cuda")
+                    torch.cuda.synchronize()
+                    want = list_major_scan(*args, k=k, metric=metric,
+                                           engine="torch")
+                    compare(f"list_major_scan items d={d} {dtype} q={q} "
+                            f"k={k} {metric.name}", got, want, True)
+                    cases += 1
+    log(f"[kernels] list_major_scan work items: {cases} cases (long, short "
+        "and empty lists, narrow and wide items, d 33-300) agree with the "
+        "plain version, ids exactly")
 
 
 def kernels_bq(torch, seed: int) -> None:
@@ -575,6 +657,39 @@ def kernels_beam(torch, seed: int) -> None:
     log(f"[kernels] beam_search: {cases} cases equal the plain version bit "
         f"for bit ({walked} iterations, {fresh} candidates, {scored} rows "
         "scored in all, the same counts per query)")
+    # every cluster size the kernel takes, forced, exact and BQ traversal
+    from raft_tpu_torch.ops import beam_search as bs
+
+    data, queries = datasets[torch.float32]
+    metric = DistanceType.L2Expanded
+    sizes = set()
+    for bits in (0, 1):
+        for q in (1, 10, 90):
+            qt = queries[:q]
+            seeds = cagra._make_seeds(data, index.seed_centers,
+                                      index.seed_members, qt, 256, metric,
+                                      "coarse", 0)
+            kw = dict(row_iters=None, bq_records=None, bq_qrot=None,
+                      bq_crot=None, bq_bits=0, bq_query_bits=4,
+                      bq_epsilon=3.0, deg=64)
+            if bits:
+                rot, crot, recs = planes.get((torch.float32, 1)) or \
+                    cagra._build_bq_plane(data, 1, seed)
+                kw.update(bq_records=recs, bq_qrot=qt @ rot.T, bq_crot=crot,
+                          bq_bits=1, bq_query_bits=auto_query_bits(1))
+            args = (qt, data, index.graph, seeds, 10, 128, 4, 56, metric)
+            checked = bs._check_args(*args[:7], metric, 64, None,
+                                     kw["bq_records"], kw["bq_qrot"],
+                                     kw["bq_crot"], kw["bq_bits"])
+            want = bs.beam_search_plain(*args, **kw)
+            for c in bs.CLUSTER_SIZES:
+                got = bs._beam_search_cuda(*args, checked, cluster=c, **kw)
+                sizes.add(bs.beam_search.last_cluster)
+                beam_equal(f"beam_search cluster={c} q={q} bits={bits}", got,
+                           want)
+                cases += 1
+    log(f"[kernels] beam_search: every cluster size {sorted(sizes)} equals "
+        f"the plain version bit for bit ({cases} cases in all)")
 
 
 def _split_tiers(torch, data, hot_lists, cold_lists):
@@ -680,8 +795,8 @@ def kernels_tier(torch, seed: int) -> None:
             fail(f"tier_scan took a {what} cold plane")
         err = _build.load("tier_scan")(
             z.data_ptr(), hot.data_ptr(), bad.data_ptr(),
-            *[z.data_ptr()] * 10, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0,
-            *[z.data_ptr()] * 8, stream, stream, None)
+            *[z.data_ptr()] * 16, 1, 1, 1, 1, 1, 0, 0, 0, 0,
+            *[z.data_ptr()] * 9, stream, stream, None)
         if err == 0:
             fail(f"the tier_scan C entry took a {what} cold plane")
     log(f"[kernels] tier_scan: {cases} cases and {staged} staging cases "
@@ -943,9 +1058,60 @@ def phase_main(torch, seed: int, state: dict) -> None:
     state["launches"] = read_launches(("fused_knn", "list_major_scan"),
                                       "IVF-Flat")
     state.update(res=res, x=x, queries=queries, index=index, bf=bf,
-                 gt_d=gt_d, gt_i=gt_i)
+                 gt_d=gt_d, gt_i=gt_i, seed=seed)
+    builds_reproducible_ivf(torch, state)
     main_tiered(torch, state)
     main_bq(torch, state)
+
+
+def builds_reproducible_ivf(torch, state: dict) -> None:
+    """Two same-seed builds are equal (torch.equal): balanced k-means over
+    all 1M rows (n_lists 1024, the IVF-Flat path's parameters) and a
+    second IVF-Flat build, against the path's index."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    x, index = state["x"], state["index"]
+    kp = kmeans_balanced.KMeansBalancedParams()
+    t0 = time.perf_counter()
+    fits = [kmeans_balanced.fit(Resources(device="cuda", seed=0), kp, x,
+                                N_LISTS) for _ in range(2)]
+    torch.cuda.synchronize()
+    fit_s = (time.perf_counter() - t0) / 2
+    if not torch.equal(fits[0], fits[1]):
+        fail("two same-seed balanced k-means fits differ")
+    again = ivf_flat.build(Resources(device="cuda", seed=state["seed"]),
+                           ivf_flat.IvfFlatIndexParams(n_lists=N_LISTS), x)
+    for name in ("centers", "data", "data_norms", "indices", "list_sizes"):
+        if not torch.equal(getattr(again, name), getattr(index, name)):
+            fail(f"two same-seed IVF-Flat builds differ in {name}")
+    log(f"[main] reproducible builds: two balanced k-means fits of "
+        f"{tuple(x.shape)} into {N_LISTS} ({fit_s:.3f} s each) and two "
+        "IVF-Flat builds are equal (torch.equal: centers, lists, norms, "
+        "ids, sizes)")
+
+
+def builds_reproducible_cagra(torch, state: dict) -> None:
+    """Two same-seed CAGRA builds on the first CAGRA_REPRO_ROWS rows (a cut
+    that keeps the run inside its time limit; the full 1M build ran once
+    above) give equal graphs and planes."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import cagra
+
+    x = state["x"][:CAGRA_REPRO_ROWS]
+    t0 = time.perf_counter()
+    a, b = (cagra.build(Resources(device="cuda", seed=state["seed"]),
+                        cagra_params(cagra), x) for _ in range(2))
+    torch.cuda.synchronize()
+    for name in ("graph", "seed_centers", "seed_members", "bq_records"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            fail(f"two same-seed CAGRA builds of {CAGRA_REPRO_ROWS} rows "
+                 f"differ in {name}")
+    log(f"[main] reproducible builds: two CAGRA builds of "
+        f"{CAGRA_REPRO_ROWS} rows (a cut of the 1M; "
+        f"{(time.perf_counter() - t0) / 2:.2f} s each) give equal graphs, "
+        "seed and BQ planes (torch.equal)")
 
 
 def _probed_rows(torch, t, probes):
@@ -1325,15 +1491,22 @@ def main_cagra(torch, state: dict) -> None:
     truth: the blobs-1M-128 config's first raft_cagra entry."""
     from raft_tpu_torch.neighbors import cagra
 
+    from raft_tpu_torch.ops.fused_topk import select_k_tiles
+
     res, x, queries, gt_i = (state["res"], state["x"], state["queries"],
                              state["gt_i"])
     reset_launches()
     t0 = time.perf_counter()
-    index = cagra.build(res, cagra.CagraIndexParams(
-        graph_degree=32, intermediate_graph_degree=64,
-        build_algo=cagra.BuildAlgo.CLUSTER_JOIN, bq_bits=1), x)
+    index = cagra.build(res, cagra_params(cagra), x)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    # cluster-join selects a cluster's rows through matrix.select_k, whose
+    # AUTO takes TOPK at a cluster's width, as the reference's lax.top_k
+    tiles = select_k_tiles.launches
+    log(f"[main] cagra.build launched select_k_tiles {tiles} times")
+    if tiles != 0:
+        fail(f"cagra.build launched the wide-row select_k kernel {tiles} "
+             "times (cluster-join must select through TOPK)")
     empty = float((index.graph < 0).float().mean())
     # device bytes the index holds: dataset, graph, seed and BQ planes
     nbytes = sum(t.numel() * t.element_size() for t in (
@@ -1408,10 +1581,8 @@ def main_cagra(torch, state: dict) -> None:
         fail("cagra save -> load -> search is not bit-identical")
     log(f"[main] cagra save -> load ({buf.getbuffer().nbytes} bytes) -> "
         "search: bit-identical")
-    # select_k runs on two paths: its record counts the launches of both
-    for name, n in read_launches(("beam_search", "select_k"),
-                                 "CAGRA").items():
-        state["launches"][name] = state["launches"].get(name, 0) + n
+    state["launches"].update(read_launches(("beam_search",), "CAGRA"))
+    builds_reproducible_cagra(torch, state)
 
 
 def select_equal(torch, name: str, v, k: int) -> float:
@@ -1454,7 +1625,11 @@ def phase_profile(torch, state: dict) -> None:
     cg_index = state["cagra_index"]
     cg_sp = cagra.CagraSearchParams(itopk_size=64, search_width=4,
                                     bq_traversal="off")
+    # brute force first: profiled after the others, it recorded no device
+    # events
     requests = {
+        "brute_force batch=500": lambda: brute_force.search(
+            res, bf, queries[:500], K),
         "cagra itopk=64 batch=10": lambda: cagra.search(
             res, cg_sp, cg_index, queries[:10], K),
         "cagra itopk=64 batch=500": lambda: cagra.search(
@@ -1473,8 +1648,6 @@ def phase_profile(torch, state: dict) -> None:
             res, tier_sp, state["tiered"], queries[:10], K),
         "tiered n_probes=128 batch=500": lambda: tiered.search(
             res, tier_sp, state["tiered"], queries[:500], K),
-        "brute_force batch=500": lambda: brute_force.search(
-            res, bf, queries[:500], K),
     }
     for label, fn in requests.items():
         fn()
@@ -1567,6 +1740,22 @@ def phase_times(torch, state: dict) -> list:
         err, ms, plain_ms, nbytes, {"f32": flops}, None))
     log(f"[times] scan work at q=500 n_probes=128: {probed_rows} probed "
         f"rows, {union_rows} rows in the union of {uniq.numel()} lists")
+    # batch 10: the time of the longest row chunk, no longer of the
+    # longest list (the kernel's design target)
+    q10 = queries[:10]
+    p10 = coarse_select(-(index.center_norms[None, :]
+                          - 2.0 * (q10 @ index.centers.T)), 128, "exact")
+    args10 = (q10, index.data, index.data_norms, index.indices, p10, None)
+    compare("list_major_scan batch 10",
+            list_major_scan(*args10, engine="cuda", **kw),
+            list_major_scan(*args10, engine="torch", **kw), exact_ids=False)
+    ms10 = median_ms(lambda: list_major_scan(*args10, engine="cuda", **kw),
+                     20)
+    log(f"[times] list_major_scan at n_probes=128: batch 500 {ms:.4f} ms, "
+        f"batch 10 {ms10:.4f} ms (CUDA events around the wrapper, its glue "
+        f"included); the earlier one-block-a-list design took "
+        f"{EARLIER_SCAN_MS} ms at batch 500 (NVIDIA H100 80GB HBM3, 700 W)")
+    state["scan_ms_b10"] = ms10
     records.append(times_bq(torch, state))
     records.append(times_select(torch, state))
     records.append(times_beam(torch, state))
@@ -1691,6 +1880,12 @@ def times_select(torch, state: dict) -> dict:
     c_ms = median_ms(lambda: select_k_tiles(slab, k), 20)
     c_plain = median_ms(lambda: select_k_tiles_plain(slab, k), 5)
     c_lib = median_ms(lambda: torch.topk(slab, k, dim=1, largest=False), 20)
+    # what cluster-join now runs at that shape: matrix.select_k (AUTO: TOPK)
+    from raft_tpu_torch.matrix.select_k import select_k
+
+    c_auto = median_ms(lambda: select_k(state["res"], slab, k), 20)
+    log(f"[times] matrix.select_k AUTO (TOPK) at the CAGRA build's shape: "
+        f"{c_auto:.4f} ms")
     c_bound = (4 * slab.numel() + 8 * 2048 * k) / PEAK_BYTES_PER_S * 1e3
     log(f"[times] select_k at the CAGRA build's shape (2048 x 2048, k=64): "
         f"{c_ms:.4f} ms (plain {c_plain:.3f} ms, torch.topk {c_lib:.4f} ms), "
@@ -1711,10 +1906,24 @@ def times_beam(torch, state: dict) -> dict:
     q = queries[:500]
     args, kw = cagra_walk_args(state, q, 64, False)
     got = beam_search(*args, **kw)
+    cluster500 = beam_search.last_cluster
     rows_read = torch.zeros((index.size, 2), dtype=torch.bool, device="cuda")
     want = beam_search_plain(*args, rows_read=rows_read, **kw)
     err = beam_equal("beam_search main shape", got, want)
     ms = median_ms(lambda: beam_search(*args, **kw), 20)
+    # batch 10: a cluster of CTAs a query
+    args10, kw10 = cagra_walk_args(state, queries[:10], 64, False)
+    beam_equal("beam_search batch 10", beam_search(*args10, **kw10),
+               beam_search_plain(*args10, **kw10))
+    cluster10 = beam_search.last_cluster
+    ms10 = median_ms(lambda: beam_search(*args10, **kw10), 20)
+    log(f"[times] beam_search at itopk 64: batch 500 {ms:.4f} ms on a "
+        f"cluster of {cluster500} CTA(s) a query, batch 10 {ms10:.4f} ms on "
+        f"a cluster of {cluster10} ({10 * cluster10} CTAs); the earlier "
+        f"one-block-a-query design took {EARLIER_BEAM_MS} ms at batch 500 "
+        "(NVIDIA H100 80GB HBM3, 700 W)")
+    state.update(beam_ms_b10=ms10, beam_cluster_b10=cluster10,
+                 beam_cluster_b500=cluster500)
     plain_ms = median_ms(lambda: beam_search_plain(*args, **kw), 3, 1)
     # data-dependent work. Bytes: each distinct row scored once, each
     # distinct parent's adjacency row once, the queries, seeds and output.
@@ -1876,18 +2085,25 @@ def main() -> int:
 
     t_start = time.perf_counter()
     state: dict = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     phase_env(torch)
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
     if "kernels" in phases:
-        phase_kernels(torch, args.seed)
+        timed("kernels", phase_kernels, torch, args.seed)
     records = []
     if "main" in phases:
-        phase_main(torch, args.seed, state)
+        timed("main", phase_main, torch, args.seed, state)
         if "times" in phases:
-            records = phase_times(torch, state)
+            records = timed("times", phase_times, torch, state)
         if "profile" in phases:
-            phase_profile(torch, state)
+            timed("profile", phase_profile, torch, state)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

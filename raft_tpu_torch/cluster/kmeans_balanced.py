@@ -13,7 +13,9 @@ The random draws come from a ``torch.Generator`` seeded with
 ``params.seed`` on the data's device (the JAX package makes
 ``jax.random.key(params.seed)``): the two packages draw different
 numbers from the same seed, so their centers agree in quality (inertia),
-not bit for bit.
+not bit for bit. Two fits from one seed on one device are equal: the
+center sums and the balancing step's weighted draw take a fixed order
+(:func:`segment_sum`, :func:`_weighted_draw`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from raft_tpu_torch.distance.types import DistanceType
 _ADJUST_CENTERS_WEIGHT = 7.0  # kAdjustCentersWeight
 _BALANCING_THRESHOLD = 0.25   # default balancing_threshold
 _ROW_BLOCK_ELEMS = 1 << 26    # (rows x n_clusters) floats per IP block
+_DRAW_SCALE = 1_000_000       # 1 / the 1e-6 weight of a row in a small cluster
 
 _NORMALIZED_METRICS = (
     DistanceType.InnerProduct,
@@ -63,12 +66,26 @@ def _predict_impl(x: torch.Tensor, centroids: torch.Tensor,
     return labels
 
 
+def segment_sum(x: torch.Tensor, labels: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """(n_segments, d) row sums of ``x`` by label, each taken in row order
+    (``jax.ops.segment_sum``'s). Rows are stably sorted by label, then
+    each segment is summed serially: a fixed order on every device, where
+    a float ``index_add_`` on CUDA adds through atomics in no fixed order
+    and two builds from one seed would differ."""
+    lab = labels.to(torch.int64)
+    order = torch.argsort(lab, stable=True)
+    lengths = torch.bincount(lab, minlength=n_segments)
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
 def _calc_centers_and_sizes(x: torch.Tensor, labels: torch.Tensor,
                             n_clusters: int):
-    lab = labels.to(torch.int64)
-    sums = x.new_zeros((n_clusters, x.shape[1])).index_add_(0, lab, x)
-    sizes = x.new_zeros((n_clusters,)).index_add_(
-        0, lab, x.new_ones((x.shape[0],)))
+    sums = segment_sum(x, labels, n_clusters)
+    # exact integer counts in float32
+    sizes = torch.bincount(labels.to(torch.int64),
+                           minlength=n_clusters).to(x.dtype)
     centers = sums / torch.clamp(sizes, min=1.0)[:, None]
     return centers, sizes
 
@@ -76,6 +93,23 @@ def _calc_centers_and_sizes(x: torch.Tensor, labels: torch.Tensor,
 def _normalize_rows(c: torch.Tensor) -> torch.Tensor:
     n = torch.linalg.norm(c, dim=1, keepdim=True)
     return c / torch.clamp(n, min=1e-12)
+
+
+def _weighted_draw(gen: torch.Generator, big: torch.Tensor,
+                   count: int) -> torch.Tensor:
+    """``count`` row indices drawn with replacement, a row with ``big``
+    set (1 + 1e-6) / 1e-6 times as likely as one without: the weights
+    of ``_adjust_centers`` scaled by 1e6 to exact integers. Their running
+    sum is an integer scan and each draw a search in it, so the draws
+    depend on the generator alone. (``torch.multinomial`` on CUDA scans
+    float weights in no fixed order: two fits from one seed drew other
+    rows.)"""
+    w = torch.where(big, _DRAW_SCALE + 1, 1).to(torch.int64)
+    cum = torch.cumsum(w, 0)
+    u = torch.rand((count,), generator=gen, device=big.device,
+                   dtype=torch.float64)
+    target = torch.floor(u * cum[-1].to(torch.float64)).to(torch.int64)
+    return torch.searchsorted(cum, target, right=True)
 
 
 def _adjust_centers(gen: torch.Generator, centers, sizes, x, labels,
@@ -86,10 +120,8 @@ def _adjust_centers(gen: torch.Generator, centers, sizes, x, labels,
     n = x.shape[0]
     average = n / n_clusters
     small = sizes < average * _BALANCING_THRESHOLD
-    weights = (sizes[labels.to(torch.int64)] >= average).to(torch.float32) \
-        + 1e-6
-    cand = torch.multinomial(weights, n_clusters, replacement=True,
-                             generator=gen)
+    cand = _weighted_draw(gen, sizes[labels.to(torch.int64)] >= average,
+                          n_clusters)
     points = x[cand]
     wc = torch.clamp(sizes, max=_ADJUST_CENTERS_WEIGHT)[:, None]
     pulled = (wc * centers + points) / (wc + 1.0)

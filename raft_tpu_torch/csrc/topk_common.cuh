@@ -135,6 +135,61 @@ __device__ __forceinline__ void warp_insert(float* ld, int* li, int k,
   }
 }
 
+// A sorted list of k <= 32 entries held one a lane in registers (md, mi),
+// its k-th entry (kd, ki) in every lane: insert each lane's candidate
+// (cd, ci), where `valid` and it beats the k-th entry, one at a time (a
+// ballot finds the place, one shuffle moves the tail). The same list
+// results as warp_insert's: the k smallest (distance, id) pairs of the
+// list and the candidates. Returns whether the list changed (uniform).
+__device__ __forceinline__ bool warp_insert_regs(float& md, int& mi,
+                                                 float& kd, int& ki, int k,
+                                                 float cd, int ci,
+                                                 bool valid) {
+  const int lane = threadIdx.x & 31;
+  const bool in = lane < k;
+  unsigned want = __ballot_sync(kFull, valid && lex_less(cd, ci, kd, ki));
+  const bool any = want != 0;
+  while (want) {
+    const int src = __ffs(want) - 1;
+    want &= want - 1;
+    const float d = __shfl_sync(kFull, cd, src);
+    const int id = __shfl_sync(kFull, ci, src);
+    if (!lex_less(d, id, kd, ki)) continue;  // the list moved: re-test
+    const int pos =
+        __popc(__ballot_sync(kFull, in && lex_less(md, mi, d, id)));
+    const float ud = __shfl_up_sync(kFull, md, 1);
+    const int ui = __shfl_up_sync(kFull, mi, 1);
+    if (in && lane > pos) {
+      md = ud;
+      mi = ui;
+    } else if (lane == pos) {
+      md = d;
+      mi = id;
+    }
+    kd = __shfl_sync(kFull, md, k - 1);
+    ki = __shfl_sync(kFull, mi, k - 1);
+  }
+  return any;
+}
+
+// warp_insert for k <= 32, through warp_insert_regs.
+__device__ __forceinline__ void warp_insert_small(float* ld, int* li, int k,
+                                                  float cd, int ci,
+                                                  bool valid) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  const bool in = lane < k;
+  float md = in ? ld[lane] : CUDART_INF_F;
+  int mi = in ? li[lane] : kEmptyId;
+  float kd = __shfl_sync(kFull, md, k - 1);
+  int ki = __shfl_sync(kFull, mi, k - 1);
+  if (warp_insert_regs(md, mi, kd, ki, k, cd, ci, valid) && in) {
+    ld[lane] = md;
+    li[lane] = mi;
+  }
+  __syncwarp();
+}
+
 __device__ __forceinline__ void init_lists(float* ld, int* li, int n) {
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     ld[t] = CUDART_INF_F;
@@ -193,6 +248,85 @@ inline cudaError_t launch_merge(const float* pd, const int* pi, int q, int m,
   const int blocks = (q + kMergeWarps - 1) / kMergeWarps;
   merge_partials_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
       pd, pi, q, m, k, epilog, outd, outi);
+  return cudaGetLastError();
+}
+
+// The ragged merge of the IVF scans: query `row` owns the partial lists
+// row_off[row * off_stride] .. row_off[(row + 1) * off_stride] of k
+// entries each (hundreds at n_probes 128). One block a query: each warp
+// takes every kMergeWarps-th run of 32 entries into a list of its own,
+// then warp 0 takes the other warps' lists into its own. The top-k of a
+// union does not depend on how it is split, so the result is the one
+// list a single warp would merge. Epilog and -1 ids as above.
+__device__ __forceinline__ void merge_insert(float* ld, int* li, int k,
+                                             float v, int id, bool valid) {
+  if (k <= 32)
+    warp_insert_small(ld, li, k, v, id, valid);
+  else
+    warp_insert(ld, li, k, v, id, valid);
+}
+
+__global__ void merge_ragged_kernel(const float* __restrict__ pd,
+                                    const int* __restrict__ pi, int k,
+                                    int epilog, const int* __restrict__ row_off,
+                                    int off_stride, float* __restrict__ outd,
+                                    int* __restrict__ outi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* lists_d = reinterpret_cast<float*>(smem_raw);
+  int* lists_i = reinterpret_cast<int*>(lists_d + kMergeWarps * k);
+  float* ld = lists_d + warp * k;
+  int* li = lists_i + warp * k;
+  const int row = blockIdx.x;
+  for (int j = lane; j < k; j += 32) {
+    ld[j] = CUDART_INF_F;
+    li[j] = kEmptyId;
+  }
+  const size_t base = (size_t)row_off[(size_t)row * off_stride] * k;
+  const int len = (row_off[(size_t)(row + 1) * off_stride] -
+                   row_off[(size_t)row * off_stride]) * k;
+  const float* rd = pd + base;
+  const int* ri = pi + base;
+  for (int c0 = warp * 32; c0 < len; c0 += kMergeWarps * 32) {
+    const int c = c0 + lane;
+    const bool in = c < len;
+    const float v = in ? rd[c] : CUDART_INF_F;
+    const int id = in ? ri[c] : kEmptyId;
+    merge_insert(ld, li, k, v, id, in && v < CUDART_INF_F);
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kMergeWarps; ++w)
+    for (int c0 = 0; c0 < k; c0 += 32) {
+      const int c = c0 + lane;
+      const bool in = c < k;
+      const float v = in ? lists_d[w * k + c] : CUDART_INF_F;
+      const int id = in ? lists_i[w * k + c] : kEmptyId;
+      merge_insert(ld, li, k, v, id, in && v < CUDART_INF_F);
+    }
+  __syncwarp();
+  for (int j = lane; j < k; j += 32) {
+    float v = ld[j];
+    const bool filled = v < CUDART_INF_F;
+    if (epilog == kEpilogSqrt) v = sqrtf(v);
+    if (epilog == kEpilogNegate) v = -v;
+    outd[(size_t)row * k + j] = v;
+    outi[(size_t)row * k + j] = filled ? li[j] : -1;
+  }
+}
+
+inline cudaError_t launch_merge_ragged(const float* pd, const int* pi, int q,
+                                       int k, int epilog, const int* row_off,
+                                       int off_stride, float* outd, int* outi,
+                                       cudaStream_t stream) {
+  const size_t smem = (size_t)kMergeWarps * k * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_ragged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  if (q == 0) return cudaSuccess;
+  merge_ragged_kernel<<<q, kMergeWarps * 32, smem, stream>>>(
+      pd, pi, k, epilog, row_off, off_stride, outd, outi);
   return cudaGetLastError();
 }
 

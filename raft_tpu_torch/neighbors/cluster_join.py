@@ -5,8 +5,10 @@ the CAGRA intermediate-graph source of the ``blobs-1M-128`` config).
 1. Partition the points with balanced k-means (clusters of about
    ``target_cluster_size`` rows) and pack each cluster's member ids.
 2. Within each cluster, exact brute-force kNN: one float32 product of the
-   cluster's rows with themselves and an exact top-k per row (the
-   ``select_k_tiles`` kernel on the card, its plain version on the CPU).
+   cluster's rows with themselves and an exact top-k per row through
+   ``matrix.select_k`` (AUTO: a row is at most a cluster wide, far below
+   the wide-row kernel's 16,384 columns, so TOPK, as the JAX package's
+   ``lax.top_k``).
 3. Repeat for ``passes`` clusterings with other k-means seeds and merge
    each node's candidates; a true neighbor is lost only if every pass
    separates the pair.
@@ -34,9 +36,9 @@ from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.core.validation import expect
 from raft_tpu_torch.distance.types import DistanceType
+from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.neighbors import nn_descent as nn_descent_mod
 from raft_tpu_torch.neighbors.nn_descent import NNDescentParams, _merge_dedup
-from raft_tpu_torch.ops.fused_topk import select_k_tiles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +75,16 @@ def _pack_cluster_indices(labels: torch.Tensor, n_clusters: int,
 
 
 def _one_pass(dataset: torch.Tensor, idx: torch.Tensor, k: int,
-              metric: DistanceType):
+              metric: DistanceType, res: Optional[Resources] = None):
     """Within-cluster exact kNN for every cluster: dataset (n, d)
     float32, idx (C, m) member ids (-1 pad, members first). Returns (n,
     k) global neighbor ids (-1 where none) and min-form distances. Ties
-    go to the earlier member slot (the JAX package's ``lax.top_k``)."""
+    go to the earlier member slot (the JAX package's ``lax.top_k``).
+    ``res``: the handle ``select_k`` runs on (one on the dataset's device
+    when None)."""
     n = dataset.shape[0]
     dev = dataset.device
+    res = Resources(device=dev) if res is None else res
     out_ids = torch.full((n, k), -1, dtype=torch.int32, device=dev)
     out_d = torch.full((n, k), float("inf"), device=dev)
     sizes = (idx >= 0).sum(dim=1).tolist()
@@ -96,9 +101,10 @@ def _one_pass(dataset: torch.Tensor, idx: torch.Tensor, k: int,
             dist = torch.clamp(nr[:, None] + nr[None, :] - 2.0 * ip, min=0.0)
         dist.fill_diagonal_(float("inf"))
         kk = min(k, m)
-        nbr_d, pos = select_k_tiles(dist, kk)
-        nbr_ids = torch.where(pos >= 0, members[pos.clamp(min=0).to(
-            torch.int64)].to(torch.int32), torch.full_like(pos, -1))
+        nbr_d, pos = select_k(res, dist, kk)
+        nbr_ids = torch.where(torch.isfinite(nbr_d),
+                              members[pos.to(torch.int64)].to(torch.int32),
+                              torch.full_like(pos, -1))
         out_ids[members, :kk] = nbr_ids
         out_d[members, :kk] = nbr_d
     return out_ids, out_d
@@ -145,7 +151,7 @@ def build(res: Optional[Resources], params: ClusterJoinParams, dataset,
                                        minlength=n_clusters)
                 idx = _pack_cluster_indices(labels, n_clusters,
                                             int(sizes.max()))
-            pass_ids, pass_d = _one_pass(ds32, idx, k, metric)
+            pass_ids, pass_d = _one_pass(ds32, idx, k, metric, res)
             if best_ids is None:
                 best_ids, best_d = pass_ids, pass_d
             else:

@@ -23,7 +23,10 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
-from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.cluster.kmeans_balanced import (
+    KMeansBalancedParams,
+    segment_sum,
+)
 from raft_tpu_torch.core import memwatch, tracing
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.core.serialize import (
@@ -277,8 +280,8 @@ def extend(res: Optional[Resources], index: IvfFlatIndex, new_vectors,
 
         centers = index.centers
         if index.adaptive_centers:
-            sums = centers.new_zeros(centers.shape).index_add_(
-                0, all_labels.to(torch.int64), all_vecs.to(torch.float32))
+            sums = segment_sum(all_vecs.to(torch.float32), all_labels,
+                               index.n_lists)
             nonempty = sizes > 0
             centers = torch.where(
                 nonempty[:, None],

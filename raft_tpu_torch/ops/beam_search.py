@@ -6,7 +6,9 @@ of the hand-written kernel ``csrc/beam_search.cu`` on a CUDA device,
 which replaces the JAX package's Pallas kernel ``_beam_kernel``
 (reached through ``beam_search``), and the plain version
 :func:`beam_search_plain` on the CPU. It never goes from one to the
-other. Both compute, per query:
+other. The kernel walks each query on a thread block cluster of
+:func:`beam_cluster_size` CTAs: the first holds the walk, all of them
+score the round's rows. Both compute, per query:
 
 - the buffer of L = itopk entries (id, distance, explored) starts as
   (-1, +inf, 0); the seeds merge in C = w·deg wide chunks, in order;
@@ -44,11 +46,13 @@ The JAX wrapper's ``beam_search_fits``, ``ds_mode``, ``vmem_mb``,
 VMEM. They have no counterpart on this card: a row always comes from
 global memory through L2, and the record plane has no size rule.
 
-``beam_search.launches`` counts the kernel's launches.
+``beam_search.launches`` counts the kernel's launches and
+``beam_search.last_cluster`` holds the cluster size of the last one.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -74,6 +78,21 @@ CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 CUDA_MAX_L = 512
 CUDA_MAX_C = 256
 CUDA_MAX_DIM = 1024
+#: cluster sizes the kernel takes (16 is the H100's non-portable largest)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def beam_cluster_size(q: int, *, n_sm: int, ctas_per_sm: int) -> int:
+    """The kernel's cluster size for a batch of ``q`` queries: the largest
+    of :data:`CLUSTER_SIZES` whose ``q x size`` CTAs do not exceed
+    ``ctas_per_sm x n_sm`` (1 when even one CTA a query does), where
+    ``ctas_per_sm`` is the kernel's resident CTAs per SM (the library's
+    ``raft_beam_ctas_per_sm()``). The rule of ``ops.bq_scan``'s walk: a
+    small batch spreads each query's scoring over up to 16 SMs, a large
+    one fills the card with one CTA a query."""
+    budget = ctas_per_sm * n_sm
+    return max([c for c in CLUSTER_SIZES if max(q, 1) * c <= budget],
+               default=1)
 
 
 def pad_graph(graph: torch.Tensor) -> torch.Tensor:
@@ -173,6 +192,7 @@ def beam_search(queries: torch.Tensor, dataset: torch.Tensor,
 
 
 beam_search.launches = 0
+beam_search.last_cluster = 0
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +325,11 @@ def beam_search_plain(queries: torch.Tensor, dataset: torch.Tensor,
 
 def _beam_search_cuda(queries, dataset, graph, seeds, k, L, w, max_iters,
                       metric, args, *, row_iters, bq_records, bq_qrot,
-                      bq_crot, bq_bits, bq_query_bits, bq_epsilon, deg):
+                      bq_crot, bq_bits, bq_query_bits, bq_epsilon, deg,
+                      cluster=None):
+    """The kernel's wrapper. ``cluster`` forces a cluster size of
+    :data:`CLUSTER_SIZES`; None takes :func:`beam_cluster_size` of the
+    batch. The size launched is kept in ``beam_search.last_cluster``."""
     _, c, dim_ext, geometry = args
     dev = dataset.device
     q, d = queries.shape
@@ -336,6 +360,15 @@ def _beam_search_cuda(queries, dataset, graph, seeds, k, L, w, max_iters,
     from raft_tpu_torch.ops import _build
 
     launch = _build.load("beam_search")
+    if cluster is None:
+        cluster = beam_cluster_size(
+            q, n_sm=torch.cuda.get_device_properties(dev)
+            .multi_processor_count,
+            ctas_per_sm=_build.constant("beam_search",
+                                        "raft_beam_ctas_per_sm"))
+    expect(cluster in CLUSTER_SIZES,
+           f"beam_search: cluster size must be one of {CLUSTER_SIZES}, "
+           f"got {cluster}")
     qf = queries.to(torch.float32).contiguous()
     sd = seeds.to(torch.int32).contiguous()
     ri = (torch.full((q,), max_iters, dtype=torch.int32, device=dev)
@@ -351,6 +384,7 @@ def _beam_search_cuda(queries, dataset, graph, seeds, k, L, w, max_iters,
     outd = torch.empty((q, k), dtype=torch.float32, device=dev)
     outi = torch.empty((q, k), dtype=torch.int32, device=dev)
     counts = torch.empty((q, 3), dtype=torch.int32, device=dev)
+    used = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
@@ -362,7 +396,9 @@ def _beam_search_cuda(queries, dataset, graph, seeds, k, L, w, max_iters,
                  int(metric == DistanceType.InnerProduct), ptr(recs), rec_pad,
                  words, bq_bits if use_bq else 0, bq_query_bits, dim_ext,
                  ptr(qrot), ptr(crot), 2.0 * bq_epsilon, outd.data_ptr(),
-                 outi.data_ptr(), counts.data_ptr(), stream)
+                 outi.data_ptr(), counts.data_ptr(), cluster,
+                 ctypes.addressof(used), stream)
     _build.check(err, "beam_search")
     beam_search.launches += 1
+    beam_search.last_cluster = used.value
     return outd, outi, counts

@@ -10,13 +10,14 @@ for IP with -inf pads — with ties broken by the smallest dataset id, id
 - ``cuda``: the hand-written kernel ``csrc/ivf_scan.cu``, which replaces
   the JAX package's Pallas kernel ``_ivf_scan_kernel`` (reached through
   ``_scan_pallas`` / ``list_major_scan``). The wrapper turns the probes
-  into (list, query) pairs grouped by list; one block scores one list
-  against up to 64 of the queries that probed it, so each probed list is
-  read once per such group and no query is scored against a list it did
-  not probe. Per-probe partial top-k lists are merged per query by a
-  second kernel. On the H100 the scan is bound by float32 CUDA-core
-  arithmetic at large batches; at small ones its time is one block's
-  serial walk of the longest probed list (PERF.md).
+  into (list, query) pairs grouped by list and plans work items on the
+  device (:func:`_scan_items`): (list, chunk of its live rows, group of
+  up to 64 of the queries that probed it), so no query is scored against
+  a list it did not probe and a long list spreads over many blocks. A
+  first kernel finds each query's seed bound (:func:`_seed_steps`); the
+  items write one partial top-k per (query, probe slot, chunk), which a
+  ragged merge reduces per query. On the H100 the scan is bound by
+  float32 CUDA-core arithmetic at large batches (PERF.md).
 - ``torch``: the plain version, the twin of the JAX package's
   ``_scan_xla`` (``ivf_scan.py:298-359``): a loop over the probed-list
   union with one matmul per list and ``_merge_smallest_id``'s
@@ -230,14 +231,16 @@ def _scan_torch(qf, data, data_norms, indices, probes, filter_words, *,
 # CUDA engine
 # ---------------------------------------------------------------------------
 
-_QUERY_GROUP = 64   # queries per block in csrc/ivf_scan.cu
+_QUERY_GROUP = 64   # queries per work item in csrc/ivf_scan_body.cuh
+_CHUNK_ROWS = 512   # list rows per work item (kChunkRows)
 
 
 def _scan_pairs(probes: torch.Tensor, n_lists: int):
     """(list, query) pairs grouped by list, as the kernel consumes them:
     the probed-list union ``uniq``, CSR offsets into the list-sorted pairs,
     and each pair's query row and probe slot. A row's repeated probe of
-    one list and sentinel slots form no pair."""
+    one list and sentinel slots form no pair; they sort after every real
+    pair (``offs[-1]`` is the pair count)."""
     q, p = probes.shape
     pr = sorted_probes(probes, n_lists)
     uniq = unique_lists(pr, n_lists)
@@ -255,23 +258,82 @@ def _scan_pairs(probes: torch.Tensor, n_lists: int):
             (order % p).to(torch.int32))
 
 
-def _launch_glue(qf, indices, probes, filter_words, k: int):
+def _scan_items(offs, pair_q, pair_slot, live, q: int, p: int):
+    """The work-item plan of the scan kernels, on the pairs' device with
+    no host sync: (list, chunk of ``_CHUNK_ROWS`` of its ``live`` rows,
+    group of ``_QUERY_GROUP`` of its probing pairs).
+
+    Returns ``items`` (cap,) int64, each union step's item count;
+    ``item_off`` (cap + 1,) int64, the first item of each step; and
+    ``slot_off`` (q * p + 1,) int32, the first partial list of each
+    (query, probe slot): a pair gets one partial per chunk of its list,
+    a sentinel or repeated slot none, so query r owns the partials
+    ``slot_off[r * p] .. slot_off[(r + 1) * p]``."""
+    cap = live.shape[0]
+    dev = live.device
+    cnt = (offs[1:] - offs[:-1]).to(torch.int64)
+    nch = -(-live.to(torch.int64) // _CHUNK_ROWS)
+    items = nch * -(-cnt // _QUERY_GROUP)
+    item_off = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    item_off[1:] = torch.cumsum(items, 0)
+    # pair e lies in list j with offs[j] <= e < offs[j + 1]
+    e = torch.arange(q * p, dtype=torch.int64, device=dev)
+    j = torch.searchsorted(offs[1:].to(torch.int64), e, right=True)
+    per_pair = torch.cat([nch, nch.new_zeros(1)])[j]   # j == cap: no list
+    # every (query, slot) is one flattened entry: each gets written once
+    grid = torch.zeros(q * p, dtype=torch.int64, device=dev)
+    grid[pair_q.to(torch.int64) * p + pair_slot.to(torch.int64)] = per_pair
+    slot_off = torch.zeros(q * p + 1, dtype=torch.int64, device=dev)
+    slot_off[1:] = torch.cumsum(grid, 0)
+    return items, item_off, slot_off.to(torch.int32)
+
+
+def _seed_steps(probes: torch.Tensor, uniq: torch.Tensor, n_lists: int,
+                usable=None) -> torch.Tensor:
+    """(q,) int32: the union step of each row's first probe of a real list
+    (and, with ``usable``, an (n_lists,) bool plane, of a usable one), -1
+    for a row with none: the list whose first rows give the kernels' seed
+    bound (``csrc/ivf_scan_body.cuh``, ``seed_bounds``)."""
+    pr = probes.to(torch.int64)
+    ok = (pr >= 0) & (pr < n_lists)
+    if usable is not None:
+        ok = ok & usable[pr.clamp(0, n_lists - 1)]
+    first = torch.argmax(ok.to(torch.int32), dim=1, keepdim=True)
+    j = torch.searchsorted(uniq.to(torch.int64), torch.gather(pr, 1, first))
+    return torch.where(ok.any(dim=1), j[:, 0],
+                       torch.full_like(j[:, 0], -1)).to(torch.int32)
+
+
+def _launch_glue(qf, indices, probes, filter_words, k: int, usable=None):
     """What both scan kernels (this one and ``csrc/tier_scan.cu``) take
     besides the rows: float32 queries, the (list, query) pairs of
     :func:`_scan_pairs`, the union's id planes with a shared filter
-    folded in, the (q, n_probes, k) partial lists filled with (+inf, -1)
-    and the (q, k) outputs."""
+    folded in and their live rows, the work-item plan of
+    :func:`_scan_items`, the partial lists (a bound of ``q * n_probes *
+    ceil(m / _CHUNK_ROWS)`` lists of k, uninitialized: the kernel writes
+    every one it merges), each row's seed list (:func:`_seed_steps`, of a
+    ``usable`` list) with room for its bound, and the (q, k) outputs."""
     q, p = probes.shape
+    m = indices.shape[1]
     dev = qf.device
     uniq, offs, pair_q, pair_slot = _scan_pairs(probes, indices.shape[0])
     ids_g = union_id_planes(indices, uniq, filter_words).to(
         torch.int32).contiguous()
-    pd = torch.full((q, p, k), float("inf"), dtype=torch.float32, device=dev)
-    pi = torch.full((q, p, k), -1, dtype=torch.int32, device=dev)
+    live = live_rows(ids_g)
+    items, item_off, slot_off = _scan_items(offs, pair_q, pair_slot, live,
+                                            q, p)
+    n_part = q * p * -(-m // _CHUNK_ROWS) * k
+    pd = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    pi = torch.empty((n_part,), dtype=torch.int32, device=dev)
     outd = torch.empty((q, k), dtype=torch.float32, device=dev)
     outi = torch.empty((q, k), dtype=torch.int32, device=dev)
-    return (qf.to(torch.float32).contiguous(), uniq, offs, pair_q, pair_slot,
-            ids_g, pd, pi, outd, outi)
+    return dict(qf=qf.to(torch.float32).contiguous(), uniq=uniq, offs=offs,
+                pair_q=pair_q, pair_slot=pair_slot, ids_g=ids_g, live=live,
+                items=items, item_off=item_off, slot_off=slot_off,
+                seed_step=_seed_steps(probes, uniq, indices.shape[0], usable),
+                bound_d=torch.empty((q,), dtype=torch.float32, device=dev),
+                bound_i=torch.empty((q,), dtype=torch.int32, device=dev),
+                pd=pd, pi=pi, outd=outd, outi=outi)
 
 
 def _scan_cuda(qf, data, data_norms, indices, probes, filter_words, *,
@@ -297,19 +359,25 @@ def _scan_cuda(qf, data, data_norms, indices, probes, filter_words, *,
     from raft_tpu_torch.ops import _build
 
     launch = _build.load("ivf_scan")
-    (qf, uniq, offs, pair_q, pair_slot, ids_g, pd, pi, outd,
-     outi) = _launch_glue(qf, indices, probes, filter_words, k)
+    g = _launch_glue(qf, indices, probes, filter_words, k)
+    cap = g["uniq"].shape[0]
+    # a host bound on the item count sizes the grid (no sync)
+    max_items = cap * -(-m // _CHUNK_ROWS) * -(-q // _QUERY_GROUP)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(qf.data_ptr(), data.data_ptr(),
+    err = launch(g["qf"].data_ptr(), data.data_ptr(),
                  int(data.dtype == torch.bfloat16), data_norms.data_ptr(),
-                 ids_g.data_ptr(), uniq.data_ptr(), offs.data_ptr(),
-                 pair_q.data_ptr(), pair_slot.data_ptr(), q, p, d, m, k,
-                 int(metric == DistanceType.InnerProduct), uniq.shape[0],
-                 -(-q // _QUERY_GROUP), pd.data_ptr(), pi.data_ptr(),
-                 outd.data_ptr(), outi.data_ptr(), stream)
+                 *(g[n].data_ptr() for n in (
+                     "ids_g", "uniq", "offs", "pair_q", "pair_slot", "live",
+                     "item_off", "slot_off")),
+                 q, p, d, m, k, int(metric == DistanceType.InnerProduct),
+                 cap, max_items,
+                 *(g[n].data_ptr() for n in ("seed_step", "bound_d",
+                                             "bound_i", "pd", "pi", "outd",
+                                             "outi")),
+                 stream)
     _build.check(err, "list_major_scan")
     list_major_scan.launches += 1
-    return outd, outi
+    return g["outd"], g["outi"]
 
 
 list_major_scan.launches = 0

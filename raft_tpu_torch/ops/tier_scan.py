@@ -48,18 +48,16 @@ from raft_tpu_torch.core.validation import expect
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors.filters import test_filter
 from raft_tpu_torch.ops.ivf_scan import (
-    _QUERY_GROUP,
     CUDA_MAX_K,
     _launch_glue,
     _merge_smallest_id,
-    live_rows,
     unique_lists,
 )
 
 TIER_ENGINES = ("auto", "cuda", "torch")
 
-#: rows of one tile of the scan body (kDT in csrc/topk_common.cuh): the
-#: staging unit of a cold list
+#: the staging unit of a cold list, in rows: its live rows are copied
+#: rounded up to it
 STAGE_TILE = 64
 
 #: waves a probed cold set that fits the ring is cut into, so that each
@@ -168,13 +166,11 @@ def tier_stage_plan(cold_fetch, step_rows, m: int,
     union's per-step cold slot (-1 on hot and sentinel steps), as
     :func:`tier_fetch_plan` gives it; ``step_rows`` each step's rows up to
     its last live one (:func:`~raft_tpu_torch.ops.ivf_scan.live_rows`). A
-    cold list stages those rows rounded up to the scan body's tile
-    (:data:`STAGE_TILE`), never past ``m``: the tiles after them hold
-    only padding, which the body skips unread.
+    cold list stages those rows rounded up to :data:`STAGE_TILE`, never
+    past ``m``; the scan body reads a list only up to its last live row.
 
     The lists fill waves greedily, longest first (ties in union order):
-    a scan launch lasts at least its longest list's walk, so the last
-    wave, whose scan nothing overlaps, gets the shortest. When they fit in
+    the last wave, whose scan nothing overlaps, gets the shortest. When they fit in
     ``capacity_rows`` the ring holds them all, one after the other, in
     waves of about a :data:`PIPELINE_WAVES`-th of them (each wave's scan
     overlaps the next one's copies); otherwise the ring is two halves of
@@ -334,17 +330,21 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
     from raft_tpu_torch.ops import _build
 
     launch = _build.load("tier_scan")
-    (qf, uniq, offs, pair_q, pair_slot, ids_g, pd, pi, outd,
-     outi) = _launch_glue(qf, indices, probes, filter_words, k)
+    # seed bounds from hot lists only: their rows need no copy
+    g = _launch_glue(qf, indices, probes, filter_words, k,
+                     usable=cold_slot_map < 0)
+    uniq = g["uniq"]
     cap = uniq.shape[0]
-    # the request's one host sync: each union step's list, cold slot and
-    # live rows (a filter folded in), for the staging plan
+    # the request's one host sync: each union step's list, cold slot, live
+    # rows (a filter folded in) and work items, for the staging plan and
+    # the launches' grids
     live = uniq < n_lists
     lidc = uniq.clamp(max=n_lists - 1).to(torch.int64)
     cold_fetch = torch.where(live, cold_slot_map.to(torch.int32)[lidc],
                              torch.full_like(uniq, -1))
-    uniq_h, cold_h, rows_h = torch.stack(
-        [uniq, cold_fetch, live_rows(ids_g)]).cpu().numpy()
+    uniq_h, cold_h, rows_h, items_h = torch.stack(
+        [uniq.to(torch.int64), cold_fetch.to(torch.int64),
+         g["live"].to(torch.int64), g["items"]]).cpu().numpy()
     if workspace_bytes is None:
         workspace_bytes = Resources.workspace_limit_bytes
     plan = tier_stage_plan(cold_h, rows_h, m, workspace_bytes // (4 * d))
@@ -352,31 +352,38 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
     hot_steps = np.nonzero((uniq_h < n_lists) & (cold_h < 0))[0]
     hot_steps = hot_steps[np.argsort(-rows_h[hot_steps], kind="stable")]
     n_hot = len(hot_steps)
+    order = np.concatenate([hot_steps, plan.steps]).astype(np.int64)
+    item_off = np.zeros(len(order) + 1, np.int64)
+    item_off[1:] = np.cumsum(items_h[order])
     ring_off = np.full(cap, -1, np.int64)
     ring_off[plan.steps] = plan.offsets
-    # one upload: the steps in launch order, then each step's ring offset
+    # one upload: the steps in launch order, their first items, then each
+    # step's ring offset
     tables = torch.from_numpy(np.concatenate(
-        [hot_steps, plan.steps, ring_off]).astype(np.int64)).to(dev)
-    n_steps = n_hot + len(plan.steps)
+        [order, item_off, ring_off])).to(dev)
+    n_steps = len(order)
     ring = (torch.empty((plan.ring_rows, d), dtype=torch.float32,
                         device=dev) if plan.ring_rows else None)
     wave_end = (plan.wave_end + n_hot).astype(np.int32)
     hot_map = hot_slot_map.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(qf.data_ptr(), hot_data.data_ptr(),
+    err = launch(g["qf"].data_ptr(), hot_data.data_ptr(),
                  cold_data.data_ptr() if cold_data.numel() else None,
-                 hot_map.data_ptr(),
-                 data_norms.data_ptr(), ids_g.data_ptr(), uniq.data_ptr(),
-                 offs.data_ptr(), pair_q.data_ptr(), pair_slot.data_ptr(),
+                 hot_map.data_ptr(), data_norms.data_ptr(),
+                 *(g[n].data_ptr() for n in (
+                     "ids_g", "uniq", "offs", "pair_q", "pair_slot", "live",
+                     "slot_off")),
                  tables.data_ptr(), tables[n_steps:].data_ptr(),
-                 None if ring is None else ring.data_ptr(), q, p, d, m, k,
-                 int(metric == DistanceType.InnerProduct),
-                 -(-q // _QUERY_GROUP), n_hot,
-                 plan.n_waves, int(plan.reuse), wave_end.ctypes.data,
-                 plan.slots.ctypes.data,
+                 tables[2 * n_steps + 1:].data_ptr(),
+                 None if ring is None else ring.data_ptr(),
+                 *(g[n].data_ptr() for n in ("seed_step", "bound_d",
+                                             "bound_i")), q, p, d, m, k,
+                 int(metric == DistanceType.InnerProduct), n_hot,
+                 plan.n_waves, int(plan.reuse), item_off.ctypes.data,
+                 wave_end.ctypes.data, plan.slots.ctypes.data,
                  plan.offsets.ctypes.data, plan.rows.ctypes.data,
-                 pd.data_ptr(), pi.data_ptr(), outd.data_ptr(),
-                 outi.data_ptr(), stream, *_side_stream_handles(dev))
+                 *(g[n].data_ptr() for n in ("pd", "pi", "outd", "outi")),
+                 stream, *_side_stream_handles(dev))
     _build.check(err, "tiered_list_major_scan")
     tiered_list_major_scan.launches += 1
     tracing.inc_counters({
@@ -384,7 +391,7 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
         "tier.cold_lists_staged": float(len(plan.steps)),
         "tier.stage_waves": float(plan.n_waves),
     })
-    return outd, outi
+    return g["outd"], g["outi"]
 
 
 tiered_list_major_scan.launches = 0

@@ -57,6 +57,44 @@ def test_one_pass_equals_jax(metric, k):
     np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
 
 
+def test_one_pass_selects_through_select_k_topk(monkeypatch):
+    """Each cluster's rows go through ``matrix.select_k`` with AUTO, which
+    picks TOPK at a cluster's width (as the JAX package's ``lax.top_k``);
+    the wide-row kernel is never reached, and the pass still equals the
+    JAX package's."""
+    import raft_tpu_torch.matrix.select_k as t_sk
+    import raft_tpu_torch.ops.fused_topk as t_ft
+
+    picked, widths = [], []
+    choose = t_sk._choose_algo
+
+    def spy_choose(batch, n, k, dtype=torch.float32, device="cpu"):
+        widths.append(n)
+        picked.append(choose(batch, n, k, dtype, "cuda"))
+        return choose(batch, n, k, dtype, device)
+
+    def no_tiles(*a, **kw):
+        raise AssertionError("select_k_tiles reached from cluster_join")
+
+    monkeypatch.setattr(t_sk, "_choose_algo", spy_choose)
+    monkeypatch.setattr(t_ft, "select_k_tiles", no_tiles)
+    rng = np.random.default_rng(3)
+    x = rng.integers(-3, 4, (600, 16)).astype(np.float32)
+    labels = rng.integers(0, 4, 600).astype(np.int32)
+    idx = j_cj._pack_cluster_indices(jnp.asarray(labels), 4,
+                                     int(np.bincount(labels).max()))
+    wi, wd = j_cj._one_pass(jnp.asarray(x), idx, 10, JD.L2Expanded)
+    gi, gd = t_cj._one_pass(torch.from_numpy(x),
+                            torch.from_numpy(np.array(idx)), 10,
+                            DistanceType.L2Expanded)
+    assert len(picked) == 4
+    # what AUTO picks at these widths even for values on the card
+    assert set(picked) == {t_sk.SelectAlgo.TOPK}, picked
+    assert max(widths) < t_sk._TILES_MIN_N
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+
+
 def test_build_recall_not_below_jax(blobs_cj):
     x = blobs_cj
     params = dict(graph_degree=16, target_cluster_size=300, passes=3)

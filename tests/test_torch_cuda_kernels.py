@@ -197,6 +197,113 @@ def test_bq_scan_cluster_sizes_equal_plain(dev, bq_indexes, cluster, q):
             assert bq_list_major_scan.last_cluster > 1
 
 
+def _skewed_scan_inputs(dev, d: int, dtype, q: int, seed: int = 3):
+    """A packed index on the card whose lists span the work items' shapes:
+    one list of 1,300 rows (three row chunks), short and empty lists, -1
+    padding past every list; integer values (every product exact);
+    probes with sentinel and repeated slots, the long list probed by
+    most queries (several query groups)."""
+    rng = np.random.default_rng(seed)
+    sizes = [1300, 7, 0, 515, 64, 0, 200, 33]
+    n_lists, m = len(sizes), max(sizes) + 9
+    data = np.zeros((n_lists, m, d), np.float32)
+    indices = np.full((n_lists, m), -1, np.int32)
+    row = 0
+    for lid, size in enumerate(sizes):
+        data[lid, :size] = rng.integers(-3, 4, (size, d))
+        indices[lid, :size] = np.arange(row, row + size)
+        row += size
+    data[3, 10] = data[0, 5]                     # a tie across lists
+    queries = rng.integers(-3, 4, (q, d)).astype(np.float32)
+    probes = rng.integers(0, n_lists, (q, 5)).astype(np.int32)
+    probes[: q * 3 // 4, 0] = 0
+    probes[::5, 3:] = n_lists                    # sentinel slots
+    probes[q // 2, 2] = probes[q // 2, 1]        # a repeated probe
+    pt = torch.from_numpy(data).to(dev, dtype)
+    pf = pt.to(torch.float32)
+    it = torch.from_numpy(indices).to(dev)
+    norms = torch.where(it >= 0, (pf * pf).sum(dim=2),
+                        torch.full_like(it, float("inf"),
+                                        dtype=torch.float32))
+    return (torch.from_numpy(queries).to(dev), pt, norms, it,
+            torch.from_numpy(probes).to(dev))
+
+
+@pytest.mark.parametrize("q", [1, 10, 500])
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("layout", [(128, torch.float32),
+                                    (128, torch.bfloat16),
+                                    (100, torch.float32),
+                                    (33, torch.float32),
+                                    (300, torch.float32)],
+                         ids=lambda c: f"d{c[0]}-{str(c[1])[6:]}")
+def test_scan_kernel_work_items_match_plain(dev, layout, k, q):
+    """The work-item scan across its shapes: a list longer than two row
+    chunks, several query groups on one list, batch 1, 10 and 500, k up
+    to 128, bfloat16 storage, a dimension not a multiple of 32 (100),
+    one whose rows are not 16-byte aligned (33: element copies) and one
+    past the whole-depth query slab (300: queries staged a stage at a
+    time). Ids equal, distances to float32 rounding; L2 and IP."""
+    d, dtype = layout
+    args = _skewed_scan_inputs(dev, d, dtype, q)
+    for metric in (DistanceType.L2Expanded, DistanceType.InnerProduct):
+        got = list_major_scan(*args, k=k, metric=metric, engine="cuda")
+        _check(got, list_major_scan(*args, k=k, metric=metric,
+                                    engine="torch"))
+
+
+def test_scan_kernel_refuses_unlaunchable_inputs(dev):
+    """The wrapper raises on what the kernel cannot take; it never walks
+    with the plain version on the card."""
+    args = _skewed_scan_inputs(dev, 16, torch.float32, 4)
+    for bad, msg in ((dict(k=129), "k <="),
+                     (dict(k=10, data=args[1].to(torch.float16)),
+                      "float32/bfloat16")):
+        a = list(args)
+        if "data" in bad:
+            a[1] = bad.pop("data")
+        before = list_major_scan.launches
+        with pytest.raises(Exception, match=msg):
+            list_major_scan(*a, metric=DistanceType.L2Expanded,
+                            engine="cuda", **bad)
+        assert list_major_scan.launches == before
+
+
+def test_builds_are_reproducible_on_the_card(dev):
+    """Two builds from one seed are equal: balanced k-means centers, the
+    IVF-Flat lists (adaptive centers after an extend included) and the
+    CAGRA graph. The center sums take a fixed order (no float atomics)."""
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.neighbors import cagra, ivf_flat
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    centers = torch.randn(200, 64, generator=g, device="cuda") * 2
+    x = centers[torch.randint(0, 200, (60_000,), generator=g,
+                              device="cuda")]
+    x = x + torch.randn(x.shape, generator=g, device="cuda")
+
+    def build_all():
+        res = Resources(device="cuda", seed=0)
+        km = kmeans_balanced.fit(res, kmeans_balanced.KMeansBalancedParams(),
+                                 x, 256)
+        idx = ivf_flat.build(res, ivf_flat.IvfFlatIndexParams(
+            n_lists=128, adaptive_centers=True), x[:50_000])
+        idx = ivf_flat.extend(res, idx, x[50_000:],
+                              torch.arange(50_000, 60_000, device="cuda",
+                                           dtype=torch.int32))
+        graph = cagra.build(res, cagra.CagraIndexParams(
+            graph_degree=32, intermediate_graph_degree=64,
+            build_algo=cagra.BuildAlgo.CLUSTER_JOIN), x[:20_000]).graph
+        return km, idx, graph
+
+    (k1, i1, g1), (k2, i2, g2) = build_all(), build_all()
+    assert torch.equal(k1, k2)
+    for name in ("centers", "data", "data_norms", "indices", "list_sizes"):
+        assert torch.equal(getattr(i1, name), getattr(i2, name)), name
+    assert torch.equal(g1, g2)
+
+
 def _beam_inputs(seed: int, n: int, d: int, q: int, deg: int, w: int,
                  L: int, samplings: int):
     """A clustered dataset, its exact k-NN graph (degree ``deg``, some
@@ -287,6 +394,39 @@ def test_beam_search_kernel_equals_plain(dev, case):
         # the estimate prunes: fewer rows are scored than proposed (with
         # two seed chunks the buffer is full before the second one)
         assert int(want[2][:, 2].sum()) < int(want[2][:, 1].sum())
+
+
+@pytest.mark.parametrize("bits", [0, 1])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_beam_search_cluster_sizes_equal_plain(dev, cluster, bits):
+    """Every cluster size the kernel takes, forced, at batch 1, 10 and 90
+    (the wrapper's own pick at each batch too): ids, distances and counts
+    equal the plain version's bit for bit, exact and BQ traversal."""
+    from raft_tpu_torch.ops import beam_search as bs
+
+    metric = DistanceType.L2Expanded
+    x, qs, graph, seeds, row_iters = _beam_inputs(
+        31 + cluster + bits, 3000, 128, 90, 32, 4, 64, 2)
+    for q in (1, 10, 90):
+        kw = dict(row_iters=row_iters[:q], bq_records=None, bq_qrot=None,
+                  bq_crot=None, bq_bits=0, bq_query_bits=4, bq_epsilon=3.0,
+                  deg=32)
+        if bits:
+            recs, rot, crot = _bq_plane(x, bits, 5)
+            kw.update(bq_records=recs, bq_qrot=qs[:q] @ rot.T, bq_crot=crot,
+                      bq_bits=bits, bq_query_bits=auto_query_bits(bits))
+        args = (qs[:q], x, graph, seeds[:q], 10, 64, 4, 40, metric)
+        checked = bs._check_args(*args[:7], metric, 32, kw["row_iters"],
+                                 kw["bq_records"], kw["bq_qrot"],
+                                 kw["bq_crot"], bits)
+        want = bs.beam_search_plain(*args, **kw)
+        for c in (cluster, None):
+            got = bs._beam_search_cuda(*args, checked, cluster=c, **kw)
+            torch.cuda.synchronize()
+            if c is not None:
+                assert bs.beam_search.last_cluster <= c
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_, w_)
 
 
 def test_cagra_search_auto_launches_the_kernel(dev):
@@ -412,8 +552,8 @@ def _tier_c_entry(hot, cold):
     z = torch.zeros(64, dtype=torch.int32, device=hot.device)
     stream = torch.cuda.current_stream().cuda_stream
     return _build.load("tier_scan")(
-        z.data_ptr(), hot.data_ptr(), cold.data_ptr(), *[z.data_ptr()] * 10,
-        1, 1, 1, 1, 1, 0, 0, 0, 0, 0, *[z.data_ptr()] * 8, stream, stream,
+        z.data_ptr(), hot.data_ptr(), cold.data_ptr(), *[z.data_ptr()] * 16,
+        1, 1, 1, 1, 1, 0, 0, 0, 0, *[z.data_ptr()] * 9, stream, stream,
         None)
 
 

@@ -92,3 +92,66 @@ def test_build_clusters_and_seed_determinism():
                        sizes)
     c3, lab3 = t_km.fit_predict(RES, params, x, 12)
     assert torch.equal(c3, c1) and lab3.shape == (x.shape[0],)
+
+
+@pytest.mark.parametrize("n_segments", [1, 30, 257])
+def test_segment_sum_is_row_order_and_equals_jax(n_segments):
+    """The fixed-order center sums: bit-equal to a serial float32 sum in
+    row order (numpy's unbuffered ``add.at``), and equal to
+    ``jax.ops.segment_sum`` within float32 tolerance; empty segments sum
+    to 0."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n_segments)
+    x = (rng.standard_normal((4000, 24)) * 10).astype(np.float32)
+    labels = rng.integers(0, n_segments, 4000).astype(np.int32)
+    labels[labels == n_segments // 2] = 0          # an empty segment
+    got = t_km.segment_sum(torch.from_numpy(x), torch.from_numpy(labels),
+                           n_segments).numpy()
+    serial = np.zeros((n_segments, 24), np.float32)
+    np.add.at(serial, labels, x)
+    assert np.array_equal(got, serial)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(x),
+                                          jnp.asarray(labels), n_segments))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(x).sum(axis=0).max())
+    if n_segments > 1:
+        assert not got[n_segments // 2].any()
+
+
+def test_fit_calls_no_float_index_add(monkeypatch):
+    """The build sums through ``segment_sum``: a float ``index_add_``
+    (atomics on CUDA, no fixed order) is never called."""
+    calls = []
+    orig = torch.Tensor.index_add_
+
+    def spy(self, *a, **kw):
+        calls.append(self.dtype)
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", spy)
+    x = _blobs(n=800)
+    t_km.build_clusters(RES, t_km.KMeansBalancedParams(n_iters=3), x, 12)
+    assert not [dt for dt in calls if dt.is_floating_point]
+
+
+def test_weighted_draw_follows_the_weights_and_the_generator():
+    """The balancing step's draw: a row of an at-least-average cluster is
+    (1 + 1e-6) / 1e-6 times as likely as one of a small cluster (so with
+    half the rows big, nearly every draw is big and spread evenly over
+    them), and one seed gives the same draws."""
+    big = torch.zeros(1000, dtype=torch.bool)
+    big[::2] = True
+
+    def draw(seed):
+        g = torch.Generator()
+        g.manual_seed(seed)
+        return t_km._weighted_draw(g, big, 20000)
+
+    a, b = draw(3), draw(3)
+    assert torch.equal(a, b) and not torch.equal(a, draw(4))
+    assert int(a.min()) >= 0 and int(a.max()) < 1000
+    assert float(big[a].float().mean()) > 0.999
+    counts = torch.bincount(a[big[a]], minlength=1000)[::2].float()
+    assert float(counts.std() / counts.mean()) < 0.2
