@@ -26,9 +26,10 @@ non-zero exit (nothing is caught and passed over):
             sentinel and repeated probes and a query that probes
             nothing, at batch 1, 10 and 500 with the wrapper's cluster
             size and (k = 10) every cluster size it can choose;
-            select_k over min and max, k in {1, 10, 64}, n in
-            {16384, 100003}, ties, +-inf and NaN rows, float32 and
-            bfloat16; the CAGRA beam search on a 30,000 x 128 index
+            select_k over min and max, k in {1, 10, 33, 64, 128}, n in
+            {2048, 16384, 100003}, ties, +-inf and NaN rows, all-equal
+            rows, a row finite only in its last chunk, float32, bfloat16
+            and float16; the CAGRA beam search on a 30,000 x 128 index
             built on the card (cluster-join, degree 64, its first 32
             columns as the degree-32 graph) over L2, L2Sqrt and IP,
             float32, bfloat16 and int8, k in {1, 10, 64}, itopk in {32,
@@ -124,8 +125,17 @@ non-zero exit (nothing is caught and passed over):
             IVF-BQ scan is timed at every cluster size at batch 10 and
             500; the IVF scan and the beam walk also at batch 10 (the
             walk with its cluster size at both batches), matrix.select_k
-            (AUTO) at the CAGRA build's shape; the redesigned kernels
-            print their earlier design's times beside theirs.
+            (AUTO) at the CAGRA build's shape and select_k at the main
+            path's (64, 1,000,000), k = 10 slab; fused_knn on float32
+            (bound: 3xTF32, three TF32 tensor-core products a multiply-add,
+            at 494.7 TFLOP/s, the CUDA-core figure beside it) and on the
+            same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
+            redesigned kernels print their earlier design's times beside
+            theirs.
+6. profile  (not in the default run) torch.profiler over five requests
+            of each kind, the brute-force request first: device time by
+            kernel name, and select_k's split between its memset and its
+            kernel at the main path's call and at 64 x 2^20.
 
 The line before the last is a JSON object with one record per kernel
 (fused_knn, list_major_scan, bq_scan, select_k, beam_search, tier_scan,
@@ -157,8 +167,11 @@ HOST_LINK_BYTES_PER_S = 64e9
 # compute capability 9.0) over the SXM part's 132 SMs at its 1.98 GHz
 # boost clock
 _SM_CLOCKS_PER_S = 132 * 1.98e9
+# and the dense tensor-core rates of the data sheet: TF32 494.7 TFLOP/s,
+# bf16 989.4 TFLOP/s
 PEAK_OPS_PER_S = {"f32": 67e12, "popc": 16 * _SM_CLOCKS_PER_S,
-                  "int32": 64 * _SM_CLOCKS_PER_S}
+                  "int32": 64 * _SM_CLOCKS_PER_S, "tf32": 494.7e12,
+                  "bf16": 989.4e12}
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS = 1024
 # the kernels' times in their earlier design (one block a query; cold rows
@@ -172,6 +185,11 @@ EARLIER_TIER_MS = 28.2238
 # 128 / itopk 64, batch 500 (PERF.md, the same card)
 EARLIER_SCAN_MS = 6.2678
 EARLIER_BEAM_MS = 0.3397
+# fused_knn (CUDA-core products) at the brute-force request and select_k
+# (one warp insertion a value) at its two shapes, k = 64, before their
+# redesign (PERF.md, the same card)
+EARLIER_KNN_MS = 7.9003
+EARLIER_SELECT_MS = {"64x2^20": 0.5834, "2048x2048": 0.2145}
 # the rows of the second CAGRA build that checks reproducibility: a cut of
 # the 1M rows that keeps the run inside its time limit
 CAGRA_REPRO_ROWS = 200_000
@@ -528,25 +546,32 @@ def bq_equal(name, got, want) -> float:
 
 def kernels_select(torch, seed: int) -> None:
     """The select_k kernel against its plain version: integer values (many
-    exact ties), rows short of finite values, NaN, bfloat16."""
+    exact ties), rows short of finite values, NaN, all-equal rows, a row
+    finite only in its last chunk; float32, bfloat16 and float16; narrow
+    rows (a warp a row) and wide ones (blocks a row, merged by the last)."""
     from raft_tpu_torch.ops.fused_topk import (
+        _select_plan,
         select_k_tiles,
         select_k_tiles_plain,
     )
 
     rng = np.random.default_rng(seed + 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = 0
-    for n in (16_384, 100_003):
+    for n in (2048, 16_384, 100_003):
         base = rng.integers(-1000, 1000, (40, n)).astype(np.float32)
+        splits, chunk = _select_plan(40, n, sms)
         for select_min in (True, False):
             v = base.copy()
             far = np.inf if select_min else -np.inf
             v[3, 7:] = far                        # 7 finite values only
             v[4, ::5] = np.nan
             v[5, :] = -far                        # never enters
-            for dtype in (torch.float32, torch.bfloat16):
+            v[6, :] = 5.0                         # all equal
+            v[7, :(splits - 1) * chunk] = far     # finite in the last chunk
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 vt = torch.from_numpy(v).to("cuda", dtype)
-                for k in (1, 10, 64):
+                for k in (1, 10, 33, 64, 128):
                     got = select_k_tiles(vt, k, select_min)
                     torch.cuda.synchronize()
                     want = select_k_tiles_plain(vt, k, select_min)
@@ -1472,6 +1497,7 @@ def main_bq(torch, state: dict) -> None:
     # path's counts were read
     state["select_k_err"] = select_equal(torch, f"select_k (64, {N_ROWS}) "
                                          f"k={K}", slab, K)
+    state["select_slab"] = slab
     state["bq_index"] = index
     main_cagra(torch, state)
 
@@ -1625,11 +1651,22 @@ def phase_profile(torch, state: dict) -> None:
     cg_index = state["cagra_index"]
     cg_sp = cagra.CagraSearchParams(itopk_size=64, search_width=4,
                                     bq_traversal="off")
-    # brute force first: profiled after the others, it recorded no device
-    # events
+    from raft_tpu_torch.ops.fused_topk import select_k_tiles
+
+    # select_k's device time by kernel (the memset of its bound words and
+    # the one selection kernel) at the main path's call and, after the
+    # times phase, at 64 x 2^20; ahead of the tiered requests, after whose
+    # sessions the profiler recorded no device event (PR 7's runs)
     requests = {
         "brute_force batch=500": lambda: brute_force.search(
             res, bf, queries[:500], K),
+        f"select_k (64, {N_ROWS}) k={K}": lambda: select_k_tiles(
+            state["select_slab"], K),
+    }
+    if "select_wide" in state:
+        requests["select_k 64 x 2^20 k=64"] = lambda: select_k_tiles(
+            state["select_wide"], 64)
+    requests.update({
         "cagra itopk=64 batch=10": lambda: cagra.search(
             res, cg_sp, cg_index, queries[:10], K),
         "cagra itopk=64 batch=500": lambda: cagra.search(
@@ -1648,10 +1685,10 @@ def phase_profile(torch, state: dict) -> None:
             res, tier_sp, state["tiered"], queries[:10], K),
         "tiered n_probes=128 batch=500": lambda: tiered.search(
             res, tier_sp, state["tiered"], queries[:500], K),
-    }
-    for label, fn in requests.items():
-        fn()
-        torch.cuda.synchronize()
+    })
+
+    def profiled(fn):
+        """(wall us per request, device events) of five requests."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1662,10 +1699,22 @@ def phase_profile(torch, state: dict) -> None:
         # device-side kernels and copies only: the aten ops and the
         # tracing ranges (raft_tpu.*, which the profiler also shows on
         # the device's timeline) would count their time twice
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0
-                  and not e.key.startswith("raft_tpu.")]
+        return wall_us, [e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.self_device_time_total > 0
+                         and not e.key.startswith("raft_tpu.")]
+
+    # a session that records no device event happens (the first of a
+    # process, and now and then later): one session first to start the
+    # profiler, and a request whose session records none is profiled again
+    profiled(lambda: torch.ones(1, device="cuda").sum())
+    for label, fn in requests.items():
+        fn()
+        torch.cuda.synchronize()
+        wall_us, events = profiled(fn)
+        if not events:
+            log(f"[profile] {label}: no device event recorded; again")
+            wall_us, events = profiled(fn)
         # copies (the tiered scan's staging runs on a side stream, beside
         # the kernels) are shown apart from the kernels' busy time
         copies = [e for e in events if e.key.startswith("Memcpy")]
@@ -1708,10 +1757,29 @@ def phase_times(torch, state: dict) -> list:
     n, d = x.shape
     nbytes = 4 * (500 * d + n * d + n) + 8 * 500 * K
     flops = 2.0 * 500 * n * d
+    # the route's bound: 3xTF32, three TF32 products a multiply-add; the
+    # CUDA-core figure of PRs 1-6 beside it
+    bound_f32_ms = flops / PEAK_OPS_PER_S["f32"] * 1e3
+    # the bf16 route on the same rows rounded to bf16 (their own norms)
+    xb = x.to(torch.bfloat16)
+    xbn = (xb.float() * xb.float()).sum(dim=1)
+    compare("fused_knn main shape bf16",
+            fused_knn(q, xb, K, dataset_norms=xbn),
+            fused_knn_plain(q, xb, K, dataset_norms=xbn), exact_ids=False)
+    ms_b = median_ms(lambda: fused_knn(q, xb, K, dataset_norms=xbn), 20)
+    t_b = max((2 * (500 * d + n * d) + 4 * n + 8 * 500 * K)
+              / PEAK_BYTES_PER_S, flops / PEAK_OPS_PER_S["bf16"]) * 1e3
+    del xb, xbn
+    log(f"[times] fused_knn at q=500 n=1M d=128 k=10: float32 {ms:.4f} ms "
+        f"(bound {3 * flops / PEAK_OPS_PER_S['tf32'] * 1e3:.4f} ms by TF32 "
+        f"operations, {bound_f32_ms:.4f} ms on the CUDA cores), bfloat16 "
+        f"{ms_b:.4f} ms (bound {t_b:.4f} ms); the earlier CUDA-core design "
+        f"took {EARLIER_KNN_MS} ms (NVIDIA H100 80GB HBM3, 700 W)")
     records.append(_record(
         "fused_knn", "raft_tpu_torch/csrc/fused_knn.cu",
         "raft_tpu/ops/fused_topk.py:66", state["launches"]["fused_knn"],
-        err, ms, plain_ms, nbytes, {"f32": flops}, lib_ms))
+        err, ms, plain_ms, nbytes, {"tf32": 3.0 * flops}, lib_ms,
+        bound_f32_ms=bound_f32_ms, bf16_ms=ms_b, bf16_bound_ms=t_b))
 
     # the IVF scan at the main path's batch-500, n_probes=128 request
     qf = queries[:500]
@@ -1876,7 +1944,7 @@ def times_select(torch, state: dict) -> dict:
     nr = (x * x).sum(dim=1)
     slab = torch.clamp(nr[:, None] + nr[None, :] - 2.0 * (x @ x.T), min=0.0)
     slab.fill_diagonal_(float("inf"))
-    select_equal(torch, "select_k 2048 x 2048 k=64 (CAGRA build)", slab, k)
+    select_equal(torch, "select_k 2048 x 2048 k=64", slab, k)
     c_ms = median_ms(lambda: select_k_tiles(slab, k), 20)
     c_plain = median_ms(lambda: select_k_tiles_plain(slab, k), 5)
     c_lib = median_ms(lambda: torch.topk(slab, k, dim=1, largest=False), 20)
@@ -1890,10 +1958,26 @@ def times_select(torch, state: dict) -> dict:
     log(f"[times] select_k at the CAGRA build's shape (2048 x 2048, k=64): "
         f"{c_ms:.4f} ms (plain {c_plain:.3f} ms, torch.topk {c_lib:.4f} ms), "
         f"bound {c_bound:.4f} ms by bytes")
+    # the main path's call: the IVF-BQ path's (64, 1,000,000) slab, k = 10
+    main = state["select_slab"]
+    m_ms = median_ms(lambda: select_k_tiles(main, K), 20)
+    m_lib = median_ms(lambda: torch.topk(main, K, dim=1, largest=False), 20)
+    m_bound = (4 * main.numel() + 8 * 64 * K) / PEAK_BYTES_PER_S * 1e3
+    log(f"[times] select_k at 64 x 2^20, k=64: {ms:.4f} ms; 2048 x 2048, "
+        f"k=64: {c_ms:.4f} ms (torch.topk {c_lib:.4f} ms); the main path's "
+        f"(64, {N_ROWS}), k={K}: {m_ms:.4f} ms (torch.topk {m_lib:.4f} ms, "
+        f"bound {m_bound:.4f} ms by bytes); the earlier insertion design "
+        f"took {EARLIER_SELECT_MS['64x2^20']} and "
+        f"{EARLIER_SELECT_MS['2048x2048']} ms at the first two (NVIDIA H100 "
+        "80GB HBM3, 700 W)")
+    state["select_wide"] = v
     return _record("select_k", "raft_tpu_torch/csrc/select_k.cu",
                    "raft_tpu/ops/fused_topk.py:290",
                    state["launches"]["select_k"], err, ms, plain_ms,
-                   4 * b * n + 8 * b * k, {"f32": float(b * n)}, lib_ms)
+                   4 * b * n + 8 * b * k, {"f32": float(b * n)}, lib_ms,
+                   ms_2048x2048=c_ms, library_ms_2048x2048=c_lib,
+                   ms_main_k10=m_ms, library_ms_main_k10=m_lib,
+                   bound_ms_main_k10=m_bound)
 
 
 def times_beam(torch, state: dict) -> dict:
@@ -2040,12 +2124,13 @@ def times_stream(torch, state: dict) -> dict:
 
 
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-            ops: dict, lib_ms, link_bytes: int = 0):
+            ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
     PEAK_OPS_PER_S), each type's time over its peak bounds the call;
     ``nbytes`` move over device memory and ``link_bytes`` over the host
     link, each at its own rate (the two run at once, so the larger time
-    bounds the call)."""
+    bounds the call). ``extra`` keys (other shapes, routes) are added as
+    they are."""
     t_bytes = max(nbytes / PEAK_BYTES_PER_S,
                   link_bytes / HOST_LINK_BYTES_PER_S) * 1e3
     t_ops = max(n / PEAK_OPS_PER_S[kind] * 1e3 for kind, n in ops.items())
@@ -2053,7 +2138,7 @@ def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms}
+           "library_ms": lib_ms, **extra}
     log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}), bound "
         f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes} bytes"

@@ -1,8 +1,10 @@
 // Building blocks shared by the port's hand-written search kernels
-// (fused_knn.cu, ivf_scan.cu): a 64 x 64 float32 dot-product tile on the
-// CUDA cores, a warp-cooperative insertion into a sorted top-k list in
-// shared memory, and the kernel that merges per-block partial top-k
-// lists into the final (q, k) result.
+// (fused_knn.cu, select_k.cu, ivf_scan.cu, bq_scan.cu, tier_scan.cu):
+// cp.async helpers, a warp-cooperative insertion into a sorted top-k list
+// (shared memory or registers), the filtered warp queue (a sorted list
+// and a candidate buffer merged by bitonic networks in registers), and
+// the kernels that merge per-block partial top-k lists into the final
+// (q, k) result.
 //
 // Order everywhere is lexicographic on (distance, id): the smallest
 // distance first, and on equal distances the smallest id first. That is
@@ -20,11 +22,8 @@
 
 namespace raft_tpu_torch {
 
-constexpr int kQT = 64;         // query rows per block tile
-constexpr int kDT = 64;         // dataset rows per block tile
-constexpr int kDK = 32;         // depth of one shared-memory stage
-constexpr int kThreads = 256;   // 16 x 16 threads, a 4 x 4 micro-tile each
-constexpr int kStride = 65;     // padded row stride of the smem tiles
+constexpr int kQT = 64;         // query rows per block tile (IVF scans)
+constexpr int kThreads = 256;   // threads a block (IVF scans)
 constexpr int kMergeWarps = 8;  // queries merged per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kEmptyId = 0x7fffffff;
@@ -40,52 +39,41 @@ __device__ __forceinline__ bool lex_less(float a, int ai, float b, int bi) {
   return a < b || (a == b && ai < bi);
 }
 
-// acc[i][j] = sum_t Q[qidx[ty*4+i]][t] * X[tx+16j][t] over the full depth
-// d, in float32 with one fused multiply-add per term, in order of t.
-// qidx[r] < 0 marks an empty query row; X rows >= nx read as zeros.
-// The query rows at and past nq are all empty: a thread whose four rows
-// all lie there skips its products. All 256 threads of the block must call it
-// (it synchronizes).
-template <typename XT>
-__device__ __forceinline__ void dot_tile(float acc[4][4],
-                                         const float* __restrict__ Q,
-                                         const int* qidx, int nq,
-                                         const XT* __restrict__ X, int nx,
-                                         int d, float* Qs, float* Xs) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int d0 = 0; d0 < d; d0 += kDK) {
-    // a warp loads one row's 32 consecutive values: coalesced reads, and
-    // the transposed smem writes hit 32 distinct banks (stride 65)
-#pragma unroll
-    for (int r = 0; r < (kQT * kDK) / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      const int row = e / kDK, col = e % kDK, dd = d0 + col;
-      const int qi = qidx[row];
-      Qs[col * kStride + row] =
-          (qi >= 0 && dd < d) ? Q[(size_t)qi * d + dd] : 0.f;
-      Xs[col * kStride + row] =
-          (row < nx && dd < d) ? to_f32(X[(size_t)row * d + dd]) : 0.f;
-    }
-    __syncthreads();
-    if (ty * 4 < nq) {
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[kk * kStride + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Xs[kk * kStride + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    }
-    __syncthreads();
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wait_group with a count known at run time (a ring whose depth the host
+// chose), 0 <= n <= 7
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
@@ -197,36 +185,249 @@ __device__ __forceinline__ void init_lists(float* ld, int* li, int n) {
   }
 }
 
-// Merge `parts` partial lists of k entries per query, laid out
-// (q, parts * k), into (q, k): one warp per query. Applies the metric's
-// final step (sqrt, or the sign of inner products) and writes id -1 for
-// every slot no finite candidate filled.
-__global__ void merge_partials_kernel(const float* __restrict__ pd,
-                                      const int* __restrict__ pi, int q,
-                                      int m, int k, int epilog,
-                                      float* __restrict__ outd,
-                                      int* __restrict__ outi) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ld = reinterpret_cast<float*>(smem_raw) + warp * k;
-  int* li = reinterpret_cast<int*>(reinterpret_cast<float*>(smem_raw) +
-                                   kMergeWarps * k) + warp * k;
-  const int row = blockIdx.x * kMergeWarps + warp;
-  for (int j = lane; j < k; j += 32) {
-    ld[j] = CUDART_INF_F;
-    li[j] = kEmptyId;
+// ---------------------------------------------------------------------------
+// The filtered warp queue (the reference's `warp_sort_filtered`,
+// matrix/detail/select_warpsort.cuh). A warp keeps a sorted list of
+// KP = 32 * S entries and a buffer of KP candidates in shared memory, and
+// a threshold key in a register. A candidate enters the buffer only when
+// its key is not above the threshold, so past the first entries most
+// candidates cost one compare and one vote. A full buffer is merged into
+// the list at once: both go to registers (S a lane, entry e in slot e / 32
+// of lane e % 32), the buffer is sorted by a bitonic network, the list
+// keeps the smaller of list[e] and buffer[KP - 1 - e] (the KP smallest of
+// the two, in a bitonic sequence), and a bitonic merge sorts that. The
+// first KP candidates are thus put in order at once, not one at a time.
+// After a merge the threshold is the key of the list's k-th entry, once
+// the list holds k: a candidate past it already has k better entries. Any other list's k-th entry is as good a bound (the caller may
+// lower the threshold to it): the filter drops only candidates with k
+// better entries somewhere, so the k best always reach some list.
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long u64;
+constexpr u64 kNoBound = ~0ull;  // the threshold of a list short of k
+
+// Order-preserving key of a finite min-space value and its id: keys
+// compare as (value, id) does under lex_less (-0 is taken as +0, as a
+// float compare does).
+__device__ __forceinline__ u64 lex_key(float v, int id) {
+  unsigned u = __float_as_uint(v + 0.f);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((u64)u << 32) | (unsigned)id;
+}
+
+// The value part of a key: a float that no candidate below the key
+// exceeds (+inf for kNoBound), for a quick compare before the exact one.
+__device__ __forceinline__ float key_value(u64 key) {
+  unsigned u = (unsigned)(key >> 32);
+  if (u >= 0xff800000u) return CUDART_INF_F;
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+
+// a word shared between blocks (a bound other blocks lower), read
+// through L2
+__device__ __forceinline__ u64 load_l2(const u64* p) {
+  u64 v;
+  asm volatile("ld.global.cg.u64 %0, [%1];\n" : "=l"(v) : "l"(p));
+  return v;
+}
+
+// One compare-exchange pass of a bitonic network over KP = 32 * S
+// entries: entry e pairs with e ^ stride, ascending where (e & size) == 0.
+// Pairs in one slot exchange through shuffles, pairs across slots in
+// registers. size and stride are compile-time after unrolling.
+template <int S>
+__device__ __forceinline__ void bitonic_pass(float (&d)[S], int (&id)[S],
+                                             int size, int stride) {
+  const int lane = threadIdx.x & 31;
+  if (stride >= 32) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int t = s ^ (stride >> 5);
+      if (t > s) {
+        const bool asc = ((s * 32) & size) == 0;
+        if (asc == lex_less(d[t], id[t], d[s], id[s])) {
+          const float x = d[s];
+          const int xi = id[s];
+          d[s] = d[t];
+          id[s] = id[t];
+          d[t] = x;
+          id[t] = xi;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float od = __shfl_xor_sync(kFull, d[s], stride);
+      const int oi = __shfl_xor_sync(kFull, id[s], stride);
+      const bool asc = ((s * 32 + lane) & size) == 0;
+      const bool keep_min = ((lane & stride) == 0) == asc;
+      if (keep_min == lex_less(od, oi, d[s], id[s])) {
+        d[s] = od;
+        id[s] = oi;
+      }
+    }
   }
-  if (row >= q) return;  // whole warp leaves together
-  const float* rd = pd + (size_t)row * m;
-  const int* ri = pi + (size_t)row * m;
-  for (int c0 = 0; c0 < m; c0 += 32) {
-    const int c = c0 + lane;
-    const bool in = c < m;
-    const float v = in ? rd[c] : CUDART_INF_F;
-    const int id = in ? ri[c] : kEmptyId;
-    warp_insert(ld, li, k, v, id, in && v < CUDART_INF_F);
+}
+
+// log2 of KP = 32 * S
+template <int S>
+__host__ __device__ constexpr int log2_kp() {
+  return S == 1 ? 5 : S == 2 ? 6 : 7;
+}
+
+template <int S>
+__device__ __forceinline__ void bitonic_sort(float (&d)[S], int (&id)[S]) {
+#pragma unroll
+  for (int ls = 1; ls <= log2_kp<S>(); ++ls)
+#pragma unroll
+    for (int lt = ls - 1; lt >= 0; --lt)
+      bitonic_pass<S>(d, id, 1 << ls, 1 << lt);
+}
+
+// sorts a bitonic sequence ascending
+template <int S>
+__device__ __forceinline__ void bitonic_merge(float (&d)[S], int (&id)[S]) {
+#pragma unroll
+  for (int lt = log2_kp<S>() - 1; lt >= 0; --lt)
+    bitonic_pass<S>(d, id, 32 * S, 1 << lt);
+}
+
+// Merges the buffer's `count` candidates into the sorted list (ld, li)
+// and returns the threshold after it: the key of the list's k-th entry
+// once the list holds k entries, never above `thr`. The whole warp calls
+// it; one call site per kernel (not one per unrolled candidate).
+template <int S>
+__device__ __noinline__ u64 queue_flush(float* ld, int* li, const float* bd,
+                                        const int* bi, int count, int k,
+                                        u64 thr) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  float d[S], b[S];
+  int id[S], bid[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int e = s * 32 + lane;
+    b[s] = e < count ? bd[e] : CUDART_INF_F;
+    bid[s] = e < count ? bi[e] : kEmptyId;
+    d[s] = ld[e];
+    id[s] = li[e];
+  }
+  bitonic_sort<S>(b, bid);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {  // entry e meets buffer entry KP - 1 - e
+    const float od = __shfl_xor_sync(kFull, b[S - 1 - s], 31);
+    const int oi = __shfl_xor_sync(kFull, bid[S - 1 - s], 31);
+    if (lex_less(od, oi, d[s], id[s])) {
+      d[s] = od;
+      id[s] = oi;
+    }
+  }
+  bitonic_merge<S>(d, id);
+  float kd = CUDART_INF_F;
+  int ki = kEmptyId;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    ld[s * 32 + lane] = d[s];
+    li[s * 32 + lane] = id[s];
+    const float x = __shfl_sync(kFull, d[s], (k - 1) & 31);
+    const int xi = __shfl_sync(kFull, id[s], (k - 1) & 31);
+    if (s == ((k - 1) >> 5)) {
+      kd = x;
+      ki = xi;
+    }
   }
   __syncwarp();
+  if (ki != kEmptyId) {
+    const u64 key = lex_key(kd, ki);
+    if (key < thr) thr = key;
+  }
+  return thr;
+}
+
+// Offers each lane's candidate (v, id) where `want` (the caller excludes
+// non-finite values): it goes to the buffer when its key is at most the
+// threshold, after a merge when the buffer would overflow. Inclusive: when
+// lists are merged, the entry whose key another list's threshold came
+// from is itself a candidate (a new candidate of a scan never has a
+// list entry's key). count and thr are the warp's queue state, the same
+// in every lane.
+template <int S>
+__device__ __forceinline__ void queue_push(float* ld, int* li, float* bd,
+                                           int* bi, int& count, u64& thr,
+                                           int k, float v, int id,
+                                           bool want) {
+  const u64 key = lex_key(v, id);
+  bool pass = want && key <= thr;
+  unsigned mask = __ballot_sync(kFull, pass);
+  if (!mask) return;
+  if (count + __popc(mask) > 32 * S) {
+    thr = queue_flush<S>(ld, li, bd, bi, count, k, thr);
+    count = 0;
+    pass = pass && key <= thr;
+    mask = __ballot_sync(kFull, pass);
+  }
+  if (pass) {
+    const int pos =
+        count + __popc(mask & ((1u << (threadIdx.x & 31)) - 1u));
+    bd[pos] = v;
+    bi[pos] = id;
+  }
+  count += __popc(mask);
+}
+
+// An empty list of KP entries (+inf, kEmptyId), written by one warp.
+template <int S>
+__device__ __forceinline__ void queue_init(float* ld, int* li) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    ld[s * 32 + (threadIdx.x & 31)] = CUDART_INF_F;
+    li[s * 32 + (threadIdx.x & 31)] = kEmptyId;
+  }
+  __syncwarp();
+}
+
+// Merge `parts` partial lists of k entries per query, laid out
+// (q, parts * k), into (q, k): one warp per query, through the filtered
+// queue (four loads a lane in flight). Applies the metric's final step
+// (sqrt, or the sign of inner products) and writes id -1 for every slot
+// no finite candidate filled.
+template <int S>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    merge_partials_kernel(const float* __restrict__ pd,
+                          const int* __restrict__ pi, int q, int m, int k,
+                          int epilog, float* __restrict__ outd,
+                          int* __restrict__ outi) {
+  constexpr int KP = 32 * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ld = reinterpret_cast<float*>(smem_raw) + warp * 4 * KP;
+  int* li = reinterpret_cast<int*>(ld + KP);
+  float* bd = ld + 2 * KP;
+  int* bi = reinterpret_cast<int*>(ld + 3 * KP);
+  const int row = blockIdx.x * kMergeWarps + warp;
+  if (row >= q) return;  // whole warp leaves together; no block barrier
+  queue_init<S>(ld, li);
+  int count = 0;
+  u64 thr = kNoBound;
+  const float* rd = pd + (size_t)row * m;
+  const int* ri = pi + (size_t)row * m;
+  for (int c0 = 0; c0 < m; c0 += 128) {
+    float v[4];
+    int id[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = c0 + u * 32 + lane;
+      v[u] = c < m ? rd[c] : CUDART_INF_F;
+      id[u] = c < m ? ri[c] : kEmptyId;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      queue_push<S>(ld, li, bd, bi, count, thr, k, v[u], id[u],
+                    v[u] < CUDART_INF_F);
+  }
+  if (count) thr = queue_flush<S>(ld, li, bd, bi, count, k, thr);
   for (int j = lane; j < k; j += 32) {
     float v = ld[j];
     const bool filled = v < CUDART_INF_F;
@@ -237,18 +438,29 @@ __global__ void merge_partials_kernel(const float* __restrict__ pd,
   }
 }
 
-inline cudaError_t launch_merge(const float* pd, const int* pi, int q, int m,
-                                int k, int epilog, float* outd, int* outi,
-                                cudaStream_t stream) {
-  const size_t smem = (size_t)kMergeWarps * k * (sizeof(float) + sizeof(int));
+template <int S>
+cudaError_t launch_merge_s(const float* pd, const int* pi, int q, int m,
+                           int k, int epilog, float* outd, int* outi,
+                           cudaStream_t stream) {
+  const size_t smem = (size_t)kMergeWarps * 4 * 32 * S * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      merge_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      merge_partials_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (q + kMergeWarps - 1) / kMergeWarps;
-  merge_partials_kernel<<<blocks, kMergeWarps * 32, smem, stream>>>(
+  merge_partials_kernel<S><<<blocks, kMergeWarps * 32, smem, stream>>>(
       pd, pi, q, m, k, epilog, outd, outi);
   return cudaGetLastError();
+}
+
+inline cudaError_t launch_merge(const float* pd, const int* pi, int q, int m,
+                                int k, int epilog, float* outd, int* outi,
+                                cudaStream_t stream) {
+  if (k <= 32)
+    return launch_merge_s<1>(pd, pi, q, m, k, epilog, outd, outi, stream);
+  if (k <= 64)
+    return launch_merge_s<2>(pd, pi, q, m, k, epilog, outd, outi, stream);
+  return launch_merge_s<4>(pd, pi, q, m, k, epilog, outd, outi, stream);
 }
 
 // The ragged merge of the IVF scans: query `row` owns the partial lists

@@ -33,13 +33,13 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "fused_knn": ("raft_fused_knn",
                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P, _P, _P]),
+                   _P, _P, _P, _P, _P, _P]),
     "ivf_scan": ("raft_ivf_scan",
                  [_P, _P, _I] + [_P] * 9 + [_I] * 7 + [_L] + [_P] * 8),
     "bq_scan": ("raft_bq_scan",
                 [_P] * 15 + [_I] * 10 + [_F] + [_P] * 5),
     "select_k": ("raft_select_k",
-                 [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                 [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "beam_search": ("raft_beam_search",
                     [_P, _P, _I, _P, _I, _I, _P, _I, _P] + [_I] * 7 + [_P]
                     + [_I] * 5 + [_P, _P, _F, _P, _P, _P, _I, _P, _P]),

@@ -4,20 +4,27 @@ distance matrix, and exact k-selection over wide rows.
 ``fused_knn`` replaces the JAX package's Pallas kernel ``_knn_kernel``
 (``raft_tpu/ops/fused_topk.py``, reached through ``_fused_knn_impl`` /
 ``fused_knn``) with the hand-written CUDA kernel ``csrc/fused_knn.cu``.
-On the H100 the work is 2*q*n*d float32 operations (no TF32: exact kNN
-needs full float32 products, as the JAX kernel's ``Precision.HIGHEST``),
-so at serving batch sizes the kernel is bound by CUDA-core arithmetic,
-not by the one read of the dataset per 64-query tile. Its design is two
-passes: dataset splits score in parallel blocks that each keep a
-per-query top-k in shared memory, then one warp per query merges the
-splits in (distance, smallest id) order. See the source for details.
+Its products run on the tensor cores: bfloat16 datasets in one bf16 pass
+(every product exact in the float32 accumulator), float32 datasets by the
+3xTF32 split (hi and lo TF32 parts of both operands, ip = lo.hi' + hi.lo'
++ hi.hi' in float32), the counterpart of the JAX kernel's
+``Precision.HIGHEST``. :func:`split_tf32_ip` is the plain model of that
+product: within 4e-6 (|q|^2 + |x|^2) of float64 where one TF32 pass
+misses by ~1.4e-4. At serving batch sizes the kernel is bound by those
+tensor-core operations. Its design is two passes: dataset splits score
+in parallel blocks that each keep a per-query top-k (a filtered queue:
+one vote skips a tile with no candidate under a query's k-th), then one
+warp per query merges the splits in (distance, smallest id) order. See
+the source for details.
 
 ``select_k_tiles`` replaces the JAX package's Pallas kernel
 ``_select_kernel`` (reached through ``_select_k_tiles_impl``) with
-``csrc/select_k.cu``: column chunks of each row are scanned by warps in
-parallel, each keeping a top-k in shared memory, and the per-chunk lists
-merge per row in (value, smallest column) order. It is bound by one
-read of the (b, n) input.
+``csrc/select_k.cu``: column chunks of each row are streamed by warps
+through cp.async rings with 16-byte copies and filtered against one
+bound a row (the smallest k-th entry of the row's lists, shared through
+device memory), survivors merged into sorted lists by bitonic networks;
+the last block of a row merges its blocks' lists, in one launch. It is
+bound by one read of the (b, n) input.
 
 ``stream_read_sum`` replaces the JAX package's Pallas kernel
 ``_stream_kernel`` (reached through ``_stream_read_impl``) with
@@ -35,6 +42,7 @@ for CPU tensors; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +61,7 @@ _SUPPORTED_METRICS = (
 _SQRT_METRICS = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
 
 _PLAIN_TILE = 65536   # dataset rows per matmul in the plain version
+_KNN_WAVES = 2        # waves of blocks (one an SM) the kNN splits aim at
 
 #: largest k the kernel takes (its per-query lists live in shared memory)
 MAX_K = 64
@@ -104,6 +113,27 @@ def finish(dist, ids, metric: DistanceType):
     return dist, ids
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest
+    with ties away from zero: ``cvt.rna.tf32.f32`` on the card."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_ip(queries: torch.Tensor, dataset: torch.Tensor
+                  ) -> torch.Tensor:
+    """The plain model of the kernel's float32 product (the 3xTF32
+    split): hi = tf32(x), lo = tf32(x - hi) for both operands, and
+    ip = lo.hi' + hi.lo' + hi.hi' with float32 sums (each product of two
+    TF32 values is exact in float32). No path runs it; the tests hold it
+    against float64 and against the JAX kernel."""
+    q = queries.to(torch.float32)
+    x = dataset.to(torch.float32)
+    qh, xh = tf32_round(q), tf32_round(x)
+    ql, xl = tf32_round(q - qh), tf32_round(x - xh)
+    return (ql @ xh.T + qh @ xl.T) + qh @ xh.T
+
+
 def fused_knn_plain(queries: torch.Tensor, dataset: torch.Tensor, k: int,
                     metric: DistanceType = DistanceType.L2Expanded, *,
                     dataset_norms: Optional[torch.Tensor] = None
@@ -132,6 +162,17 @@ def fused_knn_plain(queries: torch.Tensor, dataset: torch.Tensor, k: int,
         best_d = sd[:, :k]
         best_i = torch.gather(cat_i, 1, pos[:, :k])
     return finish(best_d, best_i.to(torch.int32), metric)
+
+
+def _knn_plan(q: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(splits, chunk) of the kNN kernel: dataset splits of ``chunk`` rows
+    (whole 128-row tiles), scored by one block per (query tile, split), one
+    block an SM (its shared memory), about ``_KNN_WAVES`` waves. A block
+    takes 128 queries for k <= 32, else 64 (``knn_mi`` in the source)."""
+    q_tiles = -(-q // (128 if k <= 32 else 64))
+    splits = max(1, min(-(-_KNN_WAVES * sms // q_tiles), -(-n // 128)))
+    chunk = -(-(-(-n // splits)) // 128) * 128
+    return -(-n // chunk), chunk
 
 
 def _check_cuda_inputs(queries, dataset, dataset_norms, k):
@@ -175,29 +216,30 @@ def fused_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int,
     launch = _build.load("fused_knn")
     qs, qn, xn = _prepare(queries, dataset, dataset_norms)
     q = qs.shape[0]
-    q_tiles = -(-q // 64)
-    # dataset splits scored in parallel: about four blocks per SM
-    sms = torch.cuda.get_device_properties(dataset.device)\
-        .multi_processor_count
-    splits = max(1, min(-(-4 * sms // q_tiles), -(-n // 64)))
-    rows = -(-n // splits)
-    chunk = -(-rows // 64) * 64        # rows per split, 64-aligned
-    splits = -(-n // chunk)
+    splits, chunk = _knn_plan(q, n, k, _sm_count(dataset.device))
+    # the kernel reads queries in the dataset's type (bf16-rounded
+    # queries convert exactly)
+    qx = qs.to(dataset.dtype).contiguous()
     kind = (_KIND_IP if metric == DistanceType.InnerProduct
             else _KIND_COSINE if metric == DistanceType.CosineExpanded
             else _KIND_L2)
     epilog = (_EPILOG_SQRT if metric in _SQRT_METRICS
               else _EPILOG_NEGATE if metric == DistanceType.InnerProduct
               else _EPILOG_NONE)
-    pd = torch.empty((q, splits, k), dtype=torch.float32, device=qs.device)
-    pi = torch.empty((q, splits, k), dtype=torch.int32, device=qs.device)
+    lists = q * splits * k
+    # one workspace: the queries' shared bounds (8 bytes each, set by the C
+    # entry), then the splits' lists (values, ids)
+    work = torch.empty((2 * q + 2 * lists,), dtype=torch.int32,
+                       device=qs.device)
+    base = work.data_ptr()
     outd = torch.empty((q, k), dtype=torch.float32, device=qs.device)
     outi = torch.empty((q, k), dtype=torch.int32, device=qs.device)
     stream = torch.cuda.current_stream(dataset.device).cuda_stream
-    err = launch(qs.data_ptr(), qn.data_ptr(), dataset.data_ptr(),
+    err = launch(qx.data_ptr(), qn.data_ptr(), dataset.data_ptr(),
                  xn.data_ptr(), int(dataset.dtype == torch.bfloat16), q, n, d,
-                 k, kind, epilog, splits, chunk, pd.data_ptr(), pi.data_ptr(),
-                 outd.data_ptr(), outi.data_ptr(), stream)
+                 k, kind, epilog, splits, chunk, base + 8 * q,
+                 base + 8 * q + 4 * lists, base, outd.data_ptr(),
+                 outi.data_ptr(), stream)
     _build.check(err, "fused_knn")
     fused_knn.launches += 1
     return outd, outi
@@ -213,7 +255,26 @@ fused_knn.launches = 0
 #: largest k the selection kernel takes
 SELECT_MAX_K = 128
 _SELECT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_SELECT_UNROLL_COLS = 256   # columns a warp covers per step (select_k.cu)
+_SELECT_WARPS = 8   # warps a block (csrc/select_k.cu kSelWarps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _select_plan(b: int, n: int, sms: int) -> Tuple[int, int]:
+    """(splits, chunk) of the selection kernel: a warp per (row, chunk of
+    ``chunk`` columns), about 16 warps an SM, chunks of at least 2,048
+    columns. A row takes one warp (splits 1), or a multiple of 8 warps so
+    that a block's warps share one row (the kernel merges them in the
+    block, and a row's blocks in the last block to finish)."""
+    want = max(1, min(-(-16 * sms // b), -(-n // 2048)))
+    splits = 1 if want < 4 else -(-want // _SELECT_WARPS) * _SELECT_WARPS
+    chunk = -(-(-(-n // splits)) // 8) * 8
+    return splits, chunk
+
+
 
 
 def select_k_tiles_plain(values: torch.Tensor, k: int,
@@ -261,20 +322,18 @@ def select_k_tiles(values: torch.Tensor, k: int, select_min: bool = True
     out_i = torch.empty((b, k), dtype=torch.int32, device=values.device)
     if b == 0:
         return out_d, out_i
-    # one warp per (row, column chunk): about 16 warps per SM, chunks of
-    # at least 4096 columns so the per-row merge stays short
-    sms = torch.cuda.get_device_properties(values.device)\
-        .multi_processor_count
-    splits = max(1, min(-(-16 * sms // b), -(-n // 4096)))
-    chunk = -(-(-(-n // splits)) // _SELECT_UNROLL_COLS) * _SELECT_UNROLL_COLS
-    splits = -(-n // chunk)
-    pd = torch.empty((b, splits, k), dtype=torch.float32,
-                     device=values.device)
-    pi = torch.empty((b, splits, k), dtype=torch.int32, device=values.device)
+    splits, chunk = _select_plan(b, n, _sm_count(values.device))
+    lists = max(splits // _SELECT_WARPS, 1) * b * k
+    # one workspace: the rows' bound words (8 bytes) and block counts (4),
+    # set by the C entry, then the blocks' lists (values, columns)
+    work = torch.empty((3 * b + 2 * lists,), dtype=torch.int32,
+                       device=values.device)
+    base = work.data_ptr()
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = launch(values.data_ptr(), _SELECT_DTYPES[values.dtype], b, n, k,
-                 int(not select_min), splits, chunk, pd.data_ptr(),
-                 pi.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream)
+                 int(not select_min), splits, chunk, base + 12 * b,
+                 base + 12 * b + 4 * lists, base, out_d.data_ptr(),
+                 out_i.data_ptr(), stream)
     _build.check(err, "select_k_tiles")
     select_k_tiles.launches += 1
     return out_d, out_i

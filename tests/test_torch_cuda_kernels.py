@@ -7,7 +7,13 @@ imports JAX):
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Integer-valued inputs make every product exact: ids must be equal and
-distances equal to float32 rounding (1e-6 relative). The IVF-BQ scan and
+distances equal to float32 rounding (1e-6 relative); that holds for
+``fused_knn``'s tensor-core products too (3xTF32 for float32, one bf16
+pass for bfloat16). On Gaussian data with mean offset 10 its distances
+stay within 4e-6 (|q|^2 + |x|^2) of float64, which one TF32 pass misses.
+``select_k_tiles`` equals its plain version (values and columns) on
+ties, NaN, +-inf, all-equal rows and rows finite only in their last
+chunk, in float32, bfloat16 and float16. The IVF-BQ scan and
 the CAGRA beam search run on Gaussian data; they take every sum in their
 plain versions' order (``ops.bq_scan.tree_sum``), so their distances,
 ids and counts (rows reranked per query; live iterations, candidates and
@@ -30,6 +36,7 @@ from raft_tpu_torch.neighbors import ivf_bq
 from raft_tpu_torch.ops.bq_scan import auto_query_bits, bq_list_major_scan
 from raft_tpu_torch.ops.fused_topk import (
     _SUPPORTED_METRICS,
+    _select_plan,
     fused_knn,
     fused_knn_plain,
     select_k_tiles,
@@ -501,6 +508,123 @@ def test_select_k_kernel_matches_plain(dev, select_min, k, n, dtype):
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
     assert (got[1][5] == -1).all()
+
+
+def _offset_gaussian(seed: int, shape):
+    """Gaussian data with mean offset 10 (large norms, as SIFT's)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 10.0).astype(np.float32)
+
+
+# the float64 bound of the tensor-core products (3xTF32 for float32, one
+# bf16 pass for bf16 data): 4e-6 (|q|^2 + |x|^2); one TF32 pass misses it
+KNN_F64_BOUND = 4e-6
+
+
+@pytest.mark.parametrize("k", [1, 10, 33, 64])
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("q", [1, 70, 500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_knn_kernel_within_float64_bound(dev, dtype, q, d, k):
+    """Distances within 4e-6 (|q|^2 + |x|^2) of the float64 distances of
+    the returned ids, and every returned id's float64 distance within that
+    tolerance of the float64 k-th (bf16 data: of the bf16-rounded data
+    and queries, the kernel's inputs)."""
+    n = 20_011
+    xt = torch.from_numpy(_offset_gaussian(1, (n, d))).to(dev, dtype)
+    qt = torch.from_numpy(_offset_gaussian(2, (q, d))).to(dev)
+    dist, ids = fused_knn(qt, xt, k)
+    torch.cuda.synchronize()
+    x64 = xt.to(torch.float64)
+    q64 = qt.to(dtype).to(torch.float64)
+    xn = (x64 * x64).sum(dim=1)
+    qn = (q64 * q64).sum(dim=1, keepdim=True)
+    d64 = qn + xn[None, :] - 2.0 * (q64 @ x64.T)
+    assert bool((ids >= 0).all())
+    assert all(len(set(r)) == k for r in ids.tolist())
+    idl = ids.to(torch.int64)
+    got64 = torch.gather(d64, 1, idl)
+    tol = KNN_F64_BOUND * (qn + xn[idl])
+    assert bool(((dist.to(torch.float64) - got64).abs() <= tol).all())
+    kth = torch.sort(d64, dim=1).values[:, k - 1 : k]
+    assert bool((got64 <= kth + tol).all())
+
+
+@pytest.mark.parametrize("k", [10, 64])
+@pytest.mark.parametrize("d", [33, 100, 200, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_knn_kernel_depths_match_plain(dev, dtype, d, k):
+    """Depths off the main path: rows that are not 16-byte aligned (d 33;
+    bf16 d 100) take element copies, and depths whose query tile does not
+    fit beside the ring (float32 d 200 and 960, bf16 960) stream the
+    queries' columns with each stage. +-1 data: every product is exact."""
+    rng = np.random.default_rng(d)
+    x = np.where(rng.random((3001, d)) < 0.5, -1.0, 1.0).astype(np.float32)
+    x[2000] = x[3]
+    q = np.where(rng.random((70, d)) < 0.5, -1.0, 1.0).astype(np.float32)
+    q[0] = x[3]
+    xt = torch.from_numpy(x).to(dev, dtype)
+    qt = torch.from_numpy(q).to(dev)
+    for metric in (DistanceType.L2Expanded, DistanceType.InnerProduct):
+        _check(fused_knn(qt, xt, k, metric),
+               fused_knn_plain(qt, xt, k, metric))
+
+
+def test_one_tf32_pass_misses_the_float64_bound(dev):
+    """The test above has teeth: one TF32 pass (the card's own TF32
+    matmul) misses the bound on the same data."""
+    n, d, q = 20_011, 128, 70
+    x = torch.from_numpy(_offset_gaussian(1, (n, d))).to(dev)
+    qt = torch.from_numpy(_offset_gaussian(2, (q, d))).to(dev)
+    x64, q64 = x.double(), qt.double()
+    xn, qn = (x64 * x64).sum(dim=1), (q64 * q64).sum(dim=1, keepdim=True)
+    d64 = qn + xn[None, :] - 2.0 * (q64 @ x64.T)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ip = qt @ x.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    d1 = qn + xn[None, :] - 2.0 * ip.double()
+    assert float(((d1 - d64).abs() / (qn + xn[None, :])).max()) \
+        > KNN_F64_BOUND
+
+
+def _select_cases(n: int, b: int, k: int, select_min: bool, last_chunk: int,
+                  seed: int):
+    """Integer values (many exact ties) with special rows: all equal, only
+    finite in the row's last chunk, NaN every 7th, fewer than k finite,
+    none finite."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-1000, 1000, (b, n)).astype(np.float32)
+    far = np.inf if select_min else -np.inf
+    if b >= 5:
+        v[0, :] = 5.0
+        v[1, :last_chunk] = far
+        v[2, ::7] = np.nan
+        v[3, min(k, n) // 2:] = far
+        v[4, :] = -far
+    return v
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 33, 64, 128])
+@pytest.mark.parametrize("shape", [(37, 16384), (37, 100003), (37, 2048),
+                                   (1, 100003), (2048, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_select_k_kernel_cases_equal_plain(dev, dtype, shape, k, select_min):
+    b, n = shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, chunk = _select_plan(b, n, sms)
+    v = _select_cases(n, b, k, select_min, (splits - 1) * chunk, seed=k)
+    vt = torch.from_numpy(v).to(dev, dtype)
+    before = select_k_tiles.launches
+    got = select_k_tiles(vt, k, select_min)
+    assert select_k_tiles.launches == before + 1
+    want = select_k_tiles_plain(vt, k, select_min)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
 
 
 def _tier_inputs(dev, seed: int, integer: bool):

@@ -25,10 +25,14 @@ from raft_tpu.ops.fused_topk import fused_knn as j_fused_knn
 from raft_tpu_torch.core.validation import RaftError
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.ops.fused_topk import (
+    finish,
     fused_knn,
     fused_knn_plain,
+    min_space_distances,
+    split_tf32_ip,
     stream_read_sum,
     stream_read_sum_plain,
+    tf32_round,
 )
 
 METRICS = [DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
@@ -177,3 +181,93 @@ def test_stream_read_sum_cpu_dispatch_and_checks():
     assert stream_read_sum.launches == before
     with pytest.raises(RaftError):
         stream_read_sum(torch.zeros(5))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's float32 product: the 3xTF32 split (plain model)
+# ---------------------------------------------------------------------------
+
+F64_BOUND = 4e-6   # |d - d64| / (|q|^2 + |x|^2), the card tests' bound
+
+
+def _bound_data(kind: str, shape_q=(256, 128), shape_x=(8192, 128)):
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal(shape_q)
+    x = rng.standard_normal(shape_x)
+    if kind == "offset":          # large norms, as SIFT's
+        q, x = q + 10.0, x + 10.0
+    return q.astype(np.float32), x.astype(np.float32)
+
+
+def _relative_error(ip: torch.Tensor, q: np.ndarray, x: np.ndarray) -> float:
+    """max |d - d64| / (|q|^2 + |x|^2) of the L2 distances the kernel's
+    float32 epilog makes from ``ip`` (norms in float32, as _prepare
+    computes them) against float64 distances."""
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    qn64 = (q64 * q64).sum(1)[:, None]
+    xn64 = (x64 * x64).sum(1)[None, :]
+    d64 = qn64 + xn64 - 2.0 * (q64 @ x64.T)
+    qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    d = min_space_distances(ip, (qt * qt).sum(1), (xt * xt).sum(1),
+                            DistanceType.L2Expanded)
+    return float((np.abs(d.double().numpy() - d64) / (qn64 + xn64)).max())
+
+
+def test_tf32_round_is_rna():
+    """To nearest with ties away from zero at 10 explicit mantissa bits;
+    small integers and values already in TF32 are unchanged."""
+    one = 1.0
+    cases = {one + 2.0 ** -11: one + 2.0 ** -10,      # a tie: away
+             one + 2.0 ** -12: one,                   # under half: down
+             one + 3 * 2.0 ** -12: one + 2.0 ** -10,  # over half: up
+             -(one + 2.0 ** -11): -(one + 2.0 ** -10),
+             1234.0: 1234.0, -7.0: -7.0, 0.0: 0.0}
+    got = tf32_round(torch.tensor(list(cases), dtype=torch.float32))
+    assert got.tolist() == list(cases.values())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    r = tf32_round(x)
+    assert bool((r.view(torch.int32) & 0x1FFF == 0).all())
+    assert float(((r - x).abs() / x.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "offset"])
+def test_split_tf32_within_float64_bound(kind):
+    q, x = _bound_data(kind)
+    ip = split_tf32_ip(torch.from_numpy(q), torch.from_numpy(x))
+    assert _relative_error(ip, q, x) <= F64_BOUND
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "offset"])
+def test_one_tf32_pass_misses_the_float64_bound(kind):
+    """The bound has teeth: one TF32 pass (both operands rounded, float32
+    sums) misses it on the same data."""
+    q, x = _bound_data(kind)
+    ip = tf32_round(torch.from_numpy(q)) @ tf32_round(torch.from_numpy(x)).T
+    assert _relative_error(ip, q, x) > F64_BOUND
+
+
+def test_split_tf32_is_exact_on_small_integers():
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.integers(-8, 9, (17, 96)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(-8, 9, (300, 96)).astype(np.float32))
+    assert torch.equal(split_tf32_ip(q, x), q @ x.T)
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+@pytest.mark.parametrize("kind", ["gaussian", "offset"])
+def test_split_tf32_knn_matches_reference(kind, metric):
+    """kNN over the model's products (the kernel's epilog, a stable sort,
+    the shared final step) against the JAX package's kernel in interpret
+    mode on the same numpy inputs."""
+    q, x = _bound_data(kind, (7, D), (N, D))
+    qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    dist = min_space_distances(split_tf32_ip(qt, xt), (qt * qt).sum(1),
+                               (xt * xt).sum(1), metric)
+    sd, pos = torch.sort(dist, dim=1, stable=True)
+    gd, gi = finish(sd[:, :10], pos[:, :10].to(torch.int32), metric)
+    wd, wi = _reference(q, x, 10, metric)
+    scale = float(2.0 * np.abs(x).max() ** 2 * D)
+    _agree_within_tolerance(gd.numpy(), gi.numpy(), wd, wi, scale=scale)

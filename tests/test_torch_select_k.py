@@ -134,3 +134,137 @@ def test_errors():
         t_sel.select_k(CPU, np.zeros((2, 4), np.float32), 5)
     with pytest.raises(Exception, match="batch, n"):
         t_sel.select_k(CPU, np.zeros(4, np.float32), 1)
+
+
+# ---------------------------------------------------------------------------
+# the wide-row kernel's shared-bound filter (plain model)
+# ---------------------------------------------------------------------------
+
+
+def _queue_push(state, key, k, kp, lim):
+    """One candidate into a chunk's queue (sorted list, buffer of kp): it
+    enters when its key is at most the threshold; a full buffer merges
+    into the list first (keeping the kp smallest) and tightens it."""
+    if key > lim():
+        return
+    if len(state["buf"]) == kp:
+        _queue_flush(state, k, kp)
+        if key > lim():
+            return
+    state["buf"].append(key)
+
+
+def _queue_flush(state, k, kp):
+    state["list"] = sorted(state["list"] + state["buf"])[:kp]
+    state["buf"] = []
+    if len(state["list"]) >= k:
+        state["thr"] = min(state["thr"], state["list"][k - 1])
+
+
+def _filtered_select(values, k, select_min, chunk, seed, group=32):
+    """Model of ``csrc/select_k.cu``: a row's columns cut into chunks of
+    ``chunk``, each scanned ``group`` values at a time by its own filtered
+    queue, the chunks' groups interleaved in a random order (``seed``). A
+    candidate's key is (min-space value, column), non-finite values left
+    out; its threshold is the lower of its list's k-th key (once the list
+    holds k) and the row's bound, the smallest k-th key any list has
+    reached (taken as a list merges). After the scan each list's first k
+    entries go through one more queue under the final bound."""
+    kp = 32 if k <= 32 else 64 if k <= 64 else 128
+    rng = np.random.default_rng(seed)
+    inf = (float("inf"), 1 << 31)
+    out_d = np.full((values.shape[0], k), np.inf, np.float32)
+    out_i = np.full((values.shape[0], k), -1, np.int32)
+    for r, row in enumerate(values.astype(np.float32)):
+        v = row if select_min else -row
+        n = v.shape[0]
+        chunks = [(c0, min(n, c0 + chunk)) for c0 in range(0, n, chunk)]
+        states = [{"list": [], "buf": [], "thr": inf, "next": c0}
+                  for c0, _ in chunks]
+        bound = [inf]
+
+        def scan_group(ci):
+            st, (_, c1) = states[ci], chunks[ci]
+            lim = lambda: min(st["thr"], bound[0])  # noqa: E731
+            for c in range(st["next"], min(c1, st["next"] + group)):
+                if np.isfinite(v[c]):
+                    _queue_push(st, (float(v[c]), c), k, kp, lim)
+            st["next"] = min(c1, st["next"] + group)
+            bound[0] = min(bound[0], st["thr"])
+
+        schedule = [ci for ci, (c0, c1) in enumerate(chunks)
+                    for _ in range(-(-(c1 - c0) // group))]
+        rng.shuffle(schedule)
+        for ci in schedule:
+            scan_group(ci)
+        for st in states:
+            _queue_flush(st, k, kp)
+            bound[0] = min(bound[0], st["thr"])
+        final = {"list": [], "buf": [], "thr": inf}
+        for st in states:
+            for key in st["list"][:k]:
+                _queue_push(final, key, k, kp,
+                            lambda: min(final["thr"], bound[0]))
+        _queue_flush(final, k, kp)
+        for j, (d, c) in enumerate(final["list"][:k]):
+            out_d[r, j], out_i[r, j] = d, c
+    return (out_d if select_min else -out_d), out_i
+
+
+def _filter_rows(n, k, select_min, chunk):
+    """Ties, all-equal, NaN, +-inf, fewer than k finite, and a row whose
+    only finite values lie in its last chunk."""
+    rng = np.random.default_rng(n + k)
+    v = rng.integers(-20, 20, (7, n)).astype(np.float32)
+    far = np.inf if select_min else -np.inf
+    v[1, :] = 3.0
+    v[2, ::7] = np.nan
+    v[3, ::3] = -far
+    v[3, 1::3] = far
+    v[4, k // 2 + 1:] = far
+    v[5, :((n - 1) // chunk) * chunk] = far
+    v[6] = rng.standard_normal(n).astype(np.float32)
+    v[6, ::5] = -0.0
+    v[6, 1::5] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("chunk", [37, 256, 1000])
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [1, 7, 33, 64])
+def test_shared_bound_filter_equals_plain(k, select_min, chunk, seed):
+    v = _filter_rows(1200, k, select_min, chunk)
+    got = _filtered_select(v, k, select_min, chunk, seed)
+    want = fused_topk.select_k_tiles_plain(torch.from_numpy(v), k,
+                                           select_min)
+    assert np.array_equal(got[1], want[1].numpy())
+    assert np.array_equal(got[0], want[0].numpy())
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [1, 7, 33, 64])
+def test_shared_bound_filter_matches_reference(k, select_min):
+    """Against the JAX kernel (interpret mode) on the rows it defines: the
+    JAX kernel lets NaN and the winning infinity into its top-k, which
+    the port's kernels leave out, so those rows are compared with the
+    plain version above only."""
+    v = _filter_rows(1200, k, select_min, 256)[[0, 1, 4, 5, 6]]
+    got = _filtered_select(v, k, select_min, 256, seed=3)
+    want = j_sel.select_k(None, jnp.asarray(v), k, select_min=select_min,
+                          algo=j_sel.SelectAlgo.TILES)
+    assert np.array_equal(got[1], np.asarray(want[1]))
+    assert np.array_equal(got[0], np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+@pytest.mark.parametrize("shape", [(1, 2048), (64, 1 << 20), (37, 100003),
+                                   (2048, 2048), (5, 16384), (300, 70000)])
+def test_select_plan_covers_rows(shape, sms):
+    """One warp a row, or a multiple of 8 warps (a block's warps share a
+    row); the chunks cover the row."""
+    b, n = shape
+    splits, chunk = fused_topk._select_plan(b, n, sms)
+    assert splits == 1 or splits % 8 == 0
+    assert splits * chunk >= n and chunk % 8 == 0
+    assert (splits - 1) * chunk < n
