@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,times]
+    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,serve,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -113,7 +113,21 @@ non-zero exit (nothing is caught and passed over):
             under BQ-off. Each path
             runs with every launch counter set to 0 just before it, and
             each of its kernels must have launched.
-5. times    per kernel at the main path's shapes: kernel ms (CUDA
+5. serve    the serving path on main's indexes: a SearchExecutor each
+            for IVF-Flat (n_probes 32 and 128), IVF-BQ (n_probes 128),
+            CAGRA (itopk 64, search_width 4) and brute force, its plans
+            captured as CUDA graphs on the ladder 8..512; 200 requests of
+            1-500 rows (drawn from --seed) each equal bit for bit to the
+            direct search, and no capture after warmup; the tiered index
+            (eager plans) on 50 such requests; a DynamicBatcher over the
+            IVF-Flat executor fed by drive_open_loop from four threads,
+            every result equal to its direct search (p50/p99 latency and
+            batch occupancy printed); then the direct, eager-executor and
+            captured median ms of the batch-10 and batch-500 requests,
+            the direct request's device-busy share (torch.profiler) and
+            the captured request's graph replay time (CUDA events). Its
+            launches (replays included) add to the kernels line's.
+6. times    per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -132,7 +146,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-6. profile  (not in the default run) torch.profiler over five requests
+7. profile  (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -996,6 +1010,16 @@ def read_launches(names, path: str) -> dict:
     return {name: counts[name] for name in names}
 
 
+def bq_scan_run(index, queries, n_probes: int, engine: str):
+    """(distances, ids, rows reranked per query) of an IVF-BQ search body
+    run with ``engine``."""
+    from raft_tpu_torch.neighbors import ivf_bq
+
+    _, arrays, static = ivf_bq.serving_plan(ivf_bq.IvfBqSearchParams(
+        n_probes=n_probes, scan_engine=engine), index, K)
+    return ivf_bq._search_arrays(queries, *arrays, None, **static)[:3]
+
+
 def phase_main(torch, seed: int, state: dict) -> None:
     from raft_tpu_torch import Resources
     from raft_tpu_torch.neighbors import brute_force, ivf_flat
@@ -1163,7 +1187,6 @@ def main_tiered(torch, state: dict) -> None:
     from raft_tpu_torch.core import memwatch, tracing
     from raft_tpu_torch.neighbors import ivf_flat, tiered
     from raft_tpu_torch.ops.fused_topk import stream_read_sum
-    from raft_tpu_torch.ops.tier_scan import resolve_tier_engine
     from raft_tpu_torch.serving.placement import plan_epoch
 
     res, index, queries, gt_i = (state["res"], state["index"],
@@ -1271,11 +1294,9 @@ def main_tiered(torch, state: dict) -> None:
     for lid in targets:
         traffic = (t.centers[lid][None, :].expand(500, -1)
                    + 0.01 * torch.randn(500, DIM, generator=g, device=dev))
-        hot, cold, hmap, cmap = t.tier_arrays()
-        *_, window = tiered._tiered_search(
-            traffic, t, hot, cold, hmap, cmap, None, window, n_probes=1,
-            k=K, coarse_algo="exact",
-            scan_engine=resolve_tier_engine("auto", hot_data=hot, k=K))
+        fn, arrays, static = tiered.serving_plan(
+            tiered.TieredSearchParams(n_probes=1), t, K)
+        *_, window = fn(traffic, *arrays, None, window, **static)
     plan = plan_epoch(window.cpu().numpy(), t.hot_lists, t.cold_lists,
                       max_swaps=4)
     b0 = tracing.get_counter("tier.swap_bytes")
@@ -1429,11 +1450,8 @@ def main_bq(torch, state: dict) -> None:
                 qb = queries[s0:s0 + batch]
                 name = (f"ivf_bq.search n_probes={n_probes} batch={batch} "
                         f"request {j}")
-                want = ivf_bq._search_impl(qb, index, None,
-                                           n_probes=n_probes, k=K,
-                                           scan_engine="torch")
-                got = ivf_bq._search_impl(qb, index, None, n_probes=n_probes,
-                                          k=K, scan_engine="cuda")
+                want = bq_scan_run(index, qb, n_probes, "torch")
+                got = bq_scan_run(index, qb, n_probes, "cuda")
                 bq_equal(name, got, want)
                 if not (torch.equal(outs[j][0], got[0])
                         and torch.equal(outs[j][1], got[1])):
@@ -1629,12 +1647,401 @@ def select_equal(torch, name: str, v, k: int) -> float:
     return err
 
 
+SERVE_LADDER = (8, 16, 32, 64, 128, 256, 512)
+SERVE_REQUESTS = 200
+
+
+def _serve_configs(state: dict) -> list:
+    """(label, index, params, direct search) of each captured serve path,
+    on the main phase's full-size indexes."""
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
+
+    res = state["res"]
+    fl32 = ivf_flat.IvfFlatSearchParams(n_probes=32)
+    fl128 = ivf_flat.IvfFlatSearchParams(n_probes=128)
+    bq128 = ivf_bq.IvfBqSearchParams(n_probes=128)
+    cg64 = cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                   bq_traversal="off")
+    index, bq_index, cg_index, bf = (state["index"], state["bq_index"],
+                                     state["cagra_index"], state["bf"])
+    return [
+        ("ivf_flat n_probes=32", index, fl32,
+         lambda q: ivf_flat.search(res, fl32, index, q, K)),
+        ("ivf_flat n_probes=128", index, fl128,
+         lambda q: ivf_flat.search(res, fl128, index, q, K)),
+        ("ivf_bq n_probes=128", bq_index, bq128,
+         lambda q: ivf_bq.search(res, bq128, bq_index, q, K)),
+        ("cagra itopk=64", cg_index, cg64,
+         lambda q: cagra.search(res, cg64, cg_index, q, K)),
+        ("brute_force", bf, None,
+         lambda q: brute_force.search(res, bf, q, K)),
+    ]
+
+
+def _served_equal(torch, label, got, want) -> None:
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+        bad = int((got[1] != want[1]).sum())
+        fail(f"serve {label}: differs from the direct search ({bad} ids)")
+
+
+def _request_sizes(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [(int(m), int(rng.integers(0, N_QUERIES - m + 1)))
+            for m in rng.integers(1, 501, n)]
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()
+            if fn.launches}
+
+
+def phase_serve(torch, state: dict) -> None:
+    """The serving path at full size: a SearchExecutor per index (plans
+    captured as CUDA graphs, the ladder 8..512 warmed), 200 requests of
+    mixed batch sizes each held bit for bit against the direct search,
+    no capture after warmup, and the kernel launches of the requests
+    alone (the direct searches run before the counts are zeroed) equal
+    to the replays' recorded launches; CAGRA's graph pool at bucket 4096;
+    the tiered index the same way with its eager plans; eager and
+    captured request times with their device-busy shares; a
+    DynamicBatcher over the IVF-Flat executor fed from four threads,
+    every result held against its direct search."""
+    import collections
+
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.neighbors import tiered
+
+    res, queries = state["res"], state["queries"]
+    configs = _serve_configs(state)
+    sizes = _request_sizes(state["seed"] + 8, SERVE_REQUESTS)
+    served = collections.Counter()
+    executors = {}
+    for label, index, params, direct in configs:
+        ex = SearchExecutor(res)
+        t0 = time.perf_counter()
+        ex.warmup(index, buckets=SERVE_LADDER, k=K, params=params)
+        warm_s = time.perf_counter() - t0
+        built = ex.stats.compile_count
+        costs = list(ex.executable_costs().values())
+        if built != len(SERVE_LADDER) or not all(c["captured"]
+                                                 for c in costs):
+            fail(f"serve {label}: warmup captured {built} plans")
+        want = [direct(queries[at:at + m]) for m, at in sizes]
+        per_replay = {e.bucket: e.launches for e in ex._cache.values()}
+        expected = collections.Counter()
+        for m, _ in sizes:
+            expected.update(per_replay[ex.bucket_for(m)])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = [ex.search(index, queries[at:at + m], K, params=params)
+               for m, at in sizes]
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        if counts != dict(expected) or not counts:
+            fail(f"serve {label}: {len(sizes)} requests launched {counts}, "
+                 f"their replays record {dict(expected)}")
+        served.update(counts)
+        for g, w in zip(got, want):
+            _served_equal(torch, label, g, w)
+        if ex.stats.compile_count != built:
+            fail(f"serve {label}: {ex.stats.compile_count - built} captures "
+                 "after warmup")
+        executors[label] = ex
+        log(f"[serve] {label}: warmup captured {built} plans in "
+            f"{warm_s:.2f} s (capture {sum(c['capture_seconds'] for c in costs):.2f} s, "
+            f"graph pools {sum(c['pool_bytes'] for c in costs)} bytes "
+            f"{[c['pool_bytes'] for c in costs]}, "
+            f"{costs[-1]['launches']} kernel launches a replay at bucket "
+            f"512); {len(sizes)} requests of 1-500 rows served in "
+            f"{served_s:.3f} s, each bit-identical to the direct search; "
+            f"kernel launches of the requests alone {counts}, as their "
+            "replays record; no capture after warmup")
+
+    # the default ladder reaches 4096: CAGRA's pool there, the walk
+    # tiled by query_tile inside the graph
+    cg_label, cg_index, cg_params, cg_direct = [
+        c for c in configs if c[0].startswith("cagra")][0]
+    big = SearchExecutor(res)
+    big.warmup(cg_index, buckets=(4096,), k=K, params=cg_params)
+    (cost,) = big.executable_costs().values()
+    _served_equal(torch, "cagra bucket 4096",
+                  big.search(cg_index, queries[:4096], K, params=cg_params),
+                  cg_direct(queries[:4096]))
+    state["cagra_pool_4096"] = cost["pool_bytes"]
+    log(f"[serve] {cg_label} bucket 4096 (query_tile "
+        f"{cg_params.query_tile}): graph pool {cost['pool_bytes']} bytes; a "
+        "4096-row request bit-identical to cagra.search")
+    del big
+    torch.cuda.empty_cache()
+
+    # tiered: the same executor, eager plans (the staging plan is read on
+    # the host), one placement generation a dispatch
+    t_sp = tiered.TieredSearchParams(n_probes=32)
+    t_ex = SearchExecutor(res)
+    t_ex.warmup(state["tiered"], buckets=SERVE_LADDER, k=K, params=t_sp)
+    built = t_ex.stats.compile_count
+    if any(c["captured"] for c in t_ex.executable_costs().values()):
+        fail("serve tiered: a tiered plan was captured")
+    want = [tiered.search(res, t_sp, state["tiered"], queries[at:at + m], K)
+            for m, at in sizes[:50]]
+    torch.cuda.synchronize()
+    reset_launches()
+    got = [t_ex.search(state["tiered"], queries[at:at + m], K, params=t_sp)
+           for m, at in sizes[:50]]
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if set(counts) != {"tier_scan"}:
+        fail(f"serve tiered: 50 requests launched {counts}")
+    served.update(counts)
+    for g, w in zip(got, want):
+        _served_equal(torch, "tiered", g, w)
+    if t_ex.stats.compile_count != built:
+        fail("serve tiered: plans built after warmup")
+    log("[serve] tiered n_probes=32: 50 requests of 1-500 rows through "
+        f"eager plans bit-identical to tiered.search, launching {counts}; "
+        "no plan built after warmup")
+
+    served.update(serve_batcher(torch, state,
+                                executors["ivf_flat n_probes=32"]))
+    log(f"[serve] launches of the served requests (replays, tiered eager "
+        f"calls, batcher replays): {dict(served)}")
+    for name in ("fused_knn", "list_major_scan", "bq_scan", "beam_search",
+                 "tier_scan"):
+        if not served[name]:
+            fail(f"{name} was never launched on the serving path")
+        state["launches"][name] = state["launches"].get(name, 0) + \
+            served[name]
+    serve_times(torch, state, configs, executors)
+
+
+BATCHER_SECONDS = 2.0
+
+
+def serve_batcher(torch, state: dict, ex) -> dict:
+    """A DynamicBatcher over the captured IVF-Flat executor under an
+    open-loop load from four threads: requests of 1-40 rows at random
+    offsets, offered for BATCHER_SECONDS at the rate at which the same
+    executor serves such requests one at a time, each ending in a
+    synchronize (measured here first, on 200 requests of the same mix).
+    Every result equals its direct search; no capture under load; the
+    kernel launches of the batcher's span equal its replays' record.
+    Prints the offered and served rates, the end-to-end latency
+    quantiles of the raw samples (and the log2 histogram's estimates)
+    and the batch occupancy. Returns the span's launch counts."""
+    import threading
+
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serving import (
+        BatcherConfig,
+        DynamicBatcher,
+        MonotonicClock,
+        metrics,
+    )
+    from raft_tpu_torch.serving.harness import burst_schedule, drive_open_loop
+
+    res, queries, index = state["res"], state["queries"], state["index"]
+    sp = ivf_flat.IvfFlatSearchParams(n_probes=32)
+
+    def draw(rng):
+        m = int(rng.integers(1, 41))
+        return m, int(rng.integers(0, N_QUERIES - m + 1))
+
+    rng = np.random.default_rng(state["seed"] + 99)
+    mix = [draw(rng) for _ in range(200)]
+    for m, at in mix[:20]:
+        ex.search(index, queries[at:at + m], K, params=sp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m, at in mix:
+        ex.search(index, queries[at:at + m], K, params=sp)
+        torch.cuda.synchronize()
+    rate = len(mix) / (time.perf_counter() - t0)
+    n_thread = int(BATCHER_SECONDS * rate / 4)
+    period = 4.0 / rate
+
+    metrics.reset()
+    built = ex.stats.compile_count
+    calls0 = tracing.get_counter("serving.execute.calls")
+    per_replay = {e.launches.get("list_major_scan")
+                  for e in ex._cache.values()}
+    e2e: list = []
+    observe = metrics.observe_stage
+
+    def tap(name, seconds):
+        if name == metrics.E2E:
+            e2e.append(seconds)
+        observe(name, seconds)
+
+    metrics.observe_stage = tap
+    b = DynamicBatcher(ex, BatcherConfig(max_wait_s=0.002,
+                                         full_batch_rows=256))
+    clock = MonotonicClock()
+    out: dict = {}
+    submitted: list = []
+    start = clock.now() + 0.01
+
+    def feed(t: int) -> None:
+        rng = np.random.default_rng(state["seed"] + 100 + t)
+
+        def submit(ordinal, now):
+            m, at = draw(rng)
+            out[(t, ordinal)] = (at, m)
+            submitted.append(now)
+            return b.submit(index, queries[at:at + m], K, params=sp)
+
+        handles = drive_open_loop(submit, burst_schedule(
+            n_thread, 1, period, start_s=start + t * period / 4), clock)
+        for o, h in enumerate(handles):
+            out[(t, o)] = out[(t, o)] + (h,)
+
+    reset_launches()
+    threads = [threading.Thread(target=feed, args=(t,)) for t in range(4)]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results = {key: v[2].result(timeout=60) for key, v in out.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        b.close()
+    finally:
+        metrics.observe_stage = observe
+    calls = tracing.get_counter("serving.execute.calls") - calls0
+    if len(per_replay) != 1 or counts != {
+            "list_major_scan": int(calls) * per_replay.pop()}:
+        fail(f"serve batcher: {int(calls)} dispatches launched {counts}")
+    for key, (at, m, _) in out.items():
+        _served_equal(torch, "batcher", results[key], ivf_flat.search(
+            res, sp, index, queries[at:at + m], K))
+    if ex.stats.compile_count != built:
+        fail("serve batcher: plans captured under load")
+    if len(e2e) != len(out):
+        fail(f"serve batcher: {len(e2e)} latencies for {len(out)} requests")
+    hist = metrics.snapshot()["histograms"][metrics.E2E]
+    occ = metrics.occupancy()
+    offered = (len(submitted) - 1) / (max(submitted) - min(submitted))
+    p50, p99 = (float(np.percentile(e2e, p)) * 1e3 for p in (50, 99))
+    state["batcher"] = dict(
+        serial_rps=rate, offered_rps=offered, served_rps=len(out) / wall,
+        requests=len(out), p50_ms=p50, p99_ms=p99,
+        hist_p50_ms=hist["p50"] * 1e3, hist_p99_ms=hist["p99"] * 1e3,
+        occupancy=occ)
+    log(f"[serve] batcher: one request at a time the captured executor "
+        f"serves {rate:.1f} requests/s of 1-40 rows; that rate offered "
+        f"from 4 threads for {BATCHER_SECONDS} s: {len(out)} requests "
+        f"submitted at {offered:.1f}/s, all answered in {wall:.3f} s "
+        f"({len(out) / wall:.1f}/s), each equal to its direct search; "
+        f"e2e latency p50 {p50:.3f} ms p99 {p99:.3f} ms (raw samples; "
+        f"the log2 histogram estimates {hist['p50'] * 1e3:.3f} / "
+        f"{hist['p99'] * 1e3:.3f}); {occ['batches']} batches, "
+        f"{occ['requests_per_batch']:.2f} requests and "
+        f"{occ['rows_per_batch']:.1f} rows a batch; launches {counts} "
+        f"= {int(calls)} replays; no capture under load")
+    return counts
+
+
+def serve_times(torch, state: dict, configs, executors) -> None:
+    """Median request ms (host clock, each request ending in a
+    synchronize) of the direct search, an eager executor and the captured
+    executor at batch 10 and 500; the direct request's device-busy share
+    and device ops (torch.profiler, five requests); and the captured
+    request's graph time (CUDA events around the bucket's graph replay
+    alone, median of 20) over its wall time. torch.profiler records only
+    part of a replayed graph's kernels, so its reading of a captured
+    request is printed but not used."""
+    from raft_tpu_torch import SearchExecutor
+
+    res, queries = state["res"], state["queries"]
+    profiled(torch, lambda: torch.ones(1, device="cuda").sum())
+    rows = []
+    for label, index, params, direct in configs:
+        eager = SearchExecutor(res, capture=False)
+        cap = executors[label]
+        for batch in (10, 500):
+            q = queries[:batch]
+            modes = {"direct": lambda: direct(q),
+                     "eager": lambda: eager.search(index, q, K,
+                                                   params=params),
+                     "captured": lambda: cap.search(index, q, K,
+                                                    params=params)}
+            row = {"request": f"{label} batch={batch}"}
+            for mode, fn in modes.items():
+                fn()
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                row[f"{mode}_ms"] = float(np.median(times))
+                if mode != "eager":
+                    wall_us, events = profiled(torch, fn)
+                    if not events:
+                        wall_us, events = profiled(torch, fn)
+                    busy, _, _, ops = device_split(events)
+                    row[f"{mode}_busy"] = busy / wall_us
+                    row[f"{mode}_ops"] = ops
+            (entry,) = [e for e in cap._cache.values()
+                        if e.bucket == cap.bucket_for(batch)]
+            row["graph_ms"] = median_ms(entry.graph.replay, 20)
+            rows.append(row)
+            log(f"[serve] {row['request']}: direct {row['direct_ms']:.3f} "
+                f"ms (device busy {100 * row['direct_busy']:.1f}%, "
+                f"{row['direct_ops']} device ops), eager executor "
+                f"{row['eager_ms']:.3f} ms, captured {row['captured_ms']:.3f}"
+                f" ms (graph replay {row['graph_ms']:.3f} ms on the device: "
+                f"{100 * row['graph_ms'] / row['captured_ms']:.1f}% of the "
+                f"request; the profiler saw {row['captured_ops']} device ops "
+                f"and {100 * row['captured_busy']:.1f}% busy)")
+    state["serve_times"] = rows
+
+
+def profiled(torch, fn, reps: int = 5):
+    """(wall us per request, device events) of ``reps`` requests under
+    torch.profiler, each ending in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    # device-side kernels and copies only: the aten ops and the tracing
+    # ranges (raft_tpu.*, which the profiler also shows on the device's
+    # timeline) would count their time twice
+    return wall_us, [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0
+                     and not e.key.startswith("raft_tpu.")]
+
+
+def device_split(events, reps: int = 5):
+    """(kernel busy us, copy us, copies, device ops) per request of
+    :func:`profiled`'s events. Copies (the tiered scan's staging runs on
+    a side stream, beside the kernels) are kept apart from the busy
+    time."""
+    copies = [e for e in events if e.key.startswith("Memcpy")]
+    busy = sum(e.self_device_time_total for e in events
+               if e not in copies) / reps
+    copy = sum(e.self_device_time_total for e in copies) / reps
+    return (busy, copy, sum(e.count for e in copies) // reps,
+            sum(e.count for e in events) // reps)
+
+
 def phase_profile(torch, state: dict) -> None:
     """Where one request's time goes: torch.profiler over five requests
     of each kind; device busy time per request against its wall time,
     and the device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from raft_tpu_torch.neighbors import (
         brute_force,
         cagra,
@@ -1687,45 +2094,22 @@ def phase_profile(torch, state: dict) -> None:
             res, tier_sp, state["tiered"], queries[:500], K),
     })
 
-    def profiled(fn):
-        """(wall us per request, device events) of five requests."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                fn()
-                torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6 / 5
-        # device-side kernels and copies only: the aten ops and the
-        # tracing ranges (raft_tpu.*, which the profiler also shows on
-        # the device's timeline) would count their time twice
-        return wall_us, [e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and e.self_device_time_total > 0
-                         and not e.key.startswith("raft_tpu.")]
-
     # a session that records no device event happens (the first of a
     # process, and now and then later): one session first to start the
     # profiler, and a request whose session records none is profiled again
-    profiled(lambda: torch.ones(1, device="cuda").sum())
+    profiled(torch, lambda: torch.ones(1, device="cuda").sum())
     for label, fn in requests.items():
         fn()
         torch.cuda.synchronize()
-        wall_us, events = profiled(fn)
+        wall_us, events = profiled(torch, fn)
         if not events:
             log(f"[profile] {label}: no device event recorded; again")
-            wall_us, events = profiled(fn)
-        # copies (the tiered scan's staging runs on a side stream, beside
-        # the kernels) are shown apart from the kernels' busy time
-        copies = [e for e in events if e.key.startswith("Memcpy")]
-        busy_us = sum(e.self_device_time_total for e in events
-                      if e not in copies) / 5
-        copy_us = sum(e.self_device_time_total for e in copies) / 5
+            wall_us, events = profiled(torch, fn)
+        busy_us, copy_us, n_copies, n_ops = device_split(events)
         log(f"[profile] {label}: wall {wall_us:.1f} us per request, device "
             f"busy (kernels) {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}"
-            f"%), copies {copy_us:.1f} us "
-            f"({sum(e.count for e in copies) // 5} a request), "
-            f"{sum(e.count for e in events) // 5} device ops per request")
+            f"%), copies {copy_us:.1f} us ({n_copies} a request), "
+            f"{n_ops} device ops per request")
         events.sort(key=lambda e: -e.self_device_time_total)
         for e in events[:6]:
             log(f"[profile]   {e.self_device_time_total / 5:10.1f} us  "
@@ -2150,7 +2534,8 @@ def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="env,build,kernels,main,times")
+    ap.add_argument("--phases",
+                    default="env,build,kernels,main,serve,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2185,6 +2570,8 @@ def main() -> int:
     records = []
     if "main" in phases:
         timed("main", phase_main, torch, args.seed, state)
+        if "serve" in phases:
+            timed("serve", phase_serve, torch, state)
         if "times" in phases:
             records = timed("times", phase_times, torch, state)
         if "profile" in phases:

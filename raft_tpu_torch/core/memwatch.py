@@ -18,8 +18,9 @@ the ledger and the opt-in capacity gate).
 
 Not ported yet: ``sample_dispatch``, ``publish``, ``snapshot``,
 ``federation_payload`` and the memory-profile parsing (they serve the
-executor and the exporter, which are not ported), and the executor's
-reservations in :meth:`MemoryLedger.forecast`.
+exporter, which is not ported), and the executor's reservations
+(:meth:`raft_tpu_torch.core.executor.SearchExecutor.memory_reservations`)
+in :meth:`MemoryLedger.forecast`.
 """
 
 from __future__ import annotations

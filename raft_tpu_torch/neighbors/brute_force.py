@@ -10,13 +10,16 @@ dataset tile, the tile's top-k, and a running merge (``merge_topk``) —
 plain tensor code, as the JAX package leaves that route to XLA.
 
 The index caches the dataset's squared norms
-(``brute_force_types.hpp``).
+(``brute_force_types.hpp``). The executor (:mod:`raft_tpu_torch.core.
+executor`) and :func:`search` both take the route and its body from
+:func:`serving_plan`, the executor for a bucket, the search for a query
+tile.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +152,17 @@ def _knn_scan_fn(queries: torch.Tensor, dataset: torch.Tensor, *, k: int,
     return best_d, best_i
 
 
+def _fused_entry_fn(queries: torch.Tensor, dataset: torch.Tensor,
+                    norms: torch.Tensor, *, k: int, metric: DistanceType
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The serving body of the fused route: the CUDA kernel over the
+    index's dataset and cached norms, in the order the executor's plan
+    passes them (its plain version for a CPU index)."""
+    from raft_tpu_torch.ops.fused_topk import fused_knn
+
+    return fused_knn(queries, dataset, k, metric, dataset_norms=norms)
+
+
 def _use_fused_kernel(metric: DistanceType, k: int, q: int,
                       device: torch.device) -> bool:
     """Dispatch to the CUDA fused kernel (role of the reference's
@@ -159,6 +173,23 @@ def _use_fused_kernel(metric: DistanceType, k: int, q: int,
 
     return (device.type == "cuda" and metric in _SUPPORTED_METRICS
             and k <= 64 and q <= 512)
+
+
+def serving_plan(res: Resources, index: BruteForceIndex, k: int,
+                 rows: int, db_tile: int = 32768
+                 ) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)``: the body a block of ``rows`` queries runs,
+    called as ``fn(queries, *arrays, **static)``. The fused route where
+    :func:`_use_fused_kernel` takes it, else the tiled scan with its
+    dataset tile cut to the workspace budget of ``rows`` queries."""
+    expect(0 < k <= index.size, f"k must be in (0, {index.size}]")
+    if _use_fused_kernel(index.metric, k, rows, index.dataset.device):
+        return (_fused_entry_fn, (index.dataset, index.norms),
+                {"k": k, "metric": index.metric})
+    budget_cols = max(128, res.workspace_limit_bytes // (4 * max(rows, 1)))
+    tile = min(db_tile, budget_cols, max(128, index.size))
+    return (_knn_scan_fn, (index.dataset,),
+            {"k": k, "metric": index.metric, "tile": tile})
 
 
 def search(
@@ -176,25 +207,13 @@ def search(
     queries = res.put(queries)
     expect(queries.ndim == 2, "queries must be (q, d)")
     expect(queries.shape[1] == index.dim, "query dim mismatch")
-    expect(0 < k <= index.size, f"k must be in (0, {index.size}]")
-    q_rows = min(queries.shape[0], query_tile)
-    budget_cols = max(128, res.workspace_limit_bytes // (4 * max(q_rows, 1)))
-    db_tile = min(db_tile, budget_cols, max(128, index.size))
+    fn, arrays, static = serving_plan(
+        res, index, k, min(queries.shape[0], query_tile), db_tile)
     if index.dataset.dtype == torch.bfloat16:
         queries = queries.to(torch.bfloat16)
     with tracing.range("raft_tpu.brute_force.search"):
-        if _use_fused_kernel(index.metric, k, queries.shape[0],
-                             index.dataset.device):
-            from raft_tpu_torch.ops.fused_topk import fused_knn
-
-            return fused_knn(queries, index.dataset, k, index.metric,
-                             dataset_norms=index.norms)
-
-        def run(qt, _fw):
-            return _knn_scan_fn(qt, index.dataset, k=k, metric=index.metric,
-                                tile=db_tile)
-
-        return tile_queries(run, queries, None, query_tile)
+        return tile_queries(lambda qt, _fw: fn(qt, *arrays, **static),
+                            queries, None, query_tile)
 
 
 def knn(

@@ -21,15 +21,18 @@
   ``cuda`` for an index on a CUDA device when the kernel applies.
 - **save/load**: the JAX package's serialization v5, byte for byte.
 
-Not ported yet: the serving bodies ``_serve_impl``, ``_serving_fn`` and
-``_search_ragged_fn`` (with the executor) and the IVF-PQ graph source.
+The executor (:mod:`raft_tpu_torch.core.executor`) serves the index
+through :func:`_serving_fn` (the JAX package's ``_serve_impl`` and
+``_serving_fn`` in one). Not ported yet: the ragged serving body
+``_search_ragged_fn`` (with the ragged plan family) and the IVF-PQ graph
+source.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -672,6 +675,87 @@ def beam_search_args(params: CagraSearchParams, index: CagraIndex,
             cfg["w"], cfg["max_iters"], index.metric), kw
 
 
+def _serving_fn(queries, dataset, graph, seed_centers, seed_members,
+                bq_rotation, bq_center_rot, bq_records, filter_words=None, *,
+                query_tile: int, **static):
+    """The serving body: :func:`_serve_tile` over ``query_tile``-row
+    tiles of ``queries`` (a per-query filter sliced with them), over the
+    index's arrays in the order :func:`serving_plan` passes them
+    (``bq_*`` None without the BQ traversal). Seeds are a pure function
+    of each query's content, so one plan serves any mix of request
+    blocks and a row's result does not depend on the rows beside it or on
+    the tiling. The tiles bound the walk's scratch, in a captured graph's
+    pool too. With the ``cuda`` engine on a CUDA index the body has no
+    host sync, so the executor captures it in a CUDA graph; the
+    ``torch`` engine stops its loop on a host read and runs eagerly."""
+    arrays = (dataset, graph, seed_centers, seed_members, bq_rotation,
+              bq_center_rot, bq_records)
+    q = queries.shape[0]
+    if q <= query_tile:
+        return _serve_tile(queries, *arrays, filter_words, **static)
+    outs_d, outs_i = [], []
+    for start in range(0, q, query_tile):
+        fw = filter_words
+        if fw is not None and fw.ndim == 2:
+            fw = fw[start:start + query_tile]
+        d, i = _serve_tile(queries[start:start + query_tile], *arrays, fw,
+                           **static)
+        outs_d.append(d)
+        outs_i.append(i)
+    return torch.cat(outs_d), torch.cat(outs_i)
+
+
+def _serve_tile(queries, dataset, graph, seed_centers, seed_members,
+                bq_rotation, bq_center_rot, bq_records, filter_words, *,
+                engine: str, k: int, L: int, w: int, max_iters: int,
+                n_seeds: int, metric: DistanceType, seed_mode: str,
+                seed_pool: int, bq_bits: int, bq_query_bits: int,
+                bq_epsilon: float):
+    """Seeds, the beam walk and the metric epilog of one query tile, for
+    both engines."""
+    seeds = _make_seeds(dataset, seed_centers, seed_members, queries,
+                        n_seeds, metric, seed_mode, seed_pool)
+    use_bq = bq_records is not None
+    qrot = _rotate_queries(queries, bq_rotation) if use_bq else None
+    if engine == "cuda":
+        d, i, _ = bs.beam_search(
+            queries, dataset, graph, seeds, k, L, w, max_iters, metric,
+            bq_records=bq_records, bq_qrot=qrot, bq_crot=bq_center_rot,
+            bq_bits=bq_bits if use_bq else 0, bq_query_bits=bq_query_bits,
+            bq_epsilon=bq_epsilon)
+        return _epilog(d, metric), i
+    return _search_batch_fn(
+        dataset, graph, queries, seeds, filter_words, None, bq_records, qrot,
+        bq_center_rot, k=k, L=L, w=w, max_iters=max_iters, metric=metric,
+        bq_bits=bq_bits if use_bq else 0, bq_query_bits=bq_query_bits,
+        bq_epsilon=bq_epsilon)
+
+
+def serving_plan(params: CagraSearchParams, index: CagraIndex, k: int,
+                 filter_words=None) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)``: :func:`_serving_fn`, called as
+    ``fn(queries, *arrays, filter_words, **static)``, with what it takes
+    for ``params`` on ``index``: what :func:`search` runs and what the
+    executor's CAGRA plan captures."""
+    engine = _resolve_search_algo(params, index, filter_words)
+    use_bq = _resolve_bq_traversal(params, index)
+    cfg = derive_search_config(params, index, k)
+    static = dict(cfg, engine=engine, metric=index.metric,
+                  seed_mode=_resolve_seed_mode(params, index),
+                  seed_pool=params.seed_pool,
+                  bq_bits=index.bq_bits if use_bq else 0,
+                  bq_query_bits=(auto_query_bits(index.bq_bits)
+                                 if use_bq else 4),
+                  bq_epsilon=params.bq_epsilon,
+                  query_tile=max(1, params.query_tile))
+    arrays = (index.dataset, index.graph, index.seed_centers,
+              index.seed_members,
+              index.bq_rotation if use_bq else None,
+              index.bq_center_rot if use_bq else None,
+              index.bq_records if use_bq else None)
+    return _serving_fn, arrays, static
+
+
 def search(res: Optional[Resources], params: CagraSearchParams,
            index: CagraIndex, queries, k: int,
            sample_filter=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -693,34 +777,9 @@ def search(res: Optional[Resources], params: CagraSearchParams,
         if filter_words.ndim == 2:
             expect(filter_words.shape[0] == queries.shape[0],
                    "per-query BitmapFilter rows must match the query count")
-    algo = _resolve_search_algo(params, index, filter_words)
-
+    fn, arrays, static = serving_plan(params, index, k, filter_words)
     with tracing.range("raft_tpu.cagra.search"):
-        outs_d, outs_i = [], []
-        tile = max(1, params.query_tile)
-        for start in range(0, queries.shape[0], tile):
-            args, kw = beam_search_args(params, index,
-                                        queries[start:start + tile], k)
-            if algo == "cuda":
-                d, i, _ = bs.beam_search(*args, **kw)
-                d = _epilog(d, index.metric)
-            else:
-                fw = filter_words
-                if fw is not None and fw.ndim == 2:
-                    fw = fw[start:start + tile]
-                qt, _, _, seeds, _, L, w, max_iters, _ = args
-                d, i = _search_batch_fn(
-                    index.dataset, index.graph, qt, seeds, fw, None,
-                    kw.get("bq_records"), kw.get("bq_qrot"),
-                    kw.get("bq_crot"), k=k, L=L, w=w, max_iters=max_iters,
-                    metric=index.metric, bq_bits=kw.get("bq_bits", 0),
-                    bq_query_bits=kw.get("bq_query_bits", 4),
-                    bq_epsilon=params.bq_epsilon)
-            outs_d.append(d)
-            outs_i.append(i)
-        if len(outs_d) == 1:
-            return outs_d[0], outs_i[0]
-        return torch.cat(outs_d), torch.cat(outs_i)
+        return fn(queries, *arrays, filter_words, **static)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,11 @@ Two search modes, as in the JAX package:
 
 Supported metrics: L2Expanded / L2SqrtExpanded / InnerProduct.
 
-Not ported yet: ``build_streaming`` (with ``neighbors/_streaming.py``
-and ``io/``), the ragged serving body ``_search_ragged_fn`` (with the
-executor), the distributed bodies, the tiered ``cold_planes``, and the
+The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
+both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up. Not ported yet: ``build_streaming``
+(with ``neighbors/_streaming.py`` and ``io/``), the ragged serving body
+``_search_ragged_fn`` (with the ragged plan family), the distributed
+bodies, the tiered ``cold_planes``, and the
 opt-in ``memwatch.admit`` capacity gate of ``extend`` (with the tiered
 slice).
 """
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +68,7 @@ from raft_tpu_torch.ops.bq_scan import (  # noqa: F401 - estimator_margin
     estimator_margin,
     resolve_bq_engine,
 )
+from raft_tpu_torch.ops.ivf_scan import probe_histogram
 
 # v3: RaBitQ corrections (rnorm/cfac/errw), int32 sign words, optional
 # raw-vector rerank plane — the JAX package's format
@@ -441,53 +444,57 @@ def coarse_probes(index: IvfBqIndex, qf: torch.Tensor, n_probes: int,
     each float32 query probes, with the (q, n_lists) query-center inner
     products and the centers' squared norms (None for IP) it scored
     them by."""
-    ip = qf @ index.centers.T
-    if index.metric == DistanceType.InnerProduct:
+    return _coarse(index.centers, index.metric, qf, n_probes, coarse_algo)
+
+
+def _coarse(centers, metric: DistanceType, qf, n_probes: int,
+            coarse_algo: str):
+    ip = qf @ centers.T
+    if metric == DistanceType.InnerProduct:
         return coarse_select(ip, n_probes, coarse_algo), ip, None
-    c_norms = torch.square(index.centers).sum(dim=1)
+    c_norms = torch.square(centers).sum(dim=1)
     probes = coarse_select(-(c_norms[None, :] - 2.0 * ip), n_probes,
                            coarse_algo)
     return probes, ip, c_norms
 
 
-def _search_impl(queries, index: IvfBqIndex, filter_words, *, n_probes: int,
-                 k: int, coarse_algo: str = "exact",
-                 scan_engine: str = "rank", epsilon: float = 3.0,
-                 query_bits: int = 0):
+def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
+                   indices, data, data_norms, filter_words, *,
+                   metric: DistanceType, n_probes: int, k: int,
+                   coarse_algo: str, scan_engine: str, epsilon: float,
+                   query_bits: int):
     """Coarse select, then the fused estimate-then-rerank scan (``cuda``
     or ``torch``: exact distances) or the rank-major estimate-only scan
-    (``rank``). ``scan_engine`` arrives resolved. Returns ``(best_d,
-    best_i, survivors)``: survivors is the fused scan's (q,) count of
+    (``rank``), over the index's arrays. Returns ``(best_d, best_i,
+    survivors, probes)``: survivors is the fused scan's (q,) count of
     reranked rows, None for ``rank``."""
-    metric = index.metric
     q = queries.shape[0]
     select_min = is_min_close(metric)
     ip_metric = metric == DistanceType.InnerProduct
     qf = queries.to(torch.float32)
-    centers = index.centers
-    probes, ip, c_norms = coarse_probes(index, qf, n_probes, coarse_algo)
+    probes, ip, c_norms = _coarse(centers, metric, qf, n_probes,
+                                  coarse_algo)
     qnorm = None if ip_metric else torch.square(qf).sum(dim=1)
     pad_val = float("inf") if select_min else float("-inf")
     # probe-invariant: q~ = R(q - c) = Rq - Rc needs a rotated-centers table
-    qrot = qf @ index.rotation.T
-    centers_rot = centers @ index.rotation.T
+    qrot = qf @ rotation.T
+    centers_rot = centers @ rotation.T
 
     survivors = None
     if scan_engine != "rank":
-        qb = query_bits if query_bits else auto_query_bits(index.bits)
+        qb = query_bits if query_bits else auto_query_bits(cfac.shape[2])
         best_d, best_i, survivors = bq_list_major_scan(
-            qf, qrot, centers_rot, index.codes, index.rnorm, index.cfac,
-            index.errw, index.indices, index.data, index.data_norms, probes,
-            filter_words, k=k, metric=metric, epsilon=epsilon,
-            engine=scan_engine, query_bits=qb)
+            qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices, data,
+            data_norms, probes, filter_words, k=k, metric=metric,
+            epsilon=epsilon, engine=scan_engine, query_bits=qb)
     else:
         best_d = qf.new_full((q, k), pad_val)
         best_i = torch.full((q, k), -1, dtype=torch.int32, device=qf.device)
         for rank in range(n_probes):
             dist, row_ids = score_probe(
                 probes[:, rank], qrot, None if ip_metric else centers_rot,
-                ip, c_norms, qnorm, index.codes, index.rnorm, index.cfac,
-                index.indices, ip_metric, pad_val)
+                ip, c_norms, qnorm, codes, rnorm, cfac, indices, ip_metric,
+                pad_val)
             if filter_words is not None:
                 ok = test_filter(filter_words, row_ids) & (row_ids >= 0)
                 dist = torch.where(ok, dist, torch.full_like(dist, pad_val))
@@ -496,7 +503,53 @@ def _search_impl(queries, index: IvfBqIndex, filter_words, *, n_probes: int,
     if metric == DistanceType.L2SqrtExpanded:
         best_d = torch.where(torch.isfinite(best_d),
                              torch.sqrt(torch.clamp(best_d, min=0.0)), best_d)
-    return best_d, best_i, survivors
+    return best_d, best_i, survivors, probes
+
+
+def _search_impl_fn(queries, centers, rotation, codes, rnorm, cfac, errw,
+                    indices, data, data_norms, filter_words,
+                    probe_counts=None, n_valid=None, *, n_probes: int,
+                    k: int, metric: DistanceType, coarse_algo: str = "exact",
+                    scan_engine: str = "rank", epsilon: float = 3.0,
+                    query_bits: int = 0):
+    """The serving body: :func:`_search_arrays` in the order
+    :func:`serving_plan` passes the arrays, returning ``(distances,
+    indices)``. With ``probe_counts``, an (n_lists,) int32 probe plane,
+    the batch's selected lists are added to it (rows at and past
+    ``n_valid`` left out) and the new plane is a third output. The CUDA
+    and ``rank`` engines have no host sync on a CUDA index, so the
+    executor captures the body in a CUDA graph."""
+    best_d, best_i, _, probes = _search_arrays(
+        queries, centers, rotation, codes, rnorm, cfac, errw, indices, data,
+        data_norms, filter_words, metric=metric, n_probes=n_probes, k=k,
+        coarse_algo=coarse_algo, scan_engine=scan_engine, epsilon=epsilon,
+        query_bits=query_bits)
+    if probe_counts is not None:
+        return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
+    return best_d, best_i
+
+
+def serving_plan(params: IvfBqSearchParams, index: IvfBqIndex, k: int,
+                 filter_words=None) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)``: the body a query block runs, called as
+    ``fn(queries, *arrays, filter_words, **static)``, with ``n_probes``
+    clamped to the index and the scan engine and query bits resolved."""
+    expect(index.max_list_size > 0, "index is empty — extend() it first")
+    expect(params.coarse_algo in ("exact", "approx"),
+           f"coarse_algo must be 'exact' or 'approx', got "
+           f"{params.coarse_algo!r}")
+    expect(params.query_bits == 0 or 1 <= params.query_bits <= 8,
+           f"query_bits must be 0 (auto) or 1..8, got {params.query_bits}")
+    engine = resolve_bq_engine(params.scan_engine, data=index.data,
+                               filter_words=filter_words, k=k)
+    static = {"n_probes": min(params.n_probes, index.n_lists), "k": k,
+              "metric": index.metric, "coarse_algo": params.coarse_algo,
+              "scan_engine": engine, "epsilon": params.epsilon,
+              "query_bits": params.query_bits or auto_query_bits(index.bits)}
+    arrays = (index.centers, index.rotation, index.codes, index.rnorm,
+              index.cfac, index.errw, index.indices, index.data,
+              index.data_norms)
+    return _search_impl_fn, arrays, static
 
 
 def search(res: Optional[Resources], params: IvfBqSearchParams,
@@ -510,27 +563,13 @@ def search(res: Optional[Resources], params: IvfBqSearchParams,
     queries = res.put(queries)
     expect(queries.ndim == 2 and queries.shape[1] == index.dim,
            "queries must be (q, dim)")
-    expect(index.max_list_size > 0, "index is empty — extend() it first")
-    n_probes = min(params.n_probes, index.n_lists)
-    expect(params.coarse_algo in ("exact", "approx"),
-           f"coarse_algo must be 'exact' or 'approx', got "
-           f"{params.coarse_algo!r}")
-    expect(params.query_bits == 0 or 1 <= params.query_bits <= 8,
-           f"query_bits must be 0 (auto) or 1..8, got {params.query_bits}")
     filter_words = resolve_filter_words(sample_filter)
     if filter_words is not None:
         filter_words = filter_words.to(res.device)
-    scan_engine = resolve_bq_engine(params.scan_engine, data=index.data,
-                                    filter_words=filter_words, k=k)
+    fn, arrays, static = serving_plan(params, index, k, filter_words)
     with tracing.range("raft_tpu.ivf_bq.search"):
-        def run(qt, fw):
-            d, i, _ = _search_impl(
-                qt, index, fw, n_probes=n_probes, k=k,
-                coarse_algo=params.coarse_algo, scan_engine=scan_engine,
-                epsilon=params.epsilon, query_bits=params.query_bits)
-            return d, i
-
-        return tile_queries(run, queries, filter_words, query_tile)
+        return tile_queries(lambda qt, fw: fn(qt, *arrays, fw, **static),
+                            queries, filter_words, query_tile)
 
 
 # ---------------------------------------------------------------------------

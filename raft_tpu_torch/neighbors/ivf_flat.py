@@ -10,14 +10,16 @@ coarse GEMM + exact top-``n_probes`` over the centers, then the
 list-major probe scan (:mod:`raft_tpu_torch.ops.ivf_scan`: the CUDA
 kernel on the card, the plain engine on the CPU), then the metric epilog.
 
-Not ported yet: ``build_streaming``, the ragged serving body
-``_search_ragged_fn`` and the rank-major scan engine.
+The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
+both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up. Not ported yet: ``build_streaming``,
+the ragged serving body ``_search_ragged_fn`` and the rank-major scan
+engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +49,11 @@ from raft_tpu_torch.neighbors._packing import (
 )
 from raft_tpu_torch.neighbors.ann_types import IndexParams, SearchParams
 from raft_tpu_torch.neighbors.filters import resolve_filter_words
-from raft_tpu_torch.ops.ivf_scan import list_major_scan, resolve_scan_engine
+from raft_tpu_torch.ops.ivf_scan import (
+    list_major_scan,
+    probe_histogram,
+    resolve_scan_engine,
+)
 
 _SERIALIZATION_VERSION = 4  # the JAX package's (and the reference's) v4
 
@@ -330,16 +336,50 @@ def metric_epilog(qf, best_d, metric: DistanceType) -> torch.Tensor:
     return best_d
 
 
-def _search_impl(queries, index: IvfFlatIndex, filter_words, *,
-                 n_probes: int, k: int, coarse_algo: str, scan_engine: str):
-    """Coarse select + list-major probe scan + metric epilog."""
+def _search_impl_fn(queries, centers, center_norms, data, data_norms,
+                    indices, filter_words, probe_counts=None, n_valid=None,
+                    *, n_probes: int, k: int, metric: DistanceType,
+                    coarse_algo: str = "exact", scan_engine: str = "torch"):
+    """The serving body: coarse select + list-major probe scan + metric
+    epilog over the index's arrays, in the order the executor's plan
+    passes them.
+
+    ``probe_counts`` optionally provides the (n_lists,) int32 probe
+    plane: the batch's selected lists are added to it
+    (:func:`raft_tpu_torch.ops.ivf_scan.probe_histogram`, rows at and
+    past ``n_valid`` left out) and the new plane is returned as a third
+    output. The results never read it. ``scan_engine`` arrives resolved.
+    On a CUDA index with the ``cuda`` engine the body has no host sync,
+    so the executor captures it in a CUDA graph."""
     qf = queries.to(torch.float32)
-    probes = coarse_probes(qf, index.centers, index.center_norms,
-                           index.metric, n_probes, coarse_algo)
+    probes = coarse_probes(qf, centers, center_norms, metric, n_probes,
+                           coarse_algo)
     best_d, best_i = list_major_scan(
-        qf, index.data, index.data_norms, index.indices, probes,
-        filter_words, k=k, metric=index.metric, engine=scan_engine)
-    return metric_epilog(qf, best_d, index.metric), best_i
+        qf, data, data_norms, indices, probes, filter_words, k=k,
+        metric=metric, engine=scan_engine)
+    best_d = metric_epilog(qf, best_d, metric)
+    if probe_counts is not None:
+        return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
+    return best_d, best_i
+
+
+def serving_plan(params: IvfFlatSearchParams, index: IvfFlatIndex, k: int,
+                 filter_words=None) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)``: the body a query block runs, called as
+    ``fn(queries, *arrays, filter_words, **static)``, with ``n_probes``
+    clamped to the index and the scan engine resolved."""
+    expect(index.max_list_size > 0, "index is empty — extend() it first")
+    expect(params.coarse_algo in ("exact", "approx"),
+           f"coarse_algo must be 'exact' or 'approx', got "
+           f"{params.coarse_algo!r}")
+    engine = resolve_scan_engine(params.scan_engine, data=index.data,
+                                 filter_words=filter_words, k=k)
+    static = {"n_probes": min(params.n_probes, index.n_lists), "k": k,
+              "metric": index.metric, "coarse_algo": params.coarse_algo,
+              "scan_engine": engine}
+    arrays = (index.centers, index.center_norms, index.data,
+              index.data_norms, index.indices)
+    return _search_impl_fn, arrays, static
 
 
 def search(res: Optional[Resources], params: IvfFlatSearchParams,
@@ -351,23 +391,13 @@ def search(res: Optional[Resources], params: IvfFlatSearchParams,
     queries = res.put(queries)
     expect(queries.ndim == 2 and queries.shape[1] == index.dim,
            "queries must be (q, dim)")
-    expect(index.max_list_size > 0, "index is empty — extend() it first")
-    expect(params.coarse_algo in ("exact", "approx"),
-           f"coarse_algo must be 'exact' or 'approx', got "
-           f"{params.coarse_algo!r}")
-    n_probes = min(params.n_probes, index.n_lists)
     filter_words = resolve_filter_words(sample_filter)
     if filter_words is not None:
         filter_words = filter_words.to(res.device)
-    scan_engine = resolve_scan_engine(
-        params.scan_engine, data=index.data, filter_words=filter_words, k=k)
+    fn, arrays, static = serving_plan(params, index, k, filter_words)
     with tracing.range("raft_tpu.ivf_flat.search"):
-        def run(qt, fw):
-            return _search_impl(qt, index, fw, n_probes=n_probes, k=k,
-                                coarse_algo=params.coarse_algo,
-                                scan_engine=scan_engine)
-
-        return tile_queries(run, queries, filter_words, query_tile)
+        return tile_queries(lambda qt, fw: fn(qt, *arrays, fw, **static),
+                            queries, filter_words, query_tile)
 
 
 # ---------------------------------------------------------------------------

@@ -23,16 +23,20 @@ package donates its buffers for the same effect), replaces the slot maps
 and bumps ``generation`` under the container's swap lock. The container
 is mutable for that reason, unlike the frozen index dataclasses.
 
-Not ported yet: the PQ and BQ tiered families, the ragged serving body,
-and the executor hook of ``apply_plan`` (they wait for IVF-PQ and the
-executor).
+The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
+both run :func:`_tiered_search_fn` as :func:`serving_plan` sets it up,
+one placement generation a dispatch; the executor runs it eagerly on
+the card (the staging plan is read on the host). Not ported
+yet: the PQ and BQ tiered families, the ragged serving body, and the
+executor hook of ``apply_plan`` (they wait for IVF-PQ and the ragged
+plan family).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -406,30 +410,58 @@ def apply_plan(tiered, promotions, demotions, width: int,
 # ---------------------------------------------------------------------------
 
 
-def _tiered_search(queries, tiered: TieredIvf, hot_data, cold_data,
-                   hot_slot_map, cold_slot_map, filter_words,
-                   probe_counts=None, n_valid=None, *, n_probes: int, k: int,
-                   coarse_algo: str, scan_engine: str,
-                   workspace_bytes: Optional[int] = None):
+def _tiered_search_fn(queries, centers, center_norms, hot_data, cold_data,
+                      hot_slot_map, cold_slot_map, data_norms, indices,
+                      filter_words, probe_counts=None, n_valid=None, *,
+                      n_probes: int, k: int, metric: DistanceType,
+                      coarse_algo: str, scan_engine: str,
+                      workspace_bytes: Optional[int] = None):
     """Coarse select + tiered probe scan + metric epilog — the serving
-    body. The coarse stage and epilog are ``ivf_flat.search``'s; only the
-    scan is the tiered one, so results equal the all-device index's bit
-    for bit. With ``probe_counts`` the (n_lists,) traffic plane is
+    body, over one placement generation's arrays in the order the
+    executor's plan passes them (the caller holds the container's swap
+    lock from its :meth:`TieredIvf.tier_arrays` snapshot through this
+    call). The coarse stage and epilog are ``ivf_flat.search``'s; only
+    the scan is the tiered one, so results equal the all-device index's
+    bit for bit. With ``probe_counts`` the (n_lists,) traffic plane is
     returned too, with this batch's probes added (rows at and past
     ``n_valid`` left out). ``scan_engine`` arrives resolved;
-    ``workspace_bytes`` sizes the kernel's staging ring."""
+    ``workspace_bytes`` sizes the kernel's staging ring. The kernel's
+    staging plan is read on the host, so the executor runs this body
+    eagerly, never in a CUDA graph."""
     qf = queries.to(torch.float32)
-    probes = coarse_probes(qf, tiered.centers, tiered.center_norms,
-                           tiered.metric, n_probes, coarse_algo)
+    probes = coarse_probes(qf, centers, center_norms, metric, n_probes,
+                           coarse_algo)
     best_d, best_i = tiered_list_major_scan(
-        qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
-        tiered.data_norms, tiered.indices, probes, filter_words, k=k,
-        metric=tiered.metric, engine=scan_engine,
-        workspace_bytes=workspace_bytes)
-    best_d = metric_epilog(qf, best_d, tiered.metric)
+        qf, hot_data, cold_data, hot_slot_map, cold_slot_map, data_norms,
+        indices, probes, filter_words, k=k, metric=metric,
+        engine=scan_engine, workspace_bytes=workspace_bytes)
+    best_d = metric_epilog(qf, best_d, metric)
     if probe_counts is not None:
         return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
     return best_d, best_i
+
+
+def serving_plan(params: TieredSearchParams, tiered: TieredIvf, k: int,
+                 filter_words=None, workspace_bytes: Optional[int] = None
+                 ) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)``: the body a query block runs, called as
+    ``fn(queries, *arrays, filter_words, **static)``, over the placement
+    generation :meth:`TieredIvf.tier_arrays` holds now. The caller holds
+    ``tiered._swap_lock`` from this call through the last dispatch of the
+    plan."""
+    expect(tiered.max_list_size > 0, "tiered index is empty")
+    expect(params.coarse_algo in ("exact", "approx"),
+           f"coarse_algo must be 'exact' or 'approx', got "
+           f"{params.coarse_algo!r}")
+    hot_data, cold_data, hot_map, cold_map = tiered.tier_arrays()
+    engine = resolve_tier_engine(params.scan_engine, hot_data=hot_data,
+                                 filter_words=filter_words, k=k)
+    static = {"n_probes": min(params.n_probes, tiered.n_lists), "k": k,
+              "metric": tiered.metric, "coarse_algo": params.coarse_algo,
+              "scan_engine": engine, "workspace_bytes": workspace_bytes}
+    arrays = (tiered.centers, tiered.center_norms, hot_data, cold_data,
+              hot_map, cold_map, tiered.data_norms, tiered.indices)
+    return _tiered_search_fn, arrays, static
 
 
 def search(res: Optional[Resources], params: TieredSearchParams,
@@ -443,24 +475,13 @@ def search(res: Optional[Resources], params: TieredSearchParams,
     queries = res.put(queries)
     expect(queries.ndim == 2 and queries.shape[1] == tiered.dim,
            "queries must be (q, dim)")
-    expect(params.coarse_algo in ("exact", "approx"),
-           f"coarse_algo must be 'exact' or 'approx', got "
-           f"{params.coarse_algo!r}")
-    n_probes = min(params.n_probes, tiered.n_lists)
     filter_words = resolve_filter_words(sample_filter)
     if filter_words is not None:
         filter_words = filter_words.to(res.device)
     with tiered._swap_lock:
-        hot_data, cold_data, hot_map, cold_map = tiered.tier_arrays()
-        scan_engine = resolve_tier_engine(
-            params.scan_engine, hot_data=hot_data,
-            filter_words=filter_words, k=k)
+        fn, arrays, static = serving_plan(params, tiered, k, filter_words,
+                                          res.workspace_limit_bytes)
         with tracing.range("raft_tpu.tiered.search"):
-            def run(qt, fw):
-                return _tiered_search(
-                    qt, tiered, hot_data, cold_data, hot_map, cold_map, fw,
-                    n_probes=n_probes, k=k, coarse_algo=params.coarse_algo,
-                    scan_engine=scan_engine,
-                    workspace_bytes=res.workspace_limit_bytes)
-
-            return tile_queries(run, queries, filter_words, query_tile)
+            return tile_queries(
+                lambda qt, fw: fn(qt, *arrays, fw, **static), queries,
+                filter_words, query_tile)

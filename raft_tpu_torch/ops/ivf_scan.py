@@ -87,8 +87,14 @@ def probe_histogram(probes: torch.Tensor, counts: torch.Tensor,
         ids = torch.where(valid[:, None], ids, n_lists)
     ids = ids.reshape(-1)
     ids = torch.where(ids < 0, ids + n_lists, ids)
-    ids = ids[(ids >= 0) & (ids < n_lists)]
-    return counts + torch.bincount(ids, minlength=n_lists).to(counts.dtype)
+    # every dropped id lands in one extra bin: no data-dependent shape
+    # (a mask or bincount reads the data on the host), so the plane
+    # updates inside a captured CUDA graph
+    ids = torch.where((ids >= 0) & (ids < n_lists), ids,
+                      torch.full_like(ids, n_lists))
+    hist = torch.zeros(n_lists + 1, dtype=torch.int64, device=ids.device)
+    hist.scatter_add_(0, ids, torch.ones_like(ids))
+    return counts + hist[:n_lists].to(counts.dtype)
 
 
 def ragged_row_probes(sizes, n_probes_list, tile: int):
@@ -125,10 +131,14 @@ def unique_lists(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
     first = torch.ones_like(flat, dtype=torch.bool)
     first[1:] = flat[1:] != flat[:-1]
     rank = torch.cumsum(first.to(torch.int64), 0) - 1
-    # one extra slot takes the values past the cap, then is dropped
+    # every value is scattered: a first occurrence to its rank, a repeat
+    # (and a rank past the cap) to one extra slot that is then dropped.
+    # No mask indexing, so no data-dependent shape: the union is planned
+    # on the device without a host sync (and inside a CUDA graph)
+    slot = torch.where(first, rank.clamp(max=cap), torch.full_like(rank, cap))
     uniq = torch.full((cap + 1,), n_lists, dtype=torch.int64,
                       device=probes.device)
-    uniq[rank[first].clamp(max=cap)] = flat[first]
+    uniq.scatter_(0, slot, flat)
     return uniq[:cap].to(torch.int32)
 
 

@@ -11,7 +11,9 @@ pure function of its inputs. :func:`raft_tpu_torch.neighbors.tiered
 .apply_plan` executes it.
 
 Not ported yet: ``TierManager``, which runs epochs from the executor's
-probe accounting (it waits for the executor).
+probe accounting (:meth:`raft_tpu_torch.core.executor.SearchExecutor
+.probe_frequencies`), with the prefetcher (ROADMAP Queue 1, the tiered
+remainder).
 """
 
 from __future__ import annotations

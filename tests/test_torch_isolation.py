@@ -58,7 +58,9 @@ def test_import_leaves_jax_unloaded():
             "raft_tpu_torch.neighbors.cluster_join, "
             "raft_tpu_torch.neighbors._exact, raft_tpu_torch.ops.beam_search, "
             "raft_tpu_torch.neighbors.tiered, raft_tpu_torch.ops.tier_scan, "
-            "raft_tpu_torch.core.memwatch, raft_tpu_torch.serving.placement; "
+            "raft_tpu_torch.core.memwatch, raft_tpu_torch.serving.placement, "
+            "raft_tpu_torch.core.executor, raft_tpu_torch.serving.batcher, "
+            "raft_tpu_torch.serving.harness, raft_tpu_torch.serving.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'raft_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -228,6 +228,26 @@ def test_unique_lists_and_ragged_front_match_reference():
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["all_lists_and_sentinel", "out_of_range",
+                                  "one_row"])
+def test_unique_lists_past_the_cap_matches_reference(case):
+    """More distinct values than the cap ``min(n_lists, q * n_probes)``:
+    every list plus the sentinel, ids past the sentinel, or a single row
+    whose cap is its probe count; the values past the cap are dropped."""
+    n_lists = 4
+    if case == "all_lists_and_sentinel":
+        probes = np.array([[0, 1, 2], [3, 4, 4], [2, 0, 4]], np.int32)
+    elif case == "out_of_range":
+        probes = np.array([[7, 1, 3], [0, 2, 6], [5, 4, 1]], np.int32)
+    else:
+        n_lists = 9
+        probes = np.array([[8, 2, 5, 9, 0]], np.int32)
+    want = np.asarray(j_scan.unique_lists(jnp.asarray(probes), n_lists))
+    got = t_scan.unique_lists(torch.from_numpy(probes), n_lists)
+    assert got.shape == (min(n_lists, probes.size),)
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_resolve_scan_engine():
     data = torch.zeros((2, 8, 4))
     assert t_scan.resolve_scan_engine("auto", data=data) == "torch"

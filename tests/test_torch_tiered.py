@@ -128,10 +128,9 @@ def test_placement_epoch_moves_hot_traffic_and_keeps_results(data,
     targets = [int(t.cold_lists[1]), int(t.cold_lists[4])]
     traffic = flat.centers[targets].repeat(20, 1)
     window = torch.zeros(N_LISTS, dtype=torch.int32)
-    hot, cold, hmap, cmap = t.tier_arrays()
-    _, _, window = tiered._tiered_search(
-        traffic, t, hot, cold, hmap, cmap, None, window, n_probes=1, k=10,
-        coarse_algo="exact", scan_engine="torch")
+    fn, arrays, static = tiered.serving_plan(
+        tiered.TieredSearchParams(n_probes=1, scan_engine="torch"), t, 10)
+    _, _, window = fn(traffic, *arrays, None, window, **static)
     assert int(window.sum()) == traffic.shape[0]
     plan = plan_epoch(window.numpy(), t.hot_lists, t.cold_lists,
                       max_swaps=4)
@@ -279,12 +278,11 @@ def test_capacity_gate_refuses_the_hot_tier(jax_indexes):
 def test_probe_histogram_window_of_the_serving_body(data, jax_indexes):
     _, q = data
     flat, t = _pair(jax_indexes[DistanceType.L2Expanded], "alternate")
-    hot, cold, hmap, cmap = t.tier_arrays()
+    fn, arrays, static = tiered.serving_plan(
+        tiered.TieredSearchParams(n_probes=4, scan_engine="torch"), t, 10)
     counts = torch.zeros(N_LISTS, dtype=torch.int32)
-    *_, counts = tiered._tiered_search(
-        torch.from_numpy(q), t, hot, cold, hmap, cmap, None, counts,
-        n_valid=30, n_probes=4, k=10, coarse_algo="exact",
-        scan_engine="torch")
+    *_, counts = fn(torch.from_numpy(q), *arrays, None, counts, n_valid=30,
+                    **static)
     probes = ivf_flat.coarse_probes(torch.from_numpy(q[:30]), flat.centers,
                                     flat.center_norms, flat.metric, 4,
                                     "exact")
