@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,serve,times]
+    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,serve,ragged,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -127,7 +127,25 @@ non-zero exit (nothing is caught and passed over):
             the direct request's device-busy share (torch.profiler) and
             the captured request's graph replay time (CUDA events). Its
             launches (replays included) add to the kernels line's.
-6. times    per kernel at the main path's shapes: kernel ms (CUDA
+6. ragged   the ragged plan family on serve's indexes: an executor a path
+            with packed tiles of 256 rows (IVF-Flat also 64), IVF-Flat
+            n_probes {20, 24, 32}, IVF-BQ {72, 96, 128}, CAGRA itopk 64,
+            width 4, max_iterations {0, 48, 64}, tiered (eager) like
+            IVF-Flat, k {10, 16}: one params class a path. warmup_ragged
+            builds one entry a tile; 200 requests of 1-40 rows (from
+            --seed) are packed into tiles by a ragged DynamicBatcher's
+            grouping, each equal bit for bit to its solo bucketed search
+            (IVF-BQ also held against the solo search at k 16 sliced to
+            k); no capture after warmup; the packed dispatches' launches
+            equal their replays' record; graph pools against serve's
+            ladders, the packed tile's replay against the bucketed
+            256-row replay, a full tile of requests packed against one by
+            one; then a DynamicBatcher on IVF-Flat, bucketed against
+            ragged, under the same mixed load from four threads for 2 s
+            at the bucketed executor's one-at-a-time rate (p50/p99, rows
+            a dispatch, pad waste, dispatches), every result equal to
+            its direct search. Its launches add to the kernels line's.
+7. times    per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -146,7 +164,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-7. profile  (not in the default run) torch.profiler over five requests
+8. profile  (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -162,6 +180,8 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import io
 import json
 import os
@@ -1750,6 +1770,8 @@ def phase_serve(torch, state: dict) -> None:
             fail(f"serve {label}: {ex.stats.compile_count - built} captures "
                  "after warmup")
         executors[label] = ex
+        state.setdefault("serve_pools", {})[label] = sum(
+            c["pool_bytes"] for c in costs)
         log(f"[serve] {label}: warmup captured {built} plans in "
             f"{warm_s:.2f} s (capture {sum(c['capture_seconds'] for c in costs):.2f} s, "
             f"graph pools {sum(c['pool_bytes'] for c in costs)} bytes "
@@ -1815,9 +1837,109 @@ def phase_serve(torch, state: dict) -> None:
         state["launches"][name] = state["launches"].get(name, 0) + \
             served[name]
     serve_times(torch, state, configs, executors)
+    state["serve_executors"] = executors
 
 
 BATCHER_SECONDS = 2.0
+
+
+def _offer_load(torch, b, draw, submit, rate: float, seed: int) -> dict:
+    """Offer BATCHER_SECONDS of open-loop load at ``rate`` requests/s to
+    the batcher ``b`` from four threads (thread t draws its requests with
+    ``draw(rng)`` from ``seed + t``; ``submit(req)`` returns a handle),
+    wait for every result, close the batcher, and return the requests
+    ``{(thread, ordinal): (req, result)}``, the raw end-to-end latencies
+    (a tap on ``metrics.observe_stage``), the wall seconds, the offered
+    rate and the kernel launches of the span."""
+    import threading
+
+    from raft_tpu_torch.serving import MonotonicClock, metrics
+    from raft_tpu_torch.serving.harness import burst_schedule, drive_open_loop
+
+    n_thread = int(BATCHER_SECONDS * rate / 4)
+    period = 4.0 / rate
+    e2e: list = []
+    submitted: list = []
+    handles: dict = {}
+    observe = metrics.observe_stage
+
+    def tap(name, seconds):
+        if name == metrics.E2E:
+            e2e.append(seconds)
+        observe(name, seconds)
+
+    clock = MonotonicClock()
+    start = clock.now() + 0.01
+
+    def feed(t: int) -> None:
+        rng = np.random.default_rng(seed + t)
+
+        def sub(ordinal, now):
+            req = draw(rng)
+            submitted.append(now)
+            h = submit(req)
+            handles[(t, ordinal)] = (req, h)
+            return h
+
+        drive_open_loop(sub, burst_schedule(
+            n_thread, 1, period, start_s=start + t * period / 4), clock)
+
+    metrics.observe_stage = tap
+    reset_launches()
+    threads = [threading.Thread(target=feed, args=(t,)) for t in range(4)]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        out = {key: (req, h.result(timeout=60))
+               for key, (req, h) in handles.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        b.close()
+    finally:
+        metrics.observe_stage = observe
+    if len(e2e) != len(out):
+        fail(f"batcher: {len(e2e)} latencies for {len(out)} requests")
+    return {"out": out, "e2e": e2e, "wall": wall, "counts": counts,
+            "offered": (len(submitted) - 1) / (max(submitted)
+                                               - min(submitted)),
+            "p50_ms": float(np.percentile(e2e, 50)) * 1e3,
+            "p99_ms": float(np.percentile(e2e, 99)) * 1e3}
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """The list of Python's collector pauses (seconds) inside the block."""
+    pauses: list = []
+    started: list = []
+
+    def callback(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append(time.perf_counter() - started.pop())
+
+    gc.callbacks.append(callback)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(callback)
+
+
+def _serial_rate(torch, search, mix) -> float:
+    """Requests/s at which ``search(req)`` serves ``mix`` one at a time,
+    each ending in a synchronize (20 warm-up requests first)."""
+    for req in mix[:20]:
+        search(req)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for req in mix:
+        search(req)
+        torch.cuda.synchronize()
+    return len(mix) / (time.perf_counter() - t0)
 
 
 def serve_batcher(torch, state: dict, ex) -> dict:
@@ -1831,17 +1953,9 @@ def serve_batcher(torch, state: dict, ex) -> dict:
     Prints the offered and served rates, the end-to-end latency
     quantiles of the raw samples (and the log2 histogram's estimates)
     and the batch occupancy. Returns the span's launch counts."""
-    import threading
-
     from raft_tpu_torch.core import tracing
     from raft_tpu_torch.neighbors import ivf_flat
-    from raft_tpu_torch.serving import (
-        BatcherConfig,
-        DynamicBatcher,
-        MonotonicClock,
-        metrics,
-    )
-    from raft_tpu_torch.serving.harness import burst_schedule, drive_open_loop
+    from raft_tpu_torch.serving import BatcherConfig, DynamicBatcher, metrics
 
     res, queries, index = state["res"], state["queries"], state["index"]
     sp = ivf_flat.IvfFlatSearchParams(n_probes=32)
@@ -1851,92 +1965,42 @@ def serve_batcher(torch, state: dict, ex) -> dict:
         return m, int(rng.integers(0, N_QUERIES - m + 1))
 
     rng = np.random.default_rng(state["seed"] + 99)
-    mix = [draw(rng) for _ in range(200)]
-    for m, at in mix[:20]:
-        ex.search(index, queries[at:at + m], K, params=sp)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for m, at in mix:
-        ex.search(index, queries[at:at + m], K, params=sp)
-        torch.cuda.synchronize()
-    rate = len(mix) / (time.perf_counter() - t0)
-    n_thread = int(BATCHER_SECONDS * rate / 4)
-    period = 4.0 / rate
+    rate = _serial_rate(torch, lambda r: ex.search(
+        index, queries[r[1]:r[1] + r[0]], K, params=sp),
+        [draw(rng) for _ in range(200)])
 
     metrics.reset()
     built = ex.stats.compile_count
     calls0 = tracing.get_counter("serving.execute.calls")
     per_replay = {e.launches.get("list_major_scan")
                   for e in ex._cache.values()}
-    e2e: list = []
-    observe = metrics.observe_stage
-
-    def tap(name, seconds):
-        if name == metrics.E2E:
-            e2e.append(seconds)
-        observe(name, seconds)
-
-    metrics.observe_stage = tap
     b = DynamicBatcher(ex, BatcherConfig(max_wait_s=0.002,
                                          full_batch_rows=256))
-    clock = MonotonicClock()
-    out: dict = {}
-    submitted: list = []
-    start = clock.now() + 0.01
-
-    def feed(t: int) -> None:
-        rng = np.random.default_rng(state["seed"] + 100 + t)
-
-        def submit(ordinal, now):
-            m, at = draw(rng)
-            out[(t, ordinal)] = (at, m)
-            submitted.append(now)
-            return b.submit(index, queries[at:at + m], K, params=sp)
-
-        handles = drive_open_loop(submit, burst_schedule(
-            n_thread, 1, period, start_s=start + t * period / 4), clock)
-        for o, h in enumerate(handles):
-            out[(t, o)] = out[(t, o)] + (h,)
-
-    reset_launches()
-    threads = [threading.Thread(target=feed, args=(t,)) for t in range(4)]
-    t0 = time.perf_counter()
-    try:
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        results = {key: v[2].result(timeout=60) for key, v in out.items()}
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _launch_counts()
-        b.close()
-    finally:
-        metrics.observe_stage = observe
+    run = _offer_load(torch, b, draw, lambda r: b.submit(
+        index, queries[r[1]:r[1] + r[0]], K, params=sp), rate,
+        state["seed"] + 100)
+    counts, out, wall = run["counts"], run["out"], run["wall"]
     calls = tracing.get_counter("serving.execute.calls") - calls0
     if len(per_replay) != 1 or counts != {
             "list_major_scan": int(calls) * per_replay.pop()}:
         fail(f"serve batcher: {int(calls)} dispatches launched {counts}")
-    for key, (at, m, _) in out.items():
-        _served_equal(torch, "batcher", results[key], ivf_flat.search(
+    for (m, at), got in out.values():
+        _served_equal(torch, "batcher", got, ivf_flat.search(
             res, sp, index, queries[at:at + m], K))
     if ex.stats.compile_count != built:
         fail("serve batcher: plans captured under load")
-    if len(e2e) != len(out):
-        fail(f"serve batcher: {len(e2e)} latencies for {len(out)} requests")
     hist = metrics.snapshot()["histograms"][metrics.E2E]
     occ = metrics.occupancy()
-    offered = (len(submitted) - 1) / (max(submitted) - min(submitted))
-    p50, p99 = (float(np.percentile(e2e, p)) * 1e3 for p in (50, 99))
+    p50, p99 = run["p50_ms"], run["p99_ms"]
     state["batcher"] = dict(
-        serial_rps=rate, offered_rps=offered, served_rps=len(out) / wall,
-        requests=len(out), p50_ms=p50, p99_ms=p99,
-        hist_p50_ms=hist["p50"] * 1e3, hist_p99_ms=hist["p99"] * 1e3,
-        occupancy=occ)
+        serial_rps=rate, offered_rps=run["offered"],
+        served_rps=len(out) / wall, requests=len(out), p50_ms=p50,
+        p99_ms=p99, hist_p50_ms=hist["p50"] * 1e3,
+        hist_p99_ms=hist["p99"] * 1e3, occupancy=occ)
     log(f"[serve] batcher: one request at a time the captured executor "
         f"serves {rate:.1f} requests/s of 1-40 rows; that rate offered "
         f"from 4 threads for {BATCHER_SECONDS} s: {len(out)} requests "
-        f"submitted at {offered:.1f}/s, all answered in {wall:.3f} s "
+        f"submitted at {run['offered']:.1f}/s, all answered in {wall:.3f} s "
         f"({len(out) / wall:.1f}/s), each equal to its direct search; "
         f"e2e latency p50 {p50:.3f} ms p99 {p99:.3f} ms (raw samples; "
         f"the log2 histogram estimates {hist['p50'] * 1e3:.3f} / "
@@ -1945,6 +2009,347 @@ def serve_batcher(torch, state: dict, ex) -> dict:
         f"{occ['rows_per_batch']:.1f} rows a batch; launches {counts} "
         f"= {int(calls)} replays; no capture under load")
     return counts
+
+
+RAGGED_TILE, RAGGED_TILE_SMALL = 256, 64
+RAGGED_KS = (10, 16)
+
+
+def _ragged_configs(state: dict) -> list:
+    """(label, index, the (params, k) mix of one params class, the
+    executor's tiles, the serve phase's bucketed executor of the same
+    index) of each ragged path, on the main phase's indexes: IVF-Flat
+    n_probes {20, 24, 32} (class 32), IVF-BQ {72, 96, 128} (class 128),
+    CAGRA itopk 64, width 4, max_iterations {0 (40), 48, 64} (class 64),
+    tiered like IVF-Flat; k {10, 16} (class 16) everywhere."""
+    from raft_tpu_torch.neighbors import cagra, ivf_bq, ivf_flat, tiered
+
+    def mix(params):
+        return [(p, k) for p in params for k in RAGGED_KS]
+
+    big = {"ragged_tile": RAGGED_TILE}
+    return [
+        ("ivf_flat", state["index"], mix(
+            ivf_flat.IvfFlatSearchParams(n_probes=n) for n in (20, 24, 32)),
+         dict(big, ragged_tile_small=RAGGED_TILE_SMALL),
+         "ivf_flat n_probes=32"),
+        ("ivf_bq", state["bq_index"], mix(
+            ivf_bq.IvfBqSearchParams(n_probes=n) for n in (72, 96, 128)),
+         big, "ivf_bq n_probes=128"),
+        ("cagra", state["cagra_index"], mix(
+            cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                    bq_traversal="off", max_iterations=m)
+            for m in (0, 48, 64)), big, "cagra itopk=64"),
+        ("tiered", state["tiered"], mix(
+            tiered.TieredSearchParams(n_probes=n) for n in (20, 24, 32)),
+         big, None),
+    ]
+
+
+def _ragged_draw(mix):
+    """A request of 1-40 rows at a random offset with one (params, k) of
+    ``mix``: (rows, offset, mix index)."""
+    def draw(rng):
+        m = int(rng.integers(1, 41))
+        return (m, int(rng.integers(0, N_QUERIES - m + 1)),
+                int(rng.integers(0, len(mix))))
+    return draw
+
+
+def phase_ragged(torch, state: dict) -> None:
+    """The ragged plan family on the serve phase's indexes: per path, an
+    executor with packed tiles of 256 rows (IVF-Flat also 64) warmed with
+    warmup_ragged (one capture a tile; the tiered plan eager), then 200
+    requests of 1-40 rows with mixed n_probes (CAGRA: max_iterations) and
+    k under one params class, packed into tiles by a ragged
+    DynamicBatcher's grouping (a manual clock: tile-full dispatches, then
+    the timer's), each held bit for bit against its own solo bucketed
+    search (an eager bucketed executor); no capture after warmup; the
+    launches of the packed dispatches equal their replays' record. Prints
+    the graph pools against the serve phase's ladders, the packed tile's
+    replay ms against the bucketed 256-row replay, and a full tile of
+    requests served packed against the same requests one by one. Then
+    the A/B of a DynamicBatcher on IVF-Flat, bucketed against ragged,
+    under the same mixed load."""
+    import collections
+
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.serving import BatcherConfig, DynamicBatcher
+    from raft_tpu_torch.serving.harness import ManualClock
+
+    res, queries = state["res"], state["queries"]
+    launched = collections.Counter()
+    executors = {}
+    for label, index, mix, tiles, serve_label in _ragged_configs(state):
+        ex = SearchExecutor(res, **tiles)
+        n_tiles = 1 + ("ragged_tile_small" in tiles)
+        t0 = time.perf_counter()
+        ex.warmup_ragged(index, k=mix[0][1], params=mix[0][0])
+        warm_s = time.perf_counter() - t0
+        costs = list(ex.executable_costs().values())
+        captured = [c["captured"] for c in costs]
+        want_captured = serve_label is not None
+        if (ex.stats.compile_count != n_tiles
+                or ex.ragged_executables() != n_tiles
+                or captured != [want_captured] * n_tiles):
+            fail(f"ragged {label}: warmup built {ex.stats.compile_count} "
+                 f"entries (captured {captured}) for {n_tiles} tiles")
+        keys = {ex.ragged_key(index, k, params=p) for p, k in mix}
+        if len(keys) != 1 or None in keys:
+            fail(f"ragged {label}: the mix spans {len(keys)} packing keys")
+        rng = np.random.default_rng(state["seed"] + 9)
+        reqs = [_ragged_draw(mix)(rng) for _ in range(SERVE_REQUESTS)]
+        solo = SearchExecutor(res, capture=False)
+        want = [solo.search(index, queries[at:at + m], mix[j][1],
+                            params=mix[j][0]) for m, at, j in reqs]
+        at_cap = None
+        if label == "ivf_bq":
+            # the margin prune runs at the class cap's k: hold the packed
+            # rows against the solo search at k_class too (sliced to k)
+            at_cap = [solo.search(index, queries[at:at + m], 16,
+                                  params=mix[j][0]) for m, at, j in reqs]
+        del solo
+        torch.cuda.synchronize()
+        split0 = tracing.counters("serving.execute.padded_rows.p")
+        calls0 = tracing.get_counter("serving.execute.calls")
+        clock = ManualClock()
+        b = DynamicBatcher(ex, BatcherConfig(ragged=True, max_wait_s=0.002,
+                                             capacity=4 * SERVE_REQUESTS),
+                           clock=clock, start=False)
+        reset_launches()
+        t0 = time.perf_counter()
+        handles = [b.submit(index, queries[at:at + m], mix[j][1],
+                            params=mix[j][0]) for m, at, j in reqs]
+        full = b.pump()
+        clock.advance(0.002)
+        rest = b.pump()
+        got = [h.result(timeout=60) for h in handles]
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        b.close()
+        dispatches: dict = {}
+        for name, v in tracing.counters("serving.execute.padded_rows.p"
+                                        ).items():
+            tile = int(name.rsplit(".t", 1)[1])
+            n = int((v - split0.get(name, 0.0)) // tile)
+            if n:
+                dispatches[tile] = dispatches.get(tile, 0) + n
+        calls = int(tracing.get_counter("serving.execute.calls") - calls0)
+        if sum(dispatches.values()) != calls or calls != full + rest:
+            fail(f"ragged {label}: {calls} dispatches, by tile "
+                 f"{dispatches}, batcher {full} + {rest}")
+        per_tile = {e.bucket: e for e in ex._cache.values()}
+        expected = collections.Counter()
+        for tile, n in dispatches.items():
+            entry = per_tile[tile]
+            per_call = (entry.launches if entry.graph is not None
+                        else {"tier_scan": 1})
+            expected.update({name: n * c for name, c in per_call.items()})
+        if counts != dict(expected) or not counts:
+            fail(f"ragged {label}: {calls} packed dispatches launched "
+                 f"{counts}, their replays record {dict(expected)}")
+        launched.update(counts)
+        bad = sum(int((g[1] != w[1]).any(dim=1).sum())
+                  + int((g[0] != w[0]).any(dim=1).sum())
+                  for g, w in zip(got, want))
+        rows = sum(m for m, _, _ in reqs)
+        if at_cap is not None:
+            bad_cap = sum(
+                int((g[1] != c[1][:, :g[1].shape[1]]).any(dim=1).sum())
+                for g, c in zip(got, at_cap))
+            log(f"[ragged] {label}: rows differing from the solo search "
+                f"at k: {bad}; from the solo search at k_class 16 sliced "
+                f"to k: {bad_cap} (of {rows} rows)")
+        if bad:
+            fail(f"ragged {label}: {bad} row mismatches between packed "
+                 "and solo results")
+        if ex.stats.compile_count != n_tiles:
+            fail(f"ragged {label}: {ex.stats.compile_count - n_tiles} "
+                 "captures after warmup")
+        pools = sum(c["pool_bytes"] for c in costs)
+        line = (f"[ragged] {label}: warmup_ragged built {n_tiles} "
+                f"{'captured' if want_captured else 'eager'} entries "
+                f"{sorted(per_tile)} in {warm_s:.2f} s; {SERVE_REQUESTS} "
+                f"requests ({rows} rows, mixed budgets and k {RAGGED_KS}) "
+                f"packed into {calls} dispatches (by tile {dispatches}; "
+                f"{full} tile-full, {rest} by the timer) and served in "
+                f"{served_s:.3f} s, each bit-identical to its solo "
+                f"bucketed search (0 mismatches); launches {counts} as the "
+                "replays record; no capture after warmup")
+        if want_captured:
+            ladder = state["serve_pools"][serve_label]
+            bucketed = state["serve_executors"][serve_label]
+            (b256,) = [e for e in bucketed._cache.values()
+                       if e.bucket == RAGGED_TILE]
+            tile_ms = median_ms(per_tile[RAGGED_TILE].graph.replay, 20)
+            bucket_ms = median_ms(b256.graph.replay, 20)
+            state.setdefault("ragged", {})[label] = dict(
+                pool_bytes=pools, ladder_pool_bytes=ladder,
+                tile_replay_ms=tile_ms, bucket256_replay_ms=bucket_ms)
+            line += (f"; graph pools {pools} bytes "
+                     f"{[c['pool_bytes'] for c in costs]} against the "
+                     f"bucketed ladder 8..512's {ladder}; packed {RAGGED_TILE}"
+                     f"-row tile replay {tile_ms:.3f} ms (CUDA events, "
+                     f"median of 20) against the bucketed {RAGGED_TILE}-row "
+                     f"replay {bucket_ms:.3f} ms ({serve_label})")
+        log(line)
+        executors[label] = (ex, index, mix)
+    ragged_tile_times(torch, state, executors)
+    launched.update(ragged_ab(torch, state, executors["ivf_flat"]))
+    log(f"[ragged] launches of the packed dispatches: {dict(launched)}")
+    for name in ("list_major_scan", "bq_scan", "beam_search", "tier_scan"):
+        if not launched[name]:
+            fail(f"{name} was never launched on the ragged path")
+        state["launches"][name] = state["launches"].get(name, 0) + \
+            launched[name]
+
+
+def ragged_tile_times(torch, state: dict, executors) -> None:
+    """Per captured path: a full tile of mixed requests (drawn until 256
+    rows) served by one packed search_ragged call against the same
+    requests served one by one by the serve phase's bucketed executor
+    (host clock, ending in a synchronize, median of 10)."""
+    queries = state["queries"]
+    for label, (ex, index, mix) in executors.items():
+        if label == "tiered":
+            continue
+        serve_label = [c[4] for c in _ragged_configs(state)
+                       if c[0] == label][0]
+        bucketed = state["serve_executors"][serve_label]
+        serve_params = [c[2] for c in _serve_configs(state)
+                        if c[0] == serve_label][0]
+        rng = np.random.default_rng(state["seed"] + 11)
+        draw, reqs, rows = _ragged_draw(mix), [], 0
+        while rows < RAGGED_TILE:
+            m, at, j = draw(rng)
+            m = min(m, RAGGED_TILE - rows)
+            reqs.append((queries[at:at + m], mix[j][1], mix[j][0]))
+            rows += m
+        # the bucketed executor holds the serve phase's ladder only (its
+        # params, k 10): each request is served there under those
+
+        def packed():
+            ex.search_ragged(index, [q for q, _, _ in reqs],
+                             [k for _, k, _ in reqs],
+                             params_list=[p for _, _, p in reqs])
+
+        def one_by_one():
+            for q, _, _ in reqs:
+                bucketed.search(index, q, K, params=serve_params)
+
+        times = {}
+        for name, fn in (("packed", packed), ("one_by_one", one_by_one)):
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[name] = float(np.median(ts))
+        state["ragged"][label].update(
+            tile_requests=len(reqs), packed_ms=times["packed"],
+            one_by_one_ms=times["one_by_one"])
+        log(f"[ragged] {label}: a full {RAGGED_TILE}-row tile of "
+            f"{len(reqs)} mixed requests served packed in "
+            f"{times['packed']:.3f} ms (one search_ragged call) against "
+            f"{times['one_by_one']:.3f} ms one by one through the serve "
+            f"phase's bucketed captured executor ({serve_label}, k 10; "
+            "host clock, median of 10)")
+
+
+def ragged_ab(torch, state: dict, ragged) -> dict:
+    """The A/B of a DynamicBatcher on the IVF-Flat index: bucketed (a
+    captured executor warmed on the ladder 8..256 for each (n_probes, k)
+    of the mix) against ragged=True (the ragged path's executor, tiles
+    256 and 64), each fed the same mixed traffic (1-40 rows, n_probes
+    {20, 24, 32}, k {10, 16}) from four threads for BATCHER_SECONDS at
+    the rate the bucketed captured executor serves it one at a time
+    (measured here). Every result equals its direct search; no capture
+    under load in either mode. Prints p50/p99, rows a dispatch, the
+    pad-waste fraction and the dispatches of each mode. Returns the
+    launch counts of both runs."""
+    import collections
+
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serving import BatcherConfig, DynamicBatcher, metrics
+
+    rex, index, mix = ragged
+    res, queries = state["res"], state["queries"]
+    bex = SearchExecutor(res)
+    ladder = tuple(b for b in SERVE_LADDER if b <= RAGGED_TILE)
+    for p, k in mix:
+        bex.warmup(index, buckets=ladder, k=k, params=p)
+    draw = _ragged_draw(mix)
+    rng = np.random.default_rng(state["seed"] + 199)
+    rate = _serial_rate(torch, lambda r: bex.search(
+        index, queries[r[1]:r[1] + r[0]], mix[r[2]][1],
+        params=mix[r[2]][0]), [draw(rng) for _ in range(200)])
+    runs, launched, direct = {}, {}, {}
+    for mode in ("bucketed", "ragged"):
+        ex = rex if mode == "ragged" else bex
+        built = ex.stats.compile_count
+        metrics.reset()
+        b = DynamicBatcher(ex, BatcherConfig(
+            max_wait_s=0.002, full_batch_rows=RAGGED_TILE,
+            ragged=mode == "ragged"))
+        # each mode starts from the same collector state: a full
+        # collection that falls inside one mode's 2 s stalls its worker
+        # for 0.1-0.2 s on this process's heap (scripts/torch_ragged_ab.py)
+        gc.collect()
+        with gc_pauses() as pauses:
+            run = _offer_load(torch, b, draw, lambda r: b.submit(
+                index, queries[r[1]:r[1] + r[0]], mix[r[2]][1],
+                params=mix[r[2]][0]), rate, state["seed"] + 200)
+        derived = metrics.derived()
+        calls = tracing.get_counter("serving.execute.calls")
+        rows = tracing.get_counter("serving.execute.rows")
+        if ex.stats.compile_count != built:
+            fail(f"ragged A/B {mode}: plans captured under load")
+        for (m, at, j), got in run["out"].values():
+            key = (m, at, j)
+            if key not in direct:
+                direct[key] = ivf_flat.search(
+                    res, mix[j][0], index, queries[at:at + m], mix[j][1])
+            _served_equal(torch, f"ragged A/B {mode}", got, direct[key])
+        runs[mode] = dict(
+            requests=len(run["out"]), offered_rps=run["offered"],
+            served_rps=len(run["out"]) / run["wall"], p50_ms=run["p50_ms"],
+            p99_ms=run["p99_ms"], dispatches=int(calls),
+            rows_per_dispatch=rows / calls if calls else 0.0,
+            pad_waste=derived["pad_waste_fraction"],
+            pad_waste_by_class=derived["pad_waste_by_class"],
+            gc_max_ms=max(pauses, default=0.0) * 1e3)
+        launched[mode] = run["counts"]
+        r = runs[mode]
+        log(f"[ragged] A/B {mode}: {r['requests']} requests offered at "
+            f"{r['offered_rps']:.1f}/s (the bucketed executor's one-at-a-"
+            f"time rate {rate:.1f}/s), served at {r['served_rps']:.1f}/s, "
+            f"each equal to its direct search; e2e p50 {r['p50_ms']:.3f} "
+            f"ms p99 {r['p99_ms']:.3f} ms (raw samples); {r['dispatches']} "
+            f"dispatches, {r['rows_per_dispatch']:.1f} rows a dispatch, "
+            f"pad waste {r['pad_waste']:.4f} (by class "
+            f"{r['pad_waste_by_class']}); the collector's longest pause "
+            f"{r['gc_max_ms']:.3f} ms; launches {run['counts']}; no "
+            "capture under load")
+    state["ragged_ab"] = dict(serial_rps=rate, **runs)
+    pools = sum(c["pool_bytes"] for c in bex.executable_costs().values())
+    log(f"[ragged] A/B: the bucketed executor's {bex.stats.compile_count} "
+        f"plans ({len(mix)} (n_probes, k) pairs x buckets {ladder}) hold "
+        f"{pools} bytes of graph pools; the ragged executor's "
+        f"{rex.stats.compile_count} hold "
+        f"{sum(c['pool_bytes'] for c in rex.executable_costs().values())}")
+    del bex
+    torch.cuda.empty_cache()
+    total = collections.Counter()
+    for counts in launched.values():
+        total.update(counts)
+    return dict(total)
 
 
 def serve_times(torch, state: dict, configs, executors) -> None:
@@ -2535,7 +2940,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="env,build,kernels,main,serve,times")
+                    default="env,build,kernels,main,serve,ragged,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2572,6 +2977,8 @@ def main() -> int:
         timed("main", phase_main, torch, args.seed, state)
         if "serve" in phases:
             timed("serve", phase_serve, torch, state)
+            if "ragged" in phases:
+                timed("ragged", phase_ragged, torch, state)
         if "times" in phases:
             records = timed("times", phase_times, torch, state)
         if "profile" in phases:

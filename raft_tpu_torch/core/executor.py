@@ -1,5 +1,5 @@
-"""Shape-stable serving: bucketed plans replayed as CUDA graphs — the
-port of the bucketed half of ``raft_tpu/core/executor.py``.
+"""Shape-stable serving: bucketed and ragged plans replayed as CUDA
+graphs — the port of ``raft_tpu/core/executor.py``.
 
 The JAX package compiles each (index shapes, search params, bucket)
 specialization ahead of time and calls the executable from then on. The
@@ -56,17 +56,28 @@ copy, one replay and two output copies of host work instead of the
   plane per index, updated in place inside the captured call (pad rows
   masked by a static valid-row count), read and zeroed only at scrape
   time (:meth:`SearchExecutor.probe_frequencies`).
+- **Ragged plans** (:meth:`SearchExecutor.search_ragged`): requests
+  whose ``n_probes`` (CAGRA: ``max_iterations``) and ``k`` round up to
+  one power-of-two *params class* pack adjacently into one fixed
+  ``(ragged_tile, dim)`` block, with a ``(tile,)`` int32 budget plane
+  (each row's own ``n_probes`` or iteration count; 0 on the zero pad
+  rows) as a third static input of the captured graph. One entry per
+  (index, class, tile) serves every load shape, where the bucketed path
+  holds a ladder; totals past a tile stream through the same entry in
+  chunks. The plan derives from the family's bucketed plan at the class
+  caps (:meth:`SearchExecutor._plan_ragged`), so route, engine and
+  clamps are decided in one place. Each block's result is a column
+  slice of the class top-k, equal to a solo search of that block.
 
 ``executable_costs`` reports each entry's family, bucket, k, capture
 seconds, kernel launches per replay and graph-pool bytes (the growth of
 reserved device memory across its capture). XLA's modeled flops and
 bytes have no counterpart yet.
 
-Not ported yet: the ragged plan family (``ragged_key``,
-``ragged_fallback_reason``, ``warmup_ragged``, ``search_ragged``), the
-mesh plans, mesh tracing, and the IVF-PQ and tiered PQ/BQ plans (their
-indexes are not ported): :meth:`SearchExecutor._plan` raises
-``TypeError`` for them, as the JAX package does for an unknown index.
+Not ported yet: the mesh plans, mesh tracing, and the IVF-PQ and tiered
+PQ/BQ plans (their indexes are not ported): :meth:`SearchExecutor._plan`
+raises ``TypeError`` for them, as the JAX package does for an unknown
+index.
 """
 
 from __future__ import annotations
@@ -121,6 +132,8 @@ class _Plan:
     capturable: bool = True
     # (pkey, n_lists, family, label, index) with probe accounting on
     probe: Any = None
+    # a ragged plan: called as fn(queries, budgets, *arrays, ...)
+    ragged: bool = False
 
 
 class _Entry:
@@ -128,8 +141,8 @@ class _Entry:
     with its static buffers, outputs and the tensors it bakes in."""
 
     __slots__ = ("family", "bucket", "k", "digest", "graph", "static_q",
-                 "static_fw", "static_nv", "outputs", "keep", "launches",
-                 "counters", "pool_bytes", "capture_seconds")
+                 "static_fw", "static_nv", "static_b", "outputs", "keep",
+                 "launches", "counters", "pool_bytes", "capture_seconds")
 
     def __init__(self, family: str, bucket: int, k: int, digest: str):
         self.family = family
@@ -140,6 +153,7 @@ class _Entry:
         self.static_q = None
         self.static_fw = None
         self.static_nv = None
+        self.static_b = None
         self.outputs = None
         self.keep = ()
         self.launches: dict = {}
@@ -173,6 +187,15 @@ def _sig(*arrays) -> tuple:
 
 def _statics(static: dict) -> tuple:
     return tuple(sorted((n, str(v)) for n, v in static.items()))
+
+
+def _pow2_at_least(n: int, floor: int) -> int:
+    """Smallest power-of-two multiple of ``floor`` at or above ``n``: the
+    ragged params-class rounding."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
 
 
 def _filter_spec(fw) -> tuple:
@@ -221,16 +244,30 @@ class SearchExecutor:
         index through every dispatch (part of the cache key).
       capture: capture plans as CUDA graphs; None resolves to
         ``res.device.type == "cuda"``. ``True`` on a CPU index raises.
+      ragged_tile: rows of the ragged plans' packed block
+        (:meth:`search_ragged`): one plan entry per (index, params class)
+        serves every load shape.
+      ragged_tile_small: an optional smaller tile beside it: a packed
+        batch whose rows fit it runs through its own entry, which cuts
+        the pad of partial tiles at light load. Both tiles share one
+        :meth:`ragged_key`; the tile is chosen at dispatch.
     """
 
     def __init__(self, res: Optional[Resources] = None, *,
                  min_bucket: int = 8, max_bucket: int = 4096,
                  max_entries: int = 64, probe_accounting: bool = False,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, ragged_tile: int = 256,
+                 ragged_tile_small: Optional[int] = None):
         self.res = ensure_resources(res)
         expect(0 < min_bucket <= max_bucket,
                f"need 0 < min_bucket <= max_bucket, got "
                f"({min_bucket}, {max_bucket})")
+        expect(ragged_tile > 0, "ragged_tile must be > 0")
+        expect(ragged_tile_small is None
+               or 0 < ragged_tile_small < ragged_tile,
+               "ragged_tile_small must be in (0, ragged_tile)")
+        self.ragged_tile = ragged_tile
+        self.ragged_tile_small = ragged_tile_small
         buckets = []
         b = min_bucket
         while b < max_bucket:
@@ -354,6 +391,329 @@ class SearchExecutor:
             start += m
         return out
 
+    # -- the ragged plan family ---------------------------------------------
+
+    def ragged_key(self, index, k: int, params=None, sample_filter=None,
+                   **kw) -> Optional[tuple]:
+        """Hashable packing key of the ragged path, or None where this
+        (index, params, k) must stay on the bucketed path
+        (:meth:`ragged_fallback_reason` says why). Two submissions may
+        share one packed batch iff their keys are equal. ``n_probes``
+        (CAGRA: ``max_iterations``) and ``k`` enter only through their
+        power-of-two params class; every other static of the class plan
+        (engine, epsilon, itopk, ...) enters as it is, so requests that
+        differ in anything but their budgets and ``k`` never share a
+        packed call. The tile is not part of the key."""
+        fw = self._resolve_filter(sample_filter)
+        spec, _ = self._ragged_resolve(index, k, params, fw, kw)
+        if spec is None:
+            return None
+        return (id(index), spec["family"] + "_ragged", spec["statics"],
+                _filter_spec(fw),
+                tuple(sorted((n, str(v)) for n, v in kw.items())))
+
+    def ragged_fallback_reason(self, index, k: int, params=None,
+                               sample_filter=None, **kw) -> Optional[str]:
+        """Why this (index, params, k) is not servable by the ragged plan
+        family (None when it is): one of :data:`_RAGGED_RESIDUE`'s
+        strings, the JAX package's own."""
+        fw = self._resolve_filter(sample_filter)
+        return self._ragged_resolve(index, k, params, fw, kw)[1]
+
+    def warmup_ragged(self, index, *, k: int, params=None,
+                      sample_filter=None, **kw) -> float:
+        """Build (capture) the ragged entries of this (index, params
+        class): one per configured tile. Raises where :meth:`ragged_key`
+        would refuse. Returns the wall seconds spent."""
+        fw = self._resolve_filter(sample_filter)
+        spec, reason = self._ragged_resolve(index, k, params, fw, kw)
+        expect(spec is not None,
+               "index/params combination is not servable by the ragged "
+               f"plan family: {reason}")
+        t0 = time.perf_counter()
+        for tile in self._ragged_tiles():
+            with self._lock, self._dispatch_lock(index):
+                plan = self._plan_ragged(index, fw, spec, tile)
+                self._get_entry_locked(plan, tile, spec["k_class"], fw)
+        dt = time.perf_counter() - t0
+        self.stats.warmup_seconds += dt
+        tracing.inc_counter("serving.warmup_seconds", dt)
+        return dt
+
+    def _ragged_tiles(self) -> Tuple[int, ...]:
+        """The configured tiles, small first."""
+        if self.ragged_tile_small is not None:
+            return (self.ragged_tile_small, self.ragged_tile)
+        return (self.ragged_tile,)
+
+    def _ragged_tile_for(self, total: int) -> int:
+        """The small tile iff the whole packed batch fits it."""
+        small = self.ragged_tile_small
+        if small is not None and total <= small:
+            return small
+        return self.ragged_tile
+
+    def search_ragged(self, index, blocks, ks, params_list=None,
+                      sample_filter=None, trace_ids: Tuple[int, ...] = (),
+                      **kw):
+        """Run several requests' query blocks, each with its own ``k``
+        and params (``n_probes``, CAGRA's ``max_iterations``) under one
+        params class, as packed ``(tile, dim)`` calls of one plan entry,
+        and split the results back per block.
+
+        ``blocks`` are (m_j, dim) arrays or tensors; ``ks`` and
+        ``params_list`` give each block's ``k`` and params (one value is
+        shared by all). Every block must agree on :meth:`ragged_key`: the
+        serving batcher groups by it. A 2-D ``sample_filter`` is the
+        row-wise concatenation matching the blocks. Blocks pack
+        adjacently, the tail padded with zero rows of budget 0; totals
+        past one tile run through the same entry in tile-sized chunks,
+        all enqueued before any result is used. Returns per-block
+        ``(distances (m_j, k_j), indices (m_j, k_j))`` tensors on the
+        index's device: column slices of the class top-k, each equal to
+        a bucketed :meth:`search` of that block alone."""
+        del trace_ids
+        expect(len(blocks) > 0, "search_ragged needs at least one block")
+        n = len(blocks)
+        if not isinstance(ks, (list, tuple)):
+            ks = [ks] * n
+        if not isinstance(params_list, (list, tuple)):
+            params_list = [params_list] * n
+        expect(len(ks) == n and len(params_list) == n,
+               "ks/params_list must match blocks")
+        fw = self._resolve_filter(sample_filter)
+        # blocks repeat few (params, k) pairs, and each resolution builds
+        # a plan: resolve each distinct pair once
+        memo: dict = {}
+        specs = []
+        for kj, pj in zip(ks, params_list):
+            mk = (pj, kj)
+            if mk not in memo:
+                memo[mk] = self._ragged_resolve(index, kj, pj, fw, kw)
+            spec, reason = memo[mk]
+            expect(spec is not None, "a block is not servable by the "
+                   f"ragged plan family: {reason}")
+            specs.append(spec)
+        expect(len({(s["family"], s["statics"]) for s in specs}) == 1,
+               "blocks must agree on the ragged params class: group "
+               "submissions by SearchExecutor.ragged_key")
+        spec = specs[0]
+        sizes = [int(np.shape(b)[0]) for b in blocks]
+        for b in blocks:
+            expect(len(np.shape(b)) == 2 and int(np.shape(b)[1]) == index.dim,
+                   "query dim mismatch")
+        total = sum(sizes)
+        dev = self._index_device(index)
+        if total == 0:
+            return [(torch.zeros((0, kj), dtype=torch.float32, device=dev),
+                     torch.zeros((0, kj), dtype=torch.int32, device=dev))
+                    for kj in ks]
+        if fw is not None and fw.ndim == 2:
+            expect(int(fw.shape[0]) == total,
+                   "2-D filter rows must match the packed query rows")
+        tile = self._ragged_tile_for(total)
+        padded_total = -(-total // tile) * tile
+        from raft_tpu_torch.ops.ivf_scan import ragged_row_probes
+
+        budgets = torch.from_numpy(ragged_row_probes(
+            sizes, [s["n_probes"] for s in specs], padded_total)).to(dev)
+        packed = self._pack(blocks, sizes, padded_total, dev)
+        fwp = None
+        split = f"p{spec['np_class']}.t{tile}"
+        parts_d, parts_i = [], []
+        with self._lock, self._dispatch_lock(index):
+            plan = self._plan_ragged(index, fw, spec, tile)
+            if plan.use_filter and fw is not None:
+                fwp = fw.to(plan.device)
+                if fwp.ndim == 2:
+                    fwp = _pad(fwp, padded_total, "zero")
+            for start in range(0, padded_total, tile):
+                q_real = min(total - start, tile)
+                qt = packed[start:start + tile]
+                bt = budgets[start:start + tile]
+                fwt = fwp
+                if fwp is not None and fwp.ndim == 2:
+                    fwt = fwp[start:start + tile]
+                entry = self._get_entry_locked(plan, tile, spec["k_class"],
+                                               fw, qt, fwt, bt)
+                d, i = self._execute_locked(plan, entry, qt, fwt, q_real, bt)
+                parts_d.append(d)
+                parts_i.append(i)
+                tracing.inc_counters({
+                    f"serving.execute.rows.{split}": float(q_real),
+                    f"serving.execute.padded_rows.{split}": float(tile)})
+        d_all = parts_d[0] if len(parts_d) == 1 else torch.cat(parts_d)
+        i_all = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i)
+        out, row = [], 0
+        for m, kj in zip(sizes, ks):
+            # the merge is a total order: the first k_j columns of the
+            # class top-k are the solo top-k_j
+            out.append((d_all[row:row + m, :kj], i_all[row:row + m, :kj]))
+            row += m
+        return out
+
+    @staticmethod
+    def _pack(blocks, sizes, rows: int, dev) -> torch.Tensor:
+        """The blocks stacked into a (rows, dim) float32 block on ``dev``,
+        zero past their rows: numpy blocks are packed on the host and
+        copied over once."""
+        if all(isinstance(b, np.ndarray) for b in blocks):
+            packed = np.zeros((rows, int(np.shape(blocks[0])[1])),
+                              np.float32)
+            r = 0
+            for b, m in zip(blocks, sizes):
+                packed[r:r + m] = b
+                r += m
+            return torch.from_numpy(packed).to(dev)
+        cat = torch.cat([torch.as_tensor(b).to(device=dev,
+                                               dtype=torch.float32)
+                         for b in blocks])
+        return _pad(cat, rows, "zero")
+
+    # the non-raggable residue as the JAX package's reason strings (test
+    # surface): what ragged_fallback_reason returns. "query_axis" and
+    # "dist_filter" belong to the mesh plans, which are not ported
+    _RAGGED_RESIDUE = {
+        "cagra_k": "cagra: the k class cap exceeds itopk_size, so the "
+                   "class executable's beam buffer would differ from "
+                   "the solo run's — bucketed path",
+        "brute_force": "brute_force: no probe plane to budget per "
+                       "row — bucketed path",
+        "approx": "coarse_algo='approx' has no prefix property at "
+                  "the class cap — bucketed path",
+        "rank": "scan_engine resolved to the rank-major scan, which "
+                "has no membership mask — bucketed path",
+        "kw": "family-specific kwargs stay on the bucketed path",
+        "empty": "empty index or k <= 0 — bucketed path",
+        "query_axis": "query_axis grids serve through the bucketed "
+                      "2-D plans (zero-recompile, scatter-merged) — "
+                      "no ragged front yet",
+        "dist_filter": "distributed searches have no sample_filter "
+                       "support",
+        "family": "index family has no ragged front — bucketed path",
+    }
+
+    def _ragged_resolve(self, index, k: int, params, fw, kw):
+        """``(spec, None)``: the family tag, resolved engine, class caps,
+        the request's own budget and the class plan's statics; or
+        ``(None, reason)`` where the request stays bucketed. The engine
+        comes from the family's bucketed plan at the class caps, so the
+        raggability decision and the plan cannot disagree."""
+        from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, tiered
+        from raft_tpu_torch.neighbors.brute_force import BruteForceIndex
+        from raft_tpu_torch.neighbors.cagra import CagraIndex
+
+        reasons = self._RAGGED_RESIDUE
+        families = (
+            (tiered.TieredIvf, "tiered_ivf", tiered.TieredSearchParams),
+            (ivf_flat.IvfFlatIndex, "ivf_flat",
+             ivf_flat.IvfFlatSearchParams),
+            (ivf_bq.IvfBqIndex, "ivf_bq", ivf_bq.IvfBqSearchParams),
+        )
+        for typ, family, params_type in families:
+            if isinstance(index, typ):
+                break
+        else:
+            if isinstance(index, CagraIndex):
+                return self._ragged_resolve_cagra(index, k, params, fw, kw)
+            if isinstance(index, BruteForceIndex):
+                return None, reasons["brute_force"]
+            return None, reasons["family"]
+        if kw:
+            return None, reasons["kw"]
+        params = params or params_type()
+        if params.coarse_algo != "exact":
+            return None, reasons["approx"]
+        if params.scan_engine == "rank":
+            return None, reasons["rank"]
+        if index.max_list_size <= 0 or k <= 0:
+            return None, reasons["empty"]
+        n_probes = min(params.n_probes, index.n_lists)
+        np_class = min(_pow2_at_least(n_probes, 8), index.n_lists)
+        params_cls = dataclasses.replace(params, n_probes=np_class)
+        return self._ragged_spec(index, family, params_cls, k, n_probes,
+                                 np_class, "scan_engine", fw, kw)
+
+    def _ragged_resolve_cagra(self, index, k: int, params, fw, kw):
+        """CAGRA onto the ragged plan family: seeds are a pure function of
+        each row, the budget plane carries each request's iteration
+        count, and the class rounds ``max_iterations``. A ``k`` class cap
+        past ``itopk_size`` would change the beam buffer itself."""
+        from raft_tpu_torch.neighbors import cagra as m
+
+        reasons = self._RAGGED_RESIDUE
+        if kw:
+            return None, reasons["kw"]
+        params = params or m.CagraSearchParams()
+        if index.graph.shape[0] == 0 or k <= 0:
+            return None, reasons["empty"]
+        if _pow2_at_least(k, 8) > params.itopk_size:
+            return None, reasons["cagra_k"]
+        iters = m.derive_search_config(params, index, k)["max_iters"]
+        iters_class = _pow2_at_least(iters, 8)
+        params_cls = dataclasses.replace(params, max_iterations=iters_class)
+        return self._ragged_spec(index, "cagra", params_cls, k, iters,
+                                 iters_class, "engine", fw, kw)
+
+    def _ragged_spec(self, index, family, params_cls, k, budget, np_class,
+                     engine_key, fw, kw):
+        """The spec of a raggable request: its family's plan at the class
+        caps (``params_cls``, ``k`` rounded) decides the engine, and its
+        statics (the class caps among them) are the packing key's."""
+        k_class = _pow2_at_least(k, 8)
+        with self._dispatch_lock(index):
+            base = self._plan(index, params_cls, k_class, self.buckets[0],
+                              fw, kw, for_key=True)
+        engine = base.static[engine_key]
+        if engine not in ("cuda", "torch"):
+            return None, self._RAGGED_RESIDUE["rank"]
+        return {"family": family, "engine": engine, "np_class": np_class,
+                "k_class": k_class, "n_probes": budget,
+                "params_cls": params_cls, "kw": kw,
+                "statics": _statics(base.static)}, None
+
+    # family tag -> (module, attribute) of the family's ragged serving
+    # body: the bucketed body with its per-row budget hook on
+    _RAGGED_FNS = {
+        "ivf_flat": ("raft_tpu_torch.neighbors.ivf_flat",
+                     "_search_ragged_fn"),
+        "ivf_bq": ("raft_tpu_torch.neighbors.ivf_bq", "_search_ragged_fn"),
+        "tiered_ivf": ("raft_tpu_torch.neighbors.tiered",
+                       "_tiered_search_ragged_fn"),
+        "cagra": ("raft_tpu_torch.neighbors.cagra", "_search_ragged_fn"),
+    }
+
+    def _ragged_fn(self, family: str) -> Callable:
+        import importlib
+
+        module, attr = self._RAGGED_FNS[family]
+        return getattr(importlib.import_module(module), attr)
+
+    def _plan_ragged(self, index, fw, spec, tile: int) -> _Plan:
+        """The ragged plan, derived from the family's bucketed plan at the
+        class caps for a ``tile``-row bucket: the same arrays, statics
+        (less the pinned-exact ``coarse_algo``), capturability and probe
+        plane (shared with the bucketed plans), with the family's ragged
+        body and the family tag marked ``_ragged``. The caller holds the
+        executor lock and the index's dispatch lock."""
+        base = self._plan(index, spec["params_cls"], spec["k_class"], tile,
+                          fw, spec["kw"])
+        statics = {n: v for n, v in base.static.items()
+                   if n != "coarse_algo"}
+        key = (base.key[0] + "_ragged",) + base.key[1:]
+        return dataclasses.replace(base, key=key,
+                                   fn=self._ragged_fn(base.key[0]),
+                                   static=statics, ragged=True)
+
+    def ragged_executables(self, family: Optional[str] = None) -> int:
+        """Resident ragged plan entries (at most one per (index, params
+        class) per configured tile); ``family`` filters to one family
+        tag (``"ivf_flat"``, ``"ivf_bq"``, ``"cagra"``, ``"tiered_ivf"``)."""
+        with self._lock:
+            return sum(1 for key in self._cache
+                       if key[0].endswith("_ragged")
+                       and (family is None or key[0] == family + "_ragged"))
+
     # -- dispatch -----------------------------------------------------------
 
     def _resolve_filter(self, sample_filter):
@@ -411,10 +771,11 @@ class SearchExecutor:
                                         dtype=plan.qdtype)
         return _pad(t, rows, "edge")
 
-    def _call(self, plan: _Plan, queries, fw, n_valid):
-        """One eager call of the plan's body; the probe plane is updated
-        in place."""
-        args = [queries, *plan.arrays]
+    def _call(self, plan: _Plan, queries, fw, n_valid, budgets=None):
+        """One eager call of the plan's body (a ragged plan's with its
+        budget plane); the probe plane is updated in place."""
+        args = [queries] + ([budgets] if plan.ragged else []) + list(
+            plan.arrays)
         if plan.use_filter:
             args.append(fw)
         if plan.probe is None:
@@ -426,13 +787,15 @@ class SearchExecutor:
         return d, i
 
     def _execute_locked(self, plan: _Plan, entry: _Entry, qp, fwp,
-                        q_real: int):
+                        q_real: int, budgets=None):
         bucket = qp.shape[0]
         if entry.graph is None:
-            d, i = self._call(plan, qp, fwp, q_real)
+            d, i = self._call(plan, qp, fwp, q_real, budgets)
             out_d, out_i = d[:q_real], i[:q_real]
         else:
             entry.static_q.copy_(qp)
+            if entry.static_b is not None:
+                entry.static_b.copy_(budgets)
             if entry.static_fw is not None:
                 entry.static_fw.copy_(fwp)
             if entry.static_nv is not None:
@@ -462,7 +825,7 @@ class SearchExecutor:
     # -- the plan cache -----------------------------------------------------
 
     def _get_entry_locked(self, plan: _Plan, bucket: int, k: int, fw,
-                          qp=None, fwp=None) -> _Entry:
+                          qp=None, fwp=None, budgets=None) -> _Entry:
         ent = self._cache.get(plan.key)
         if ent is not None:
             self._cache.move_to_end(plan.key)
@@ -475,7 +838,7 @@ class SearchExecutor:
         ent = _Entry(plan.key[0], bucket, k, digest)
         t0 = time.perf_counter()
         if self.capture and plan.capturable:
-            self._capture_locked(plan, ent, bucket, fw, qp, fwp)
+            self._capture_locked(plan, ent, bucket, fw, qp, fwp, budgets)
         dt = time.perf_counter() - t0
         self.stats.compile_count += 1
         tracing.inc_counter("serving.compile_count")
@@ -501,7 +864,7 @@ class SearchExecutor:
         return ent
 
     def _capture_locked(self, plan: _Plan, ent: _Entry, bucket: int, fw,
-                        qp, fwp) -> None:
+                        qp, fwp, budgets=None) -> None:
         """Warm the plan eagerly on a side stream, then capture one run
         into a CUDA graph with its own memory pool on the same stream.
         Raises on failure, leaving the thread's stream and the CUDA
@@ -510,6 +873,11 @@ class SearchExecutor:
         ent.static_q = (torch.zeros((bucket, plan.qdim), dtype=plan.qdtype,
                                     device=dev) if qp is None
                         else qp.clone())
+        if plan.ragged:
+            # a warmup's plane is all 0: the warm-up run probes nothing
+            ent.static_b = (torch.zeros((bucket,), dtype=torch.int32,
+                                        device=dev) if budgets is None
+                            else budgets.clone())
         if plan.use_filter and fw is not None:
             shape = (bucket, fw.shape[1]) if fw.ndim == 2 else fw.shape
             ent.static_fw = (torch.zeros(shape, dtype=torch.int32,
@@ -522,7 +890,7 @@ class SearchExecutor:
 
         def body():
             return self._call(plan, ent.static_q, ent.static_fw,
-                              ent.static_nv)
+                              ent.static_nv, ent.static_b)
 
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)

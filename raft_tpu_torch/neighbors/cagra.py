@@ -23,9 +23,9 @@
 
 The executor (:mod:`raft_tpu_torch.core.executor`) serves the index
 through :func:`_serving_fn` (the JAX package's ``_serve_impl`` and
-``_serving_fn`` in one). Not ported yet: the ragged serving body
-``_search_ragged_fn`` (with the ragged plan family) and the IVF-PQ graph
-source.
+``_serving_fn`` in one) and its ragged plans through
+:func:`_search_ragged_fn`, the same body with per-row iteration budgets.
+Not ported yet: the IVF-PQ graph source.
 """
 
 from __future__ import annotations
@@ -677,42 +677,62 @@ def beam_search_args(params: CagraSearchParams, index: CagraIndex,
 
 def _serving_fn(queries, dataset, graph, seed_centers, seed_members,
                 bq_rotation, bq_center_rot, bq_records, filter_words=None, *,
-                query_tile: int, **static):
+                query_tile: int, row_iters=None, **static):
     """The serving body: :func:`_serve_tile` over ``query_tile``-row
-    tiles of ``queries`` (a per-query filter sliced with them), over the
-    index's arrays in the order :func:`serving_plan` passes them
-    (``bq_*`` None without the BQ traversal). Seeds are a pure function
-    of each query's content, so one plan serves any mix of request
-    blocks and a row's result does not depend on the rows beside it or on
-    the tiling. The tiles bound the walk's scratch, in a captured graph's
-    pool too. With the ``cuda`` engine on a CUDA index the body has no
-    host sync, so the executor captures it in a CUDA graph; the
-    ``torch`` engine stops its loop on a host read and runs eagerly."""
+    tiles of ``queries`` (a per-query filter and the per-row iteration
+    budgets ``row_iters`` sliced with them), over the index's arrays in
+    the order :func:`serving_plan` passes them (``bq_*`` None without the
+    BQ traversal). Seeds are a pure function of each query's content, so
+    one plan serves any mix of request blocks and a row's result does not
+    depend on the rows beside it or on the tiling. The tiles bound the
+    walk's scratch, in a captured graph's pool too. With the ``cuda``
+    engine on a CUDA index the body has no host sync, so the executor
+    captures it in a CUDA graph; the ``torch`` engine stops its loop on a
+    host read and runs eagerly."""
     arrays = (dataset, graph, seed_centers, seed_members, bq_rotation,
               bq_center_rot, bq_records)
     q = queries.shape[0]
     if q <= query_tile:
-        return _serve_tile(queries, *arrays, filter_words, **static)
+        return _serve_tile(queries, *arrays, filter_words, row_iters,
+                           **static)
     outs_d, outs_i = [], []
     for start in range(0, q, query_tile):
         fw = filter_words
         if fw is not None and fw.ndim == 2:
             fw = fw[start:start + query_tile]
+        ri = None if row_iters is None else row_iters[start:start + query_tile]
         d, i = _serve_tile(queries[start:start + query_tile], *arrays, fw,
-                           **static)
+                           ri, **static)
         outs_d.append(d)
         outs_i.append(i)
     return torch.cat(outs_d), torch.cat(outs_i)
 
 
+def _search_ragged_fn(queries, row_iters, dataset, graph, seed_centers,
+                      seed_members, bq_rotation, bq_center_rot, bq_records,
+                      filter_words=None, **static):
+    """The ragged serving body: a packed ``(tile, dim)`` block of several
+    requests' rows (pad rows zero) with each row's iteration budget
+    ``row_iters`` (its request's ``max_iterations``; 0 on pad rows).
+    ``max_iters`` and ``k`` are the params class's caps: iterations past
+    a row's budget are no-ops in both engines, and the class top-``k``'s
+    first ``k_j`` columns are a solo top-``k_j`` (the beam buffer, of
+    ``itopk_size`` rows, does not depend on ``k`` while ``k`` stays
+    within it), so each row equals its request's solo search. Seeds are
+    a pure function of each row, so a zero pad row changes nothing."""
+    return _serving_fn(queries, dataset, graph, seed_centers, seed_members,
+                       bq_rotation, bq_center_rot, bq_records, filter_words,
+                       row_iters=row_iters, **static)
+
+
 def _serve_tile(queries, dataset, graph, seed_centers, seed_members,
-                bq_rotation, bq_center_rot, bq_records, filter_words, *,
-                engine: str, k: int, L: int, w: int, max_iters: int,
-                n_seeds: int, metric: DistanceType, seed_mode: str,
-                seed_pool: int, bq_bits: int, bq_query_bits: int,
-                bq_epsilon: float):
+                bq_rotation, bq_center_rot, bq_records, filter_words,
+                row_iters=None, *, engine: str, k: int, L: int, w: int,
+                max_iters: int, n_seeds: int, metric: DistanceType,
+                seed_mode: str, seed_pool: int, bq_bits: int,
+                bq_query_bits: int, bq_epsilon: float):
     """Seeds, the beam walk and the metric epilog of one query tile, for
-    both engines."""
+    both engines; ``row_iters`` optionally caps each row's iterations."""
     seeds = _make_seeds(dataset, seed_centers, seed_members, queries,
                         n_seeds, metric, seed_mode, seed_pool)
     use_bq = bq_records is not None
@@ -720,15 +740,15 @@ def _serve_tile(queries, dataset, graph, seed_centers, seed_members,
     if engine == "cuda":
         d, i, _ = bs.beam_search(
             queries, dataset, graph, seeds, k, L, w, max_iters, metric,
-            bq_records=bq_records, bq_qrot=qrot, bq_crot=bq_center_rot,
-            bq_bits=bq_bits if use_bq else 0, bq_query_bits=bq_query_bits,
-            bq_epsilon=bq_epsilon)
+            row_iters=row_iters, bq_records=bq_records, bq_qrot=qrot,
+            bq_crot=bq_center_rot, bq_bits=bq_bits if use_bq else 0,
+            bq_query_bits=bq_query_bits, bq_epsilon=bq_epsilon)
         return _epilog(d, metric), i
     return _search_batch_fn(
-        dataset, graph, queries, seeds, filter_words, None, bq_records, qrot,
-        bq_center_rot, k=k, L=L, w=w, max_iters=max_iters, metric=metric,
-        bq_bits=bq_bits if use_bq else 0, bq_query_bits=bq_query_bits,
-        bq_epsilon=bq_epsilon)
+        dataset, graph, queries, seeds, filter_words, row_iters, bq_records,
+        qrot, bq_center_rot, k=k, L=L, w=w, max_iters=max_iters,
+        metric=metric, bq_bits=bq_bits if use_bq else 0,
+        bq_query_bits=bq_query_bits, bq_epsilon=bq_epsilon)
 
 
 def serving_plan(params: CagraSearchParams, index: CagraIndex, k: int,

@@ -24,12 +24,12 @@ Two search modes, as in the JAX package:
 Supported metrics: L2Expanded / L2SqrtExpanded / InnerProduct.
 
 The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
-both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up. Not ported yet: ``build_streaming``
-(with ``neighbors/_streaming.py`` and ``io/``), the ragged serving body
-``_search_ragged_fn`` (with the ragged plan family), the distributed
-bodies, the tiered ``cold_planes``, and the
-opt-in ``memwatch.admit`` capacity gate of ``extend`` (with the tiered
-slice).
+both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up; the
+executor's ragged plans run :func:`_search_ragged_fn`, the same body
+with a per-row probe budget. Not ported yet: ``build_streaming`` (with
+``neighbors/_streaming.py`` and ``io/``), the distributed bodies, the
+tiered ``cold_planes``, and the opt-in ``memwatch.admit`` capacity gate
+of ``extend`` (with the tiered slice).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ from raft_tpu_torch.ops.bq_scan import (  # noqa: F401 - estimator_margin
     estimator_margin,
     resolve_bq_engine,
 )
-from raft_tpu_torch.ops.ivf_scan import probe_histogram
+from raft_tpu_torch.ops.ivf_scan import probe_histogram, ragged_probes
 
 # v3: RaBitQ corrections (rnorm/cfac/errw), int32 sign words, optional
 # raw-vector rerank plane — the JAX package's format
@@ -462,18 +462,22 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
                    indices, data, data_norms, filter_words, *,
                    metric: DistanceType, n_probes: int, k: int,
                    coarse_algo: str, scan_engine: str, epsilon: float,
-                   query_bits: int):
+                   query_bits: int, row_probes=None):
     """Coarse select, then the fused estimate-then-rerank scan (``cuda``
     or ``torch``: exact distances) or the rank-major estimate-only scan
-    (``rank``), over the index's arrays. Returns ``(best_d, best_i,
-    survivors, probes)``: survivors is the fused scan's (q,) count of
-    reranked rows, None for ``rank``."""
+    (``rank``), over the index's arrays. ``row_probes`` (the ragged
+    front) masks each row's probe slots past its own budget to the
+    sentinel id, which the fused engines skip. Returns ``(best_d,
+    best_i, survivors, probes)``: survivors is the fused scan's (q,)
+    count of reranked rows, None for ``rank``."""
     q = queries.shape[0]
     select_min = is_min_close(metric)
     ip_metric = metric == DistanceType.InnerProduct
     qf = queries.to(torch.float32)
     probes, ip, c_norms = _coarse(centers, metric, qf, n_probes,
                                   coarse_algo)
+    if row_probes is not None:
+        probes = ragged_probes(probes, row_probes, centers.shape[0])
     qnorm = None if ip_metric else torch.square(qf).sum(dim=1)
     pad_val = float("inf") if select_min else float("-inf")
     # probe-invariant: q~ = R(q - c) = Rq - Rc needs a rotated-centers table
@@ -508,25 +512,58 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
 
 def _search_impl_fn(queries, centers, rotation, codes, rnorm, cfac, errw,
                     indices, data, data_norms, filter_words,
-                    probe_counts=None, n_valid=None, *, n_probes: int,
-                    k: int, metric: DistanceType, coarse_algo: str = "exact",
-                    scan_engine: str = "rank", epsilon: float = 3.0,
-                    query_bits: int = 0):
+                    probe_counts=None, n_valid=None, row_probes=None, *,
+                    n_probes: int, k: int, metric: DistanceType,
+                    coarse_algo: str = "exact", scan_engine: str = "rank",
+                    epsilon: float = 3.0, query_bits: int = 0):
     """The serving body: :func:`_search_arrays` in the order
     :func:`serving_plan` passes the arrays, returning ``(distances,
     indices)``. With ``probe_counts``, an (n_lists,) int32 probe plane,
     the batch's selected lists are added to it (rows at and past
-    ``n_valid`` left out) and the new plane is a third output. The CUDA
-    and ``rank`` engines have no host sync on a CUDA index, so the
-    executor captures the body in a CUDA graph."""
+    ``n_valid`` left out) and the new plane is a third output.
+    ``row_probes`` is the ragged front's per-row probe budget (see
+    :func:`_search_ragged_fn`); masked slots count nothing, so
+    ``n_valid`` is not needed with it. The CUDA and ``rank`` engines
+    have no host sync on a CUDA index, so the executor captures the body
+    in a CUDA graph."""
     best_d, best_i, _, probes = _search_arrays(
         queries, centers, rotation, codes, rnorm, cfac, errw, indices, data,
         data_norms, filter_words, metric=metric, n_probes=n_probes, k=k,
         coarse_algo=coarse_algo, scan_engine=scan_engine, epsilon=epsilon,
-        query_bits=query_bits)
+        query_bits=query_bits, row_probes=row_probes)
     if probe_counts is not None:
+        if row_probes is not None:
+            n_valid = None
         return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
     return best_d, best_i
+
+
+def _search_ragged_fn(queries, row_probes, centers, rotation, codes, rnorm,
+                      cfac, errw, indices, data, data_norms, filter_words,
+                      probe_counts=None, n_valid=None, *, n_probes: int,
+                      k: int, metric: DistanceType, scan_engine: str = "torch",
+                      epsilon: float = 3.0, query_bits: int = 0):
+    """The ragged IVF-BQ serving body (the packing contract of
+    :func:`raft_tpu_torch.neighbors.ivf_flat._search_ragged_fn`):
+    ``n_probes``/``k`` are the params class's caps, ``row_probes`` each
+    packed row's budget, which reaches the fused engines' membership
+    test as sentinel slots. The margin prune compares a row's estimates
+    with its own running k-th exact distance, so a row's result does not
+    depend on the rows beside it. It compares at the class cap's k,
+    though: where every margin holds, both runs return the exact top-k_j
+    of the probed rows, but a row a solo ``k_j`` run pruned on a failed
+    margin may survive at the cap (``chip_smoke.py`` counts such rows).
+    Fused engines only: the rank-major estimate scan has no membership
+    mask (a codes-only index resolves to it and stays bucketed)."""
+    del n_valid
+    expect(scan_engine in ("cuda", "torch"),
+           "ragged IVF-BQ serving needs a fused engine, got "
+           f"{scan_engine!r}")
+    return _search_impl_fn(
+        queries, centers, rotation, codes, rnorm, cfac, errw, indices, data,
+        data_norms, filter_words, probe_counts, None, row_probes,
+        n_probes=n_probes, k=k, metric=metric, coarse_algo="exact",
+        scan_engine=scan_engine, epsilon=epsilon, query_bits=query_bits)
 
 
 def serving_plan(params: IvfBqSearchParams, index: IvfBqIndex, k: int,

@@ -11,9 +11,10 @@ list-major probe scan (:mod:`raft_tpu_torch.ops.ivf_scan`: the CUDA
 kernel on the card, the plain engine on the CPU), then the metric epilog.
 
 The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
-both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up. Not ported yet: ``build_streaming``,
-the ragged serving body ``_search_ragged_fn`` and the rank-major scan
-engine.
+both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up; the
+executor's ragged plans run :func:`_search_ragged_fn`, the same body
+with a per-row probe budget. Not ported yet: ``build_streaming`` and the
+rank-major scan engine.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from raft_tpu_torch.neighbors.filters import resolve_filter_words
 from raft_tpu_torch.ops.ivf_scan import (
     list_major_scan,
     probe_histogram,
+    ragged_probes,
     resolve_scan_engine,
 )
 
@@ -338,8 +340,9 @@ def metric_epilog(qf, best_d, metric: DistanceType) -> torch.Tensor:
 
 def _search_impl_fn(queries, centers, center_norms, data, data_norms,
                     indices, filter_words, probe_counts=None, n_valid=None,
-                    *, n_probes: int, k: int, metric: DistanceType,
-                    coarse_algo: str = "exact", scan_engine: str = "torch"):
+                    row_probes=None, *, n_probes: int, k: int,
+                    metric: DistanceType, coarse_algo: str = "exact",
+                    scan_engine: str = "torch"):
     """The serving body: coarse select + list-major probe scan + metric
     epilog over the index's arrays, in the order the executor's plan
     passes them.
@@ -348,12 +351,21 @@ def _search_impl_fn(queries, centers, center_norms, data, data_norms,
     plane: the batch's selected lists are added to it
     (:func:`raft_tpu_torch.ops.ivf_scan.probe_histogram`, rows at and
     past ``n_valid`` left out) and the new plane is returned as a third
-    output. The results never read it. ``scan_engine`` arrives resolved.
-    On a CUDA index with the ``cuda`` engine the body has no host sync,
-    so the executor captures it in a CUDA graph."""
+    output. The results never read it. ``row_probes`` (the ragged
+    front, :func:`_search_ragged_fn`) is a packed tile's (q,) int32
+    per-row probe budget: the coarse stage selects at the class cap
+    ``n_probes`` and each row's slots past its own budget become the
+    sentinel id (:func:`raft_tpu_torch.ops.ivf_scan.ragged_probes`),
+    which the scan skips and the histogram drops, so ``n_valid`` is not
+    needed on that path (pad rows have budget 0). ``scan_engine`` arrives
+    resolved. On a CUDA index with the ``cuda`` engine the body has no
+    host sync, so the executor captures it in a CUDA graph."""
     qf = queries.to(torch.float32)
     probes = coarse_probes(qf, centers, center_norms, metric, n_probes,
                            coarse_algo)
+    if row_probes is not None:
+        probes = ragged_probes(probes, row_probes, centers.shape[0])
+        n_valid = None
     best_d, best_i = list_major_scan(
         qf, data, data_norms, indices, probes, filter_words, k=k,
         metric=metric, engine=scan_engine)
@@ -361,6 +373,30 @@ def _search_impl_fn(queries, centers, center_norms, data, data_norms,
     if probe_counts is not None:
         return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
     return best_d, best_i
+
+
+def _search_ragged_fn(queries, row_probes, centers, center_norms, data,
+                      data_norms, indices, filter_words, probe_counts=None,
+                      n_valid=None, *, n_probes: int, k: int,
+                      metric: DistanceType, scan_engine: str = "torch"):
+    """The ragged serving body: a packed ``(tile, dim)`` block of several
+    requests' rows (pad rows zero) with its per-row probe budget
+    ``row_probes`` (0 on pad rows). ``n_probes`` and ``k`` are the
+    params class's caps: the exact coarse top-``n_probes`` is a total
+    order, so a row's first ``b`` slots are a solo ``n_probes=b``
+    selection, and the class top-``k``'s first ``k_j`` columns are a solo
+    top-``k_j``. It is :func:`_search_impl_fn` with the budget hook on,
+    so the two paths cannot drift; each row equals its request's solo
+    search. Exact coarse selection only (``approx`` has no prefix
+    property); ``n_valid`` is accepted for the executor's call and not
+    used."""
+    del n_valid
+    expect(scan_engine in ("cuda", "torch"),
+           f"ragged serving needs a list-major engine, got {scan_engine!r}")
+    return _search_impl_fn(
+        queries, centers, center_norms, data, data_norms, indices,
+        filter_words, probe_counts, None, row_probes, n_probes=n_probes,
+        k=k, metric=metric, coarse_algo="exact", scan_engine=scan_engine)
 
 
 def serving_plan(params: IvfFlatSearchParams, index: IvfFlatIndex, k: int,

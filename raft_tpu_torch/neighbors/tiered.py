@@ -25,11 +25,11 @@ is mutable for that reason, unlike the frozen index dataclasses.
 
 The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
 both run :func:`_tiered_search_fn` as :func:`serving_plan` sets it up,
-one placement generation a dispatch; the executor runs it eagerly on
-the card (the staging plan is read on the host). Not ported
-yet: the PQ and BQ tiered families, the ragged serving body, and the
-executor hook of ``apply_plan`` (they wait for IVF-PQ and the ragged
-plan family).
+one placement generation a dispatch, and its ragged plans
+:func:`_tiered_search_ragged_fn`, the same body with a per-row probe
+budget; the executor runs both eagerly on the card (the staging plan is
+read on the host). Not ported yet: the PQ and BQ tiered families and the
+executor hook of ``apply_plan`` (they wait for IVF-PQ).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from raft_tpu_torch.neighbors.ivf_flat import (
     coarse_probes,
     metric_epilog,
 )
-from raft_tpu_torch.ops.ivf_scan import probe_histogram
+from raft_tpu_torch.ops.ivf_scan import probe_histogram, ragged_probes
 from raft_tpu_torch.ops.tier_scan import (
     resolve_tier_engine,
     tiered_list_major_scan,
@@ -412,9 +412,10 @@ def apply_plan(tiered, promotions, demotions, width: int,
 
 def _tiered_search_fn(queries, centers, center_norms, hot_data, cold_data,
                       hot_slot_map, cold_slot_map, data_norms, indices,
-                      filter_words, probe_counts=None, n_valid=None, *,
-                      n_probes: int, k: int, metric: DistanceType,
-                      coarse_algo: str, scan_engine: str,
+                      filter_words, probe_counts=None, n_valid=None,
+                      row_probes=None, *, n_probes: int, k: int,
+                      metric: DistanceType, coarse_algo: str,
+                      scan_engine: str,
                       workspace_bytes: Optional[int] = None):
     """Coarse select + tiered probe scan + metric epilog — the serving
     body, over one placement generation's arrays in the order the
@@ -424,13 +425,18 @@ def _tiered_search_fn(queries, centers, center_norms, hot_data, cold_data,
     the scan is the tiered one, so results equal the all-device index's
     bit for bit. With ``probe_counts`` the (n_lists,) traffic plane is
     returned too, with this batch's probes added (rows at and past
-    ``n_valid`` left out). ``scan_engine`` arrives resolved;
-    ``workspace_bytes`` sizes the kernel's staging ring. The kernel's
-    staging plan is read on the host, so the executor runs this body
-    eagerly, never in a CUDA graph."""
+    ``n_valid`` left out). ``row_probes`` is the ragged front's per-row
+    probe budget (:func:`_tiered_search_ragged_fn`): slots past a row's
+    budget become the sentinel id, which the staging plan and the scan
+    skip. ``scan_engine`` arrives resolved; ``workspace_bytes`` sizes the
+    kernel's staging ring. The kernel's staging plan is read on the host,
+    so the executor runs this body eagerly, never in a CUDA graph."""
     qf = queries.to(torch.float32)
     probes = coarse_probes(qf, centers, center_norms, metric, n_probes,
                            coarse_algo)
+    if row_probes is not None:
+        probes = ragged_probes(probes, row_probes, centers.shape[0])
+        n_valid = None
     best_d, best_i = tiered_list_major_scan(
         qf, hot_data, cold_data, hot_slot_map, cold_slot_map, data_norms,
         indices, probes, filter_words, k=k, metric=metric,
@@ -439,6 +445,31 @@ def _tiered_search_fn(queries, centers, center_norms, hot_data, cold_data,
     if probe_counts is not None:
         return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)
     return best_d, best_i
+
+
+def _tiered_search_ragged_fn(queries, row_probes, centers, center_norms,
+                             hot_data, cold_data, hot_slot_map,
+                             cold_slot_map, data_norms, indices,
+                             filter_words, probe_counts=None, n_valid=None,
+                             *, n_probes: int, k: int, metric: DistanceType,
+                             scan_engine: str,
+                             workspace_bytes: Optional[int] = None):
+    """The ragged tiered serving body (the packing contract of
+    :func:`raft_tpu_torch.neighbors.ivf_flat._search_ragged_fn`): a
+    packed tile with each row's probe budget, over one placement
+    generation's arrays. It is :func:`_tiered_search_fn` with the budget
+    hook on, so each row equals its request's solo tiered search, and
+    that the all-device index's. The executor's key holds shapes and
+    statics only, so an epoch keeps hitting the same plan entry."""
+    del n_valid
+    expect(scan_engine in ("cuda", "torch"),
+           f"ragged tiered serving needs a tier engine, got {scan_engine!r}")
+    return _tiered_search_fn(
+        queries, centers, center_norms, hot_data, cold_data, hot_slot_map,
+        cold_slot_map, data_norms, indices, filter_words, probe_counts, None,
+        row_probes, n_probes=n_probes, k=k, metric=metric,
+        coarse_algo="exact", scan_engine=scan_engine,
+        workspace_bytes=workspace_bytes)
 
 
 def serving_plan(params: TieredSearchParams, tiered: TieredIvf, k: int,

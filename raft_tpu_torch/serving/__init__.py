@@ -22,8 +22,7 @@ placement policy — the port of ``raft_tpu/serving``'s request layer.
   planner.
 
 Not ported yet: ``continuous``, ``exporter``, ``flight``, ``gauge``,
-``federation`` and ``prefetch`` (ROADMAP Queue 1), and the batcher's
-ragged mode.
+``federation`` and ``prefetch`` (ROADMAP Queue 1).
 """
 
 from raft_tpu_torch.serving.admission import AdmissionQueue, LoadShed

@@ -10,8 +10,11 @@ ladder.
   and complete with
   :class:`~raft_tpu_torch.serving.request.DeadlineExceeded`.
 - **Coalescing-aware**: requests group by their executor
-  ``coalesce_key``; the batcher pops one *group* at a time, so a
-  micro-batch only holds requests that may share one plan entry.
+  ``coalesce_key`` (ragged submissions by ``ragged_key``); the batcher
+  pops one *group* at a time, so a micro-batch only holds requests that
+  may share one plan entry. A ragged group is claimed by rows
+  (:meth:`AdmissionQueue.pop_rows`), splitting the request at the tile's
+  edge.
 
 The degradation ladder (:class:`LoadShed`), mildest first:
 
@@ -28,16 +31,13 @@ rung  trigger (occupancy >=)      action
                                   key, so warm it up ahead of time)
 3     queue full                  reject with typed ``Overloaded``
 ====  ==========================  =========================================
-
-Not ported yet: ``pop_rows``, the ragged path's row claims (with the
-ragged plan family).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.serving.request import Overloaded, SearchRequest
@@ -46,13 +46,16 @@ from raft_tpu_torch.serving.request import Overloaded, SearchRequest
 class GroupHead(NamedTuple):
     """One compatibility group's scheduling summary (see
     :meth:`AdmissionQueue.group_heads`): its key, the oldest member's
-    arrival (the dual trigger's timer anchor), the queued row count and
-    the most-urgent member's order key."""
+    arrival (the dual trigger's timer anchor), the queued row count (the
+    rows still unclaimed: a ragged split's claimed rows are gone), the
+    most-urgent member's order key, and whether the group rides the
+    ragged packed-batch path."""
 
     key: Any
     arrival: float
     rows: int
     urgent: tuple
+    ragged: bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,12 +245,20 @@ class AdmissionQueue:
                 keep = []
                 for r in group:
                     if r.handle.done():
-                        # completed before dispatch: caller cancellation
-                        # (or shutdown) won while the request was queued
-                        tracing.inc_counter("serving.batcher.cancelled")
-                        cancelled.append(r)
+                        # taken == 0: completed before dispatch (caller
+                        # cancellation or shutdown won while the request
+                        # was whole). taken > 0: the remainder of a split
+                        # whose dispatched slice failed the handle; that
+                        # outcome was counted there, so it only leaves
+                        if r.taken == 0:
+                            tracing.inc_counter(
+                                "serving.batcher.cancelled")
+                            cancelled.append(r)
                         continue
-                    if r.expired(now):
+                    # an expired remainder whose first rows dispatched is
+                    # not shed: its handle is running, and the started
+                    # work completes (a late result records its SLO miss)
+                    if r.taken == 0 and r.expired(now):
                         shed.append(r)
                         continue
                     keep.append(r)
@@ -257,8 +268,9 @@ class AdmissionQueue:
                     heads.append(GroupHead(
                         key=key,
                         arrival=min(r.arrival for r in keep),
-                        rows=sum(r.rows for r in keep),
-                        urgent=min(r.order_key() for r in keep)))
+                        rows=sum(r.rows_left for r in keep),
+                        urgent=min(r.order_key() for r in keep),
+                        ragged=any(r.ragged for r in keep)))
                 else:
                     del self._groups[key]
             n, rate = self._n, self._rate
@@ -309,6 +321,58 @@ class AdmissionQueue:
                 out.append(r)
                 rows += r.rows
                 self._n -= 1
+            if rest:
+                self._groups[key] = rest
+            else:
+                self._groups.pop(key, None)
+            n, rate = self._n, self._rate
+        for r in cancelled:
+            tracing.span_event("serving.cancelled", now,
+                               trace_ids=(r.trace_id,),
+                               attrs={"reason": "cancelled_at_assembly"})
+        self._publish_gauges(n, rate)
+        return out
+
+    def pop_rows(self, key, max_rows: int,
+                 now: float = 0.0) -> List[Tuple[SearchRequest, int, int]]:
+        """Ragged claim: up to ``max_rows`` query rows from the group, most
+        urgent first, splitting the boundary request rather than leaving
+        the tile short. Returns ``(request, start, stop)`` row slices; a
+        request whose rows spill past the tile keeps its remainder queued
+        (same order key, so it packs first into the next tile). A
+        request's handle turns *running* when its first slice is claimed
+        (cancel races resolve as on the whole-request path); later slices
+        belong to a running request and are claimed as they are."""
+        out: List[Tuple[SearchRequest, int, int]] = []
+        cancelled: List[SearchRequest] = []
+        with self._lock:
+            group = self._groups.get(key, [])
+            group.sort(key=SearchRequest.order_key)
+            rest: List[SearchRequest] = []
+            rows = 0
+            for r in group:
+                avail = max_rows - rows
+                if avail <= 0:
+                    rest.append(r)
+                    continue
+                if r.taken == 0 and not r.handle._try_start():
+                    self._n -= 1
+                    tracing.inc_counter("serving.batcher.cancelled")
+                    cancelled.append(r)
+                    continue
+                if r.taken > 0 and r.handle.done():
+                    # the remainder of a split whose slice failed the
+                    # handle: counted there; its rows are not packed
+                    self._n -= 1
+                    continue
+                take = min(r.rows_left, avail)
+                start, stop = r.take(take)
+                out.append((r, start, stop))
+                rows += take
+                if r.rows_left > 0:
+                    rest.append(r)       # split: the remainder stays
+                else:
+                    self._n -= 1
             if rest:
                 self._groups[key] = rest
             else:

@@ -1,5 +1,5 @@
 """Background dynamic micro-batcher — the port of
-``raft_tpu/serving/batcher.py`` in its bucketed mode.
+``raft_tpu/serving/batcher.py``.
 
 Small requests coalesce into the executor's power-of-two buckets, under
 a **dual trigger**: a micro-batch dispatches when its group's query rows
@@ -25,9 +25,18 @@ one condition variable, an injectable clock; the fault harness
 (:mod:`raft_tpu_torch.serving.harness`) drives it deterministically with
 ``start=False`` + :meth:`DynamicBatcher.pump` and a manual clock.
 
-Not ported yet: the ragged continuous-batching mode
-(``BatcherConfig(ragged=True)`` raises), with the executor's ragged plan
-family.
+**Ragged continuous batching** (``BatcherConfig(ragged=True)``): raggable
+submissions group by the executor's
+:meth:`~raft_tpu_torch.core.executor.SearchExecutor.ragged_key`, so
+requests with different ``n_probes``/``k`` under one params class share
+one packed call; they fill the open packed tile continuously and split
+at its edge instead of waiting for a tile they fit whole (the dual
+trigger becomes tile-full or max-wait; a split remainder keeps its order
+key). The tile runs through
+:meth:`~raft_tpu_torch.core.executor.SearchExecutor.search_ragged`, and a
+split request completes once, when its last slice lands. Everything else
+(brute force, approximate coarse selection, codes-only IVF-BQ, CAGRA at
+a ``k`` class past ``itopk_size``) falls back to the bucketed path.
 """
 
 from __future__ import annotations
@@ -127,9 +136,11 @@ class BatcherConfig:
     the groups passed over is the ``serving.batcher.group_starvation_s``
     gauge.
 
-    ``ragged=True`` (the JAX package's continuous packed-tile batching)
-    raises ``NotImplementedError`` until the ragged plan family lands
-    (ROADMAP Queue 1, "the ragged family")."""
+    ``ragged`` (off by default) routes raggable submissions onto the
+    executor's packed-batch plans: they group by ``executor.ragged_key``,
+    fill ``executor.ragged_tile`` rows (the tile-full half of the dual
+    trigger; an executor with a small tile picks it at dispatch) and
+    split at the tile's edge. The rest stay bucketed."""
 
     max_wait_s: float = 0.002
     full_batch_rows: int = 256
@@ -142,13 +153,6 @@ class BatcherConfig:
     adaptive_wait: Optional[AdaptiveWait] = None
     ragged: bool = False
     group_budget: int = 8
-
-    def __post_init__(self):
-        if self.ragged:
-            raise NotImplementedError(
-                "BatcherConfig(ragged=True) needs the executor's ragged "
-                "plan family, which is not ported yet (ROADMAP Queue 1, "
-                "the ragged family)")
 
 
 class DynamicBatcher:
@@ -239,8 +243,19 @@ class DynamicBatcher:
         from raft_tpu_torch.neighbors.filters import resolve_filter_words
 
         fw = resolve_filter_words(sample_filter)
-        compat_key = self.executor.coalesce_key(
-            index, k, params=params, sample_filter=fw, **kw)
+        # ragged: raggable submissions group by the packing key (the
+        # ladder's params override is already applied, so a degraded
+        # submission packs like any other bearer of those params); the
+        # rest fall back to the bucketed coalesce key
+        ragged = False
+        compat_key = None
+        if self.config.ragged:
+            compat_key = self.executor.ragged_key(
+                index, k, params=params, sample_filter=fw, **kw)
+            ragged = compat_key is not None
+        if compat_key is None:
+            compat_key = self.executor.coalesce_key(
+                index, k, params=params, sample_filter=fw, **kw)
         if fw is not None:
             if fw.ndim == 1:
                 compat_key = compat_key + (id(fw),)
@@ -251,7 +266,8 @@ class DynamicBatcher:
                             params=params, deadline=deadline,
                             priority=priority,
                             sample_filter=fw, kw=dict(kw),
-                            compat_key=compat_key, arrival=now)
+                            compat_key=compat_key, arrival=now,
+                            ragged=ragged)
         # admission happens under the scheduler lock: a submit racing
         # close() either lands before the final drain (and is drained)
         # or sees _closing and fails typed — never a stranded handle
@@ -285,7 +301,7 @@ class DynamicBatcher:
             batch = self._poll()
             if not batch:
                 return n
-            self._dispatch(*batch)
+            self._dispatch_any(*batch)
             n += 1
 
     def close(self, drain: bool = True) -> None:
@@ -352,8 +368,9 @@ class DynamicBatcher:
 
     def _poll(self):
         """One non-blocking scheduling decision: the next ready
-        micro-batch as ``(key, requests)``, or ``()`` when nothing is
-        ready yet."""
+        micro-batch as ``(key, items, ragged)`` (items are requests, or
+        ``(request, start, stop)`` row slices when ragged), or ``()``
+        when nothing is ready yet."""
         with self._cond:
             return self._select(block=False)
 
@@ -386,6 +403,13 @@ class DynamicBatcher:
                       if h.key != pick.key), default=0.0)
         tracing.set_gauge("serving.batcher.group_starvation_s", starve)
 
+    def _tile_rows(self, head) -> int:
+        """The row cap of one micro-batch of this group: the executor's
+        packed tile when ragged, else ``full_batch_rows``."""
+        if head.ragged:
+            return int(self.executor.ragged_tile)
+        return self.config.full_batch_rows
+
     def _select(self, block: bool):
         """Core of the dual trigger (caller holds ``self._cond``)."""
         while True:
@@ -401,16 +425,17 @@ class DynamicBatcher:
             # urgent group's): a tile-full group is never stuck behind
             # a more-urgent group still waiting out its timer
             ready = [h for h in heads
-                     if h.rows >= self.config.full_batch_rows
+                     if h.rows >= self._tile_rows(h)
                      or now >= h.arrival + wait or self._closing]
             if ready:
                 pick = self._pick_fair(ready)
-                items = self._queue.pop_group(
-                    pick.key, self.config.full_batch_rows, now)
+                pop = (self._queue.pop_rows if pick.ragged
+                       else self._queue.pop_group)
+                items = pop(pick.key, self._tile_rows(pick), now)
                 if not items:      # cancels won every race — rescan
                     continue
                 self._record_pick(pick, ready, now)
-                return (pick.key, items)
+                return (pick.key, items, pick.ragged)
             if not block:
                 return ()
             soonest = min(h.arrival + wait for h in heads)
@@ -423,7 +448,13 @@ class DynamicBatcher:
             if batch is None:
                 return             # closed and drained
             if batch:
-                self._dispatch(*batch)
+                self._dispatch_any(*batch)
+
+    def _dispatch_any(self, key, items, ragged: bool) -> None:
+        if ragged:
+            self._dispatch_ragged(key, items)
+        else:
+            self._dispatch(key, items)
 
     def _dispatch(self, key, reqs) -> None:
         """Assemble one micro-batch, execute, split results back.
@@ -508,3 +539,90 @@ class DynamicBatcher:
             if ok and self._slo is not None and r.deadline is not None:
                 self._slo.record(t3, t3 <= r.deadline)
         metrics.batch_dispatched(len(reqs), n_rows)
+
+    def _dispatch_ragged(self, key, slices) -> None:
+        """Assemble one packed tile from ``(request, start, stop)`` row
+        slices, run it through ``executor.search_ragged``, wait for it on
+        a CUDA event, and complete every request whose last slice landed:
+        a split request's earlier slices gather on the request, and its
+        result, SLO outcome and ``serving.request`` span come exactly
+        once. Stage spans mirror :meth:`_dispatch`'s."""
+        t0 = self._clock.now()
+        ids = tuple(dict.fromkeys(r.trace_id for r, _, _ in slices))
+        n_rows = sum(stop - start for _, start, stop in slices)
+        blocks, ks, params_list, fw2 = [], [], [], []
+        rep = slices[0][0]
+        for r, start, stop in slices:
+            if start == 0:
+                metrics.observe_stage(metrics.QUEUE_WAIT, t0 - r.arrival)
+            blocks.append(r.queries[start:stop])
+            ks.append(r.k)
+            params_list.append(r.params)
+            if r.sample_filter is not None and r.sample_filter.ndim == 2:
+                fw2.append(r.sample_filter[start:stop])
+        # 1-D words are shared by key construction (their identity joins
+        # the key); 2-D per-row words concatenate to the packed rows
+        fw = rep.sample_filter
+        if fw2:
+            if all(isinstance(p, np.ndarray) for p in fw2):
+                fw = np.concatenate(fw2)
+            else:
+                fw = torch.cat([torch.as_tensor(p) for p in fw2])
+        t1 = self._clock.now()
+        metrics.observe_stage(metrics.ASSEMBLY, t1 - t0)
+        tracing.record_span(
+            "serving.assembly", t0, t1, trace_ids=ids,
+            attrs={"requests": len(ids), "slices": len(slices),
+                   "rows": n_rows, "ragged": True})
+        try:
+            results = self.executor.search_ragged(
+                rep.index, blocks, ks, params_list=params_list,
+                sample_filter=fw, trace_ids=ids, **rep.kw)
+            _wait_for(results)
+        except Exception as e:  # noqa: BLE001 — fail the handles, not the worker
+            t_fail = self._clock.now()
+            for r in {id(r): r for r, _, _ in slices}.values():
+                performed = r.handle._set_exception(e)
+                if performed and self._slo is not None \
+                        and r.deadline is not None:
+                    self._slo.record(t_fail, False)
+            tracing.inc_counter("serving.batcher.failed_batches")
+            tracing.record_span(
+                "serving.execute", t1, t_fail, trace_ids=ids,
+                attrs={"requests": len(ids), "rows": n_rows,
+                       "ragged": True},
+                events=((t_fail, "failed",
+                         {"error": type(e).__name__}),))
+            return
+        t2 = self._clock.now()
+        metrics.observe_stage(metrics.EXECUTE, t2 - t1)
+        # a packed tile mixes params: its execute latency lands once in
+        # each distinct params class present
+        for cls in dict.fromkeys(
+                metrics.params_class(p) for p in params_list):
+            if cls is not None:
+                metrics.observe_execute_class(cls, t2 - t1)
+        tracing.record_span("serving.execute", t1, t2, trace_ids=ids,
+                            attrs={"requests": len(ids), "rows": n_rows,
+                                   "ragged": True})
+        finished = []
+        for (r, start, stop), (d, i) in zip(slices, results):
+            if start == 0 and stop == r.rows:
+                finished.append((r, d, i))       # unsplit
+            elif r.add_part(start, d, i):
+                fd, fi = r.assemble()
+                finished.append((r, fd, fi))
+        delivered = [(r, r.handle._set_result(d, i))
+                     for r, d, i in finished]
+        t3 = self._clock.now()
+        metrics.observe_stage(metrics.SPLIT, t3 - t2)
+        tracing.record_span("serving.split", t2, t3, trace_ids=ids,
+                            attrs={"requests": len(finished)})
+        for r, ok in delivered:
+            metrics.observe_stage(metrics.E2E, t3 - r.arrival)
+            tracing.record_span("serving.request", r.arrival, t3,
+                                trace_ids=(r.trace_id,),
+                                attrs={"rows": r.rows, "ragged": True})
+            if ok and self._slo is not None and r.deadline is not None:
+                self._slo.record(t3, t3 <= r.deadline)
+        metrics.batch_dispatched(len(finished), n_rows)

@@ -8,7 +8,8 @@
   :meth:`ManualClock.advance` wakes.
 - :class:`FakeExecutor`: a device-free executor stand-in with the
   batcher-facing API (``coalesce_key`` / ``search_blocks`` /
-  ``buckets``). Results encode the query rows (``indices[r, j]`` is
+  ``buckets``, and the ragged ``ragged_key`` / ``search_ragged`` /
+  ``ragged_tile``). Results encode the query rows (``indices[r, j]`` is
   ``queries[r, 0] * k + j``), so a mis-split is caught by value.
 - :class:`ShimExecutor`: wraps any executor-like with scripted latency
   (charged to the injected clock) and scripted failures, plus a call
@@ -16,9 +17,7 @@
 - :func:`burst_schedule` / :func:`drive_open_loop`: bursty *open-loop*
   load (submission times fixed in advance, independent of completions).
 
-Not ported yet: the ragged methods (``FakeExecutor.ragged_key`` /
-``search_ragged``, ``ShimExecutor.search_ragged``) and the shim's
-scripted mesh shard timings, with the ragged plan family and the mesh
+Not ported yet: the shim's scripted mesh shard timings, with the mesh
 layer.
 """
 
@@ -71,40 +70,65 @@ class FakeExecutor:
     row r) + j`` and ``indices[r, j] = int(queries[r, 0]) * k + j`` —
     row-identifying outputs, so a mis-split or cross-request mixup is
     caught by value. ``calls`` records every dispatched micro-batch as
-    ``(n_blocks, total_rows)``."""
+    ``(n_blocks, total_rows)``, ``ragged_calls`` every packed dispatch as
+    ``(n_slices, claimed_rows)``."""
 
-    def __init__(self):
+    def __init__(self, ragged_tile: int = 8):
         self.buckets = (8, 16, 32, 64, 128, 256)
+        self.ragged_tile = ragged_tile
         self.calls: List[Tuple[int, int]] = []
+        self.ragged_calls: List[Tuple[int, int]] = []
 
     def coalesce_key(self, index, k: int, params=None,
                      sample_filter=None, **kw) -> tuple:
         return (id(index), "fake", k, repr(params),
                 tuple(sorted((n, str(v)) for n, v in kw.items())))
 
+    def ragged_key(self, index, k: int, params=None, sample_filter=None,
+                   **kw):
+        """Everything packs (mixed k too: the fake's params class is the
+        index and params) unless the index says ``bucketed_only = True``,
+        the tests' stand-in for the executor's non-raggable residue."""
+        if getattr(index, "bucketed_only", False):
+            return None
+        return (id(index), "fake_ragged", repr(params),
+                tuple(sorted((n, str(v)) for n, v in kw.items())))
+
+    @staticmethod
+    def _rows_out(b, k: int):
+        b = np.asarray(b, np.float32)
+        d = b.sum(axis=1, keepdims=True) + np.arange(
+            k, dtype=np.float32)[None, :]
+        i = (b[:, :1].astype(np.int64) * k
+             + np.arange(k, dtype=np.int64)[None, :]).astype(np.int32)
+        return d, i
+
     def search_blocks(self, index, blocks, k: int, params=None,
                       sample_filter=None, **kw):
         self.calls.append((len(blocks),
                            sum(int(np.shape(b)[0]) for b in blocks)))
-        out = []
-        for b in blocks:
-            b = np.asarray(b, np.float32)
-            base = b.sum(axis=1, keepdims=True)
-            d = base + np.arange(k, dtype=np.float32)[None, :]
-            i = (b[:, :1].astype(np.int64) * k
-                 + np.arange(k, dtype=np.int64)[None, :]).astype(np.int32)
-            out.append((d, i))
-        return out
+        return [self._rows_out(b, k) for b in blocks]
+
+    def search_ragged(self, index, blocks, ks, params_list=None,
+                      sample_filter=None, **kw):
+        """The packed path: ``search_blocks``' formula with each block's
+        own ``k``."""
+        if not isinstance(ks, (list, tuple)):
+            ks = [ks] * len(blocks)
+        self.ragged_calls.append(
+            (len(blocks), sum(int(np.shape(b)[0]) for b in blocks)))
+        return [self._rows_out(b, k) for b, k in zip(blocks, ks)]
+
 
 class ShimExecutor:
     """Wrap an executor-like with scripted latency and failures.
 
-    ``delay_s`` is charged to ``clock`` per ``search_blocks`` call
-    (virtual clocks advance; real clocks sleep): the *slow executor* that
-    makes queues pile up on demand. ``fail_on`` maps 0-based call
-    ordinals to exceptions to raise instead of executing. The wrapped
-    executor's results pass through untouched; ``calls`` logs
-    ``(n_blocks, rows)`` per call."""
+    ``delay_s`` is charged to ``clock`` per ``search_blocks`` or
+    ``search_ragged`` call (virtual clocks advance; real clocks sleep):
+    the *slow executor* that makes queues pile up on demand. ``fail_on``
+    maps 0-based call ordinals (of both entries) to exceptions to raise
+    instead of executing. The wrapped executor's results pass through
+    untouched; ``calls`` logs ``(n_blocks, rows)`` per call."""
 
     def __init__(self, inner, *, delay_s: float = 0.0, clock=None,
                  fail_on: Optional[dict] = None):
@@ -118,10 +142,19 @@ class ShimExecutor:
     def buckets(self):
         return self.inner.buckets
 
+    @property
+    def ragged_tile(self):
+        return getattr(self.inner, "ragged_tile", 256)
+
     def coalesce_key(self, *a, **kw):
         return self.inner.coalesce_key(*a, **kw)
 
-    def search_blocks(self, index, blocks, k: int, **kw):
+    def ragged_key(self, *a, **kw):
+        inner = getattr(self.inner, "ragged_key", None)
+        return inner(*a, **kw) if inner is not None else None
+
+    def _charge_call(self, blocks) -> None:
+        """The scripted latency and failure of one call, either entry."""
         ordinal = len(self.calls)
         self.calls.append((len(blocks),
                            sum(int(np.shape(b)[0]) for b in blocks)))
@@ -134,7 +167,14 @@ class ShimExecutor:
                 time.sleep(self.delay_s)
         if ordinal in self.fail_on:
             raise self.fail_on[ordinal]
+
+    def search_blocks(self, index, blocks, k: int, **kw):
+        self._charge_call(blocks)
         return self.inner.search_blocks(index, blocks, k, **kw)
+
+    def search_ragged(self, index, blocks, ks, **kw):
+        self._charge_call(blocks)
+        return self.inner.search_ragged(index, blocks, ks, **kw)
 
 
 def burst_schedule(n_bursts: int, burst_size: int, period_s: float,

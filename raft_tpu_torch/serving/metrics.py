@@ -15,7 +15,9 @@ Per-stage latency **histograms** (log2 buckets, p50/p95/p99 estimates):
 ``.rejected_background``; ``serving.batcher.requests`` / ``.rows`` /
 ``.batches`` / ``.shed_deadline`` / ``.cancelled`` / ``.shutdown_shed``
 / ``.failed_batches`` / ``.shed_degraded_params``; the executor's
-``serving.execute.calls`` / ``.rows`` / ``.padded_rows``,
+``serving.execute.calls`` / ``.rows`` / ``.padded_rows`` (and, per
+ragged params class and tile, ``.rows.p<NP>.t<T>`` /
+``.padded_rows.p<NP>.t<T>``),
 ``serving.compile_count`` (plan entries built: CUDA-graph captures on
 the card), ``serving.capture_seconds``, ``serving.cache_hits`` /
 ``.cache_misses`` / ``.evictions``, ``serving.warmup_seconds``.
@@ -37,15 +39,15 @@ are exempt).
 
 Batch **occupancy** is derived from one counters read
 (:func:`occupancy`), as are the executor's cache hit-rate and the
-pad-waste fraction (:func:`derived`).
+pad-waste fraction, overall and per ragged (class, tile)
+(:func:`derived`).
 
 Not ported yet: the derived fields that read the JAX package's cost
 model and ``core/profiling`` (``modeled_bytes_total``,
 ``modeled_flops_total``, ``achieved_gbps``, ``achieved_gflops``,
 ``measured_device_seconds_total``, ``device_achieved_gbps``,
 ``device_achieved_gflops``, ``rolling_*``, ``measured_executables``),
-which wait for the profiling port, and ``pad_waste_by_class``, which
-waits for the ragged plan family.
+which wait for the profiling port.
 """
 
 from __future__ import annotations
@@ -340,17 +342,28 @@ def occupancy() -> dict:
 def derived() -> dict:
     """Metrics computed from one counters read: the executor's cache
     hit-rate, the measured execute seconds, the pad-waste fraction (the
-    share of dispatched row capacity that was bucket pad) and the
-    seconds spent capturing CUDA graphs."""
+    share of dispatched row capacity that was bucket or tile pad), the
+    same per ragged params class and tile (``pad_waste_by_class``:
+    ``{"p<NP>.t<T>": fraction}``, which says whether a small tile earns
+    its entry at the observed load) and the seconds spent capturing CUDA
+    graphs."""
     hits = tracing.get_counter("serving.cache_hits")
     misses = tracing.get_counter("serving.cache_misses")
     exec_s = tracing.get_histogram(EXECUTE).snapshot()["sum"]
     rows = tracing.get_counter("serving.execute.rows")
     padded = tracing.get_counter("serving.execute.padded_rows")
+    by_class = {}
+    base = "serving.execute.padded_rows."
+    for name, pad in tracing.counters(base).items():
+        label = name[len(base):]
+        if pad:
+            by_class[label] = 1.0 - tracing.get_counter(
+                "serving.execute.rows." + label) / pad
     return {
         "cache_hit_rate": hits / (hits + misses) if hits + misses else 0.0,
         "execute_seconds_total": exec_s,
         "pad_waste_fraction": 1.0 - rows / padded if padded else 0.0,
+        "pad_waste_by_class": by_class,
         "capture_seconds_total":
             tracing.get_counter("serving.capture_seconds"),
     }

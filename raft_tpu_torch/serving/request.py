@@ -9,10 +9,9 @@ Failure is always a typed exception on the handle: :class:`Overloaded`
 (admission control rejected it), :class:`DeadlineExceeded` (it expired
 in the queue and was shed before any device work), :class:`Cancelled`
 (the caller cancelled it before batch assembly) or :class:`ShutDown`
-(the batcher closed before it could run).
-
-Not ported yet: the ragged path's row-split state (``taken``, ``parts``,
-``take``, ``add_part``, ``assemble``), with the ragged plan family.
+(the batcher closed before it could run). On the ragged path a request
+may split across packed tiles: it records which rows were claimed and
+assembles its result once its last slice has landed.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import threading
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
 
 from raft_tpu_torch.core import tracing
 
@@ -169,10 +169,60 @@ class SearchRequest:
     arrival: float = 0.0
     seq: int = dataclasses.field(default_factory=lambda: next(_seq))
     trace_id: int = dataclasses.field(default_factory=tracing.new_trace_id)
+    # ragged continuous batching: a request may split across packed
+    # tiles. ``taken`` rows were claimed by earlier tiles (the queue
+    # holds the remainder; touched only under the admission queue's
+    # lock); the slices' results gather in ``parts`` under their own
+    # lock, since two dispatchers (the worker and a concurrent pump())
+    # may deliver slices of one request, and ``add_part`` elects exactly
+    # one assembler
+    ragged: bool = False
+    taken: int = 0
+    parts: list = dataclasses.field(default_factory=list)
+    _parts_lock: Any = dataclasses.field(default_factory=threading.Lock)
+    _assembled: bool = False
 
     @property
     def rows(self) -> int:
         return int(np.shape(self.queries)[0])
+
+    @property
+    def rows_left(self) -> int:
+        """Rows no packed tile has claimed yet (``rows`` unless a ragged
+        split claimed some)."""
+        return self.rows - self.taken
+
+    def take(self, n: int) -> Tuple[int, int]:
+        """Claim the next ``n`` rows for a packed tile; returns the
+        claimed ``(start, stop)`` row range."""
+        start = self.taken
+        self.taken = start + n
+        return start, self.taken
+
+    def add_part(self, start: int, distances, indices) -> bool:
+        """Record one claimed slice's results; True once every row has
+        landed, for exactly one caller, who then assembles and completes
+        the request."""
+        with self._parts_lock:
+            self.parts.append((start, distances, indices))
+            if (self._assembled
+                    or sum(p[1].shape[0] for p in self.parts) < self.rows):
+                return False
+            self._assembled = True
+            return True
+
+    def assemble(self):
+        """The slices concatenated by row range into the request's
+        ``(distances, indices)``: rows are independent, so the result
+        equals an unsplit call's. Called only by ``add_part``'s winner."""
+        self.parts.sort(key=lambda p: p[0])
+        if len(self.parts) == 1:
+            return self.parts[0][1], self.parts[0][2]
+        if all(isinstance(p[1], np.ndarray) for p in self.parts):
+            return (np.concatenate([p[1] for p in self.parts]),
+                    np.concatenate([p[2] for p in self.parts]))
+        return (torch.cat([torch.as_tensor(p[1]) for p in self.parts]),
+                torch.cat([torch.as_tensor(p[2]) for p in self.parts]))
 
     def order_key(self) -> tuple:
         """EDF within priority (deadline-less requests after any

@@ -13,7 +13,12 @@ tiered index, whose plans run eagerly on the card too. After warmup no
 plan is captured again; two same-shape indexes served alternately by one
 executor each get their own rows (the cache key holds the addresses a
 graph bakes in); every replay adds its capture's kernel launches to the
-wrappers' counters; a host sync inside a captured body raises."""
+wrappers' counters; a host sync inside a captured body raises. The ragged
+plans: packed tiles of mixed budgets and k replay one captured graph per
+tile and equal each request's bucketed replay bit for bit; a warmup
+captures one graph per configured tile and traffic none; the tiered
+ragged plan runs eagerly and matches; a host sync in a ragged body
+raises at capture."""
 
 from __future__ import annotations
 
@@ -243,3 +248,139 @@ def test_a_host_sync_in_a_captured_body_raises(res, data, indexes,
                      params=_params("ivf_flat")),
            _direct(res, "ivf_flat", indexes["ivf_flat"], qs[:10]),
            "after a failed capture")
+
+
+# -- the ragged plan family ---------------------------------------------------
+
+RAGGED_TILE = 256
+# per-request (n_probes or max_iterations, k) inside one params class:
+# IVF n_probes 9..16 -> 16, CAGRA max_iterations 33..64 -> 64, k 10..16 -> 16
+RAGGED_MIX = {"ivf_flat": ((16, 10), (12, 16), (9, 10), (14, 16)),
+              "ivf_bq": ((16, 10), (12, 16), (9, 10), (14, 16)),
+              "tiered": ((16, 10), (12, 16), (9, 10), (14, 16)),
+              "cagra": ((40, 10), (64, 16), (33, 10), (48, 16))}
+
+
+def _ragged_params(name, budget):
+    if name == "cagra":
+        return cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                       max_iterations=budget)
+    return {"ivf_flat": ivf_flat.IvfFlatSearchParams,
+            "ivf_bq": ivf_bq.IvfBqSearchParams,
+            "tiered": tiered.TieredSearchParams}[name](n_probes=budget)
+
+
+def _ragged_requests(qs, name, seed, n):
+    """n requests of 1-40 rows at random offsets, each with one of the
+    family's (budget, k) pairs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        m = int(rng.integers(1, 41))
+        at = int(rng.integers(0, qs.shape[0] - m))
+        budget, k = RAGGED_MIX[name][j % len(RAGGED_MIX[name])]
+        out.append((qs[at:at + m], k, _ragged_params(name, budget)))
+    return out
+
+
+@pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "cagra"])
+def test_ragged_replays_equal_bucketed_replays(res, data, indexes, name):
+    """Packed tiles of mixed budgets and k, replayed from one captured
+    graph, equal each request's own bucketed replay bit for bit; the one
+    capture per tile happens at warmup, and 50 more packed dispatches
+    capture nothing."""
+    _, qs = data
+    index = indexes[name]
+    reqs = _ragged_requests(qs, name, 11, 50 * 4)
+    ex = SearchExecutor(res, ragged_tile=RAGGED_TILE)
+    ex.warmup_ragged(index, k=reqs[0][1], params=reqs[0][2])
+    assert ex.stats.compile_count == 1 and ex.ragged_executables() == 1
+    (cost,) = ex.executable_costs().values()
+    assert cost["captured"] and cost["launches"] >= 1
+    bucketed = SearchExecutor(res)
+    want = [bucketed.search(index, q, k, params=p) for q, k, p in reqs]
+    got = []
+    for j in range(0, len(reqs), 4):
+        group = reqs[j:j + 4]
+        got += ex.search_ragged(index, [q for q, _, _ in group],
+                                [k for _, k, _ in group],
+                                params_list=[p for _, _, p in group])
+    for j, (g, w) in enumerate(zip(got, want)):
+        _equal(g, w, f"{name} ragged request {j}")
+    assert ex.stats.compile_count == 1
+
+
+def test_ragged_dual_tile_captures_one_graph_per_tile(res, data, indexes):
+    _, qs = data
+    ex = SearchExecutor(res, ragged_tile=RAGGED_TILE, ragged_tile_small=64)
+    p = _ragged_params("ivf_flat", 16)
+    ex.warmup_ragged(indexes["ivf_flat"], k=K, params=p)
+    costs = ex.executable_costs().values()
+    assert sorted(c["bucket"] for c in costs) == [64, RAGGED_TILE]
+    assert all(c["captured"] for c in costs)
+    for rows in (5, 64, 65, 300):
+        (got,) = ex.search_ragged(indexes["ivf_flat"], [qs[:rows]], K,
+                                  params_list=p)
+        _equal(got, SearchExecutor(res).search(indexes["ivf_flat"],
+                                               qs[:rows], K, params=p),
+               f"dual tile rows={rows}")
+    assert ex.stats.compile_count == 2
+
+
+def test_ragged_tiered_plan_runs_eagerly_and_matches(res, data, indexes):
+    _, qs = data
+    reqs = _ragged_requests(qs, "tiered", 12, 40)
+    ex = SearchExecutor(res, ragged_tile=RAGGED_TILE)
+    ex.warmup_ragged(indexes["tiered"], k=reqs[0][1], params=reqs[0][2])
+    (cost,) = ex.executable_costs().values()
+    assert not cost["captured"]
+    for j in range(0, len(reqs), 4):
+        group = reqs[j:j + 4]
+        got = ex.search_ragged(indexes["tiered"], [q for q, _, _ in group],
+                               [k for _, k, _ in group],
+                               params_list=[p for _, _, p in group])
+        for (q, k, p), g in zip(group, got):
+            _equal(g, tiered.search(res, p, indexes["tiered"], q, k),
+                   "tiered ragged")
+    assert ex.stats.compile_count == 1
+
+
+def test_ragged_launches_counted_per_replay(res, data, indexes):
+    _, qs = data
+    ex = SearchExecutor(res, ragged_tile=RAGGED_TILE)
+    p = _ragged_params("ivf_bq", 16)
+    ex.warmup_ragged(indexes["ivf_bq"], k=K, params=p)
+    (info,) = ex.executable_costs().values()
+    before = bq_list_major_scan.launches
+    for rows in (3, 256, 300):       # 1 + 1 + 2 tiles
+        ex.search_ragged(indexes["ivf_bq"], [qs[:rows]], K, params_list=p)
+    assert bq_list_major_scan.launches - before == 4 * info["launches"]
+
+
+def test_a_host_sync_in_a_ragged_body_raises(res, data, indexes,
+                                             monkeypatch):
+    """A host read in the ragged body (here on the budget plane, as a
+    ``.item()`` would be) fails the capture, and the executor raises
+    rather than running the plan eagerly."""
+    from raft_tpu_torch.neighbors import ivf_flat as flat_mod
+
+    real = flat_mod.ragged_probes
+
+    def synced(probes, row_probes, n_lists):
+        int(row_probes.max())     # a host sync
+        return real(probes, row_probes, n_lists)
+
+    monkeypatch.setattr(flat_mod, "ragged_probes", synced)
+    _, qs = data
+    ex = SearchExecutor(res, ragged_tile=RAGGED_TILE)
+    p = _ragged_params("ivf_flat", 16)
+    with pytest.raises(Exception):
+        ex.search_ragged(indexes["ivf_flat"], [qs[:10]], K, params_list=p)
+    torch.cuda.synchronize()
+    assert ex.ragged_executables() == 0
+    assert torch.isfinite(torch.randn(64, device="cuda")).all()
+    monkeypatch.setattr(flat_mod, "ragged_probes", real)
+    (got,) = ex.search_ragged(indexes["ivf_flat"], [qs[:10]], K,
+                              params_list=p)
+    _equal(got, _direct(res, "ivf_flat", indexes["ivf_flat"], qs[:10]),
+           "after a failed ragged capture")

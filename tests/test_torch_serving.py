@@ -472,9 +472,36 @@ class TestRealExecutor:
             "serving.batcher.shed_degraded_params") >= 1
         b.close()
 
-    def test_ragged_mode_waits_for_the_ragged_family(self):
-        with pytest.raises(NotImplementedError, match="ragged"):
-            BatcherConfig(ragged=True)
+    def test_ragged_mode_waits_for_the_ragged_family(self, real_setup):
+        """``BatcherConfig(ragged=True)`` sends a raggable submission
+        (IVF-Flat) through the executor's ragged family
+        (``search_ragged``) and a non-raggable one (brute force) through
+        ``search_blocks``; both equal their direct searches."""
+        ex = SearchExecutor(CPU, ragged_tile=16)
+        shim = ShimExecutor(ex)
+        calls = []
+        for name in ("search_ragged", "search_blocks"):
+            def spy(*a, _name=name, **kw):
+                calls.append(_name)
+                return getattr(ShimExecutor, _name)(shim, *a, **kw)
+            setattr(shim, name, spy)
+        clock = ManualClock()
+        b = DynamicBatcher(shim, BatcherConfig(ragged=True, max_wait_s=0.01),
+                           clock=clock, start=False)
+        q = real_setup["q"]
+        p = ivf_flat.IvfFlatSearchParams(n_probes=4)
+        h_ivf = b.submit(real_setup["ivf"], q[:5], 5, params=p)
+        h_bf = b.submit(real_setup["bf"], q[5:9], 5)
+        clock.advance(0.01)
+        assert b.pump() == 2
+        assert sorted(calls) == ["search_blocks", "search_ragged"]
+        assert ex.ragged_executables() == 1
+        for h, want in ((h_ivf, ex.search(real_setup["ivf"], q[:5], 5,
+                                          params=p)),
+                        (h_bf, ex.search(real_setup["bf"], q[5:9], 5))):
+            d, i = h.result(timeout=0)
+            assert torch.equal(i, want[1]) and torch.equal(d, want[0])
+        b.close()
 
 
 class TestFiltersAndCagra:
