@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,serve,ragged,times]
+    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,serve,ragged,pq,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -145,7 +145,33 @@ non-zero exit (nothing is caught and passed over):
             at the bucketed executor's one-at-a-time rate (p50/p99, rows
             a dispatch, pad waste, dispatches), every result equal to
             its direct search. Its launches add to the kernels line's.
-7. times    per kernel at the main path's shapes: kernel ms (CUDA
+7. pq       the IVF-PQ path on main's data and truth (alone with
+            --phases env,build,pq, which makes them): ivf_pq_scan
+            against its plain version bit for bit on 204 small cases
+            (L2 and IP, both codebook kinds, pq_bits 4 and 8, float32,
+            bfloat16 and both fp8 LUTs, k 10 and 258, three draws of
+            pq_dim 6/16/64 with no, a shared or a per-query filter,
+            ragged sentinel probe slots; and 12 tables past shared
+            memory, pq_dim 240 and 196, which the kernel builds in
+            parts); ivf_pq.build with
+            the sift-128-euclidean config's raft_ivf_pq entry (n_lists
+            1024, pq_dim 64, 8 bits; build s, index bytes) and a second
+            same-seed build, torch.equal; full-size requests at n_probes
+            32 and 128, batch 10 and 500, the cuda engine equal to the
+            plain engine bit for bit; then, counted, those requests
+            (recall@10, with refine_ratio 2.0 too, median ms; it fails
+            under the refined floor at (128, 500) that PERF.md states);
+            executors with captured plans on the ladder 8..512 at
+            n_probes 32 and 128 (60 requests of 1-500 rows each equal to
+            its direct search, no capture after warmup, graph pools); a
+            ragged class (n_probes {72, 96, 128} x k {10, 16}, 256-row
+            tiles, 120 requests of 1-40 rows, every packed row equal to
+            its solo bucketed search); CAGRA with the IVF-PQ graph
+            source (the sift raft_cagra entry: degree 64, intermediate
+            128) on the first 200,000 rows (build s, the PQ kernel's
+            launches in it, recall@10 at itopk 64 and 128, batch 500, on
+            the beam kernel); the kernel's time and bound.
+8. times    per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -164,14 +190,15 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-8. profile  (not in the default run) torch.profiler over five requests
+9. profile  (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
 
 The line before the last is a JSON object with one record per kernel
 (fused_knn, list_major_scan, bq_scan, select_k, beam_search, tier_scan,
-stream_read_sum);
+stream_read_sum, and ivf_pq_scan, the port kernel with no TPU
+counterpart);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the raft_tpu_torch package beside it, the script exits
 non-zero and prints no result.
@@ -202,10 +229,11 @@ HOST_LINK_BYTES_PER_S = 64e9
 # boost clock
 _SM_CLOCKS_PER_S = 132 * 1.98e9
 # and the dense tensor-core rates of the data sheet: TF32 494.7 TFLOP/s,
-# bf16 989.4 TFLOP/s
+# bf16 989.4 TFLOP/s; "smem": 4-byte shared-memory loads, 32 banks a clock
+# per SM (one word a bank), the LUT lookups' rate
 PEAK_OPS_PER_S = {"f32": 67e12, "popc": 16 * _SM_CLOCKS_PER_S,
                   "int32": 64 * _SM_CLOCKS_PER_S, "tf32": 494.7e12,
-                  "bf16": 989.4e12}
+                  "bf16": 989.4e12, "smem": 32 * _SM_CLOCKS_PER_S}
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS = 1024
 # the kernels' times in their earlier design (one block a query; cold rows
@@ -1005,13 +1033,14 @@ def _counted():
         select_k_tiles,
         stream_read_sum,
     )
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
     from raft_tpu_torch.ops.ivf_scan import list_major_scan
     from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
 
     return {"fused_knn": fused_knn, "list_major_scan": list_major_scan,
             "bq_scan": bq_list_major_scan, "select_k": select_k_tiles,
             "beam_search": beam_search, "tier_scan": tiered_list_major_scan,
-            "stream_read_sum": stream_read_sum}
+            "stream_read_sum": stream_read_sum, "ivf_pq_scan": ivf_pq_scan}
 
 
 def reset_launches() -> None:
@@ -2618,6 +2647,8 @@ def phase_times(torch, state: dict) -> list:
     records.append(times_beam(torch, state))
     records.append(times_tier(torch, state))
     records.append(times_stream(torch, state))
+    if "pq_record" in state:
+        records.append(state["pq_record"])
     for name, fn in _counted().items():
         fn.launches = saved[name]
     return records
@@ -2912,6 +2943,503 @@ def times_stream(torch, state: dict) -> dict:
                    4 * n * d + 4 * d, {"f32": float(n * d)}, lib_ms)
 
 
+# ---------------------------------------------------------------------------
+# the IVF-PQ path
+# ---------------------------------------------------------------------------
+
+# the sift-128-euclidean config's raft_ivf_pq entry
+PQ_BUILD = dict(n_lists=1024, pq_dim=64, pq_bits=8)
+PQ_PROBES = (32, 128)
+PQ_REFINE_RATIO = 2.0
+# the floor on recall@10 with refine_ratio 2.0 at n_probes 128, batch
+# 500, written in PERF.md before the first card run of this phase
+PQ_REFINED_RECALL_FLOOR = 0.80
+PQ_SERVE_REQUESTS = 60
+PQ_RAGGED_REQUESTS = 120
+PQ_LUTS = ("float32", "bfloat16", "float8_e4m3fn", "float8_e5m2")
+# the rows of the CAGRA build with the IVF-PQ graph source: a cut of the
+# 1M rows that keeps the run inside its time limit (PERF.md, cells)
+CAGRA_PQ_ROWS = 200_000
+
+
+def pq_scan_case(torch, seed: int, ip_metric: bool, per_cluster: bool,
+                 bits: int, k: int, pq_dim: int = 0, L: int = 0):
+    """Random inputs of ivf_pq_scan (the card test's grid): 9 lists of 300
+    slots (ids -1 past 250 and every 37th), 40 queries x 5 probe slots
+    drawn with repeats (each repeat made the sentinel) and ragged sentinel
+    tails, pq_dim 6, 16 or 64 (an odd count of bytes, packed and unpacked
+    rows) unless given, subspaces 2 or 3 wide, no, a shared or a
+    per-query filter."""
+    from raft_tpu_torch.neighbors.ivf_pq import _pack_nibbles
+    from raft_tpu_torch.ops.ivf_pq_scan import codebook_norms, dedup_slots
+
+    rng = np.random.default_rng(seed)
+    n_lists, m, q, p = 9, 300, 40, 5
+    pq_dim = pq_dim or (6, 16, 64)[seed % 3]
+    L, book = L or 2 + seed % 2, 1 << bits
+    cb = torch.from_numpy(rng.standard_normal(
+        (n_lists if per_cluster else pq_dim, book, L)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, book, (n_lists, m, pq_dim)
+                                          ).astype(np.uint8))
+    packed = bits == 4 and pq_dim % 2 == 0
+    if packed:
+        codes = _pack_nibbles(codes)
+    ids = rng.permutation(n_lists * m).reshape(n_lists, m).astype(np.int32)
+    ids[:, 250:] = -1
+    ids[:, ::37] = -1
+    probes = rng.integers(0, n_lists, (q, p)).astype(np.int32)
+    probes[::3, 3:] = n_lists
+    probes = dedup_slots(torch.from_numpy(probes), n_lists)
+    qres = rng.standard_normal((q, pq_dim * L) if ip_metric
+                               else (q, p, pq_dim * L)).astype(np.float32)
+    n_words = -(-n_lists * m // 32)
+    fw = [None, rng.integers(-2**31, 2**31, n_words),
+          rng.integers(-2**31, 2**31, (q, n_words))][seed % 3]
+
+    def put(a):
+        return None if a is None else torch.as_tensor(a).cuda()
+
+    return dict(
+        qres=put(qres),
+        base=put(rng.standard_normal((q, p)).astype(np.float32))
+        if ip_metric else None,
+        codebooks=put(cb), cb_norms=None if ip_metric else put(
+            codebook_norms(cb)),
+        codes=put(codes), indices=put(ids), probes=put(probes),
+        filter_words=None if fw is None else put(fw.astype(np.int32))
+    ), packed
+
+
+def pq_equal(torch, name: str, got, want) -> None:
+    """The PQ kernel against its plain version: ids and distances equal
+    bit for bit."""
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+        bad = int((got[1] != want[1]).sum())
+        fail(f"{name}: ivf_pq_scan differs from its plain version ({bad} "
+             "ids)")
+
+
+# tables past shared memory, which the kernel builds in parts: (pq_dim,
+# subspace width, k) of gist-960's auto pq_dim 240 and mnist-784's 196
+PQ_LARGE_TABLES = ((240, 4, 10), (240, 4, 258), (196, 4, 258))
+
+
+def kernels_pq(torch, seed: int) -> int:
+    """ivf_pq_scan against its plain version over metric x codebook kind x
+    pq_bits x lut_dtype x k {10, 258}, three input draws each, and the
+    large tables (8-bit, float32 and float8_e5m2)."""
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
+
+    n = 0
+    for pq_dim, L, k in PQ_LARGE_TABLES:
+        for ip_metric in (False, True):
+            for lut in ("float32", "float8_e5m2"):
+                args, packed = pq_scan_case(torch, seed + pq_dim + k,
+                                            ip_metric, False, 8, k, pq_dim, L)
+                kw = dict(k=k, ip_metric=ip_metric, per_cluster=False,
+                          lut_dtype=getattr(torch, lut), packed=packed)
+                pq_equal(torch, f"pq large table pq_dim={pq_dim} len={L} "
+                         f"k={k} ip={ip_metric} {lut}",
+                         ivf_pq_scan(**args, **kw, engine="cuda"),
+                         ivf_pq_scan(**args, **kw, engine="torch"))
+                n += 1
+    for ip_metric in (False, True):
+        for per_cluster in (False, True):
+            for bits in (4, 8):
+                for lut in PQ_LUTS:
+                    for k in (10, 258):
+                        for draw in range(3):
+                            args, packed = pq_scan_case(
+                                torch, seed + draw + 7 * k, ip_metric,
+                                per_cluster, bits, k)
+                            kw = dict(k=k, ip_metric=ip_metric,
+                                      per_cluster=per_cluster,
+                                      lut_dtype=getattr(torch, lut),
+                                      packed=packed)
+                            pq_equal(torch, f"pq case ip={ip_metric} "
+                                     f"per_cluster={per_cluster} bits={bits} "
+                                     f"{lut} k={k} draw {draw}",
+                                     ivf_pq_scan(**args, **kw, engine="cuda"),
+                                     ivf_pq_scan(**args, **kw,
+                                                 engine="torch"))
+                            n += 1
+    return n
+
+
+def pq_body(index, queries, n_probes: int, engine: str, k: int = K):
+    """One request through the IVF-PQ serving body with ``engine``."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    fn, arrays, static = ivf_pq.serving_plan(ivf_pq.IvfPqSearchParams(
+        n_probes=n_probes, scan_engine=engine), index, k)
+    return fn(queries, *arrays, None, **static)
+
+
+def pq_data(torch, seed: int, state: dict) -> None:
+    """Main's data and brute-force truth, for a run of the pq phase
+    without main (``--phases env,build,pq``)."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import brute_force
+
+    res = Resources(device="cuda", seed=seed)
+    x, queries = make_data(torch, seed)
+    bf = brute_force.build(res, x)
+    gt_i = torch.cat([brute_force.search(res, bf, queries[s:s + 500], K)[1]
+                      for s in range(0, N_QUERIES, 500)])
+    state.update(res=res, x=x, queries=queries, gt_i=gt_i, seed=seed,
+                 launches={})
+
+
+def phase_pq(torch, state: dict) -> None:
+    """The IVF-PQ path on main's data (the module docstring, phase 7)."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+
+    res, x, queries, gt_i = (state["res"], state["x"], state["queries"],
+                             state["gt_i"])
+    t0 = time.perf_counter()
+    n_cases = kernels_pq(torch, state["seed"])
+    log(f"[pq] ivf_pq_scan equals its plain version bit for bit on "
+        f"{n_cases} small cases (metric x codebook kind x pq_bits x "
+        f"lut_dtype x k {{10, 258}}, filters, sentinel probe slots; "
+        f"tables past shared memory {PQ_LARGE_TABLES}) in {time.perf_counter() - t0:.1f} s")
+
+    params = ivf_pq.IvfPqIndexParams(**PQ_BUILD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_pq.build(res, params, x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fields = ("centers", "rotation", "codebooks", "codes", "indices",
+              "list_sizes")
+    nbytes = sum(getattr(index, f).numel() * getattr(index, f).element_size()
+                 for f in fields)
+    again = ivf_pq.build(Resources(device="cuda", seed=state["seed"]),
+                         params, x)
+    same = all(torch.equal(getattr(index, f), getattr(again, f))
+               for f in fields)
+    del again
+    if not same:
+        fail("two same-seed IVF-PQ builds differ")
+    sizes = index.list_sizes.to(torch.float32)
+    log(f"[pq] ivf_pq.build {PQ_BUILD}: {build_s:.2f} s, index "
+        f"{nbytes} bytes (codes {index.codes.numel()}), max_list_size "
+        f"{index.max_list_size}, list sizes min {int(sizes.min())} median "
+        f"{int(sizes.median())} max {int(sizes.max())}; a second same-seed "
+        "build is torch.equal")
+
+    # the kernel against its plain version on full-size requests
+    t0 = time.perf_counter()
+    for n_probes in PQ_PROBES:
+        for batch in (10, 500):
+            q = queries[:batch]
+            pq_equal(torch, f"pq request n_probes={n_probes} batch={batch}",
+                     pq_body(index, q, n_probes, "cuda"),
+                     pq_body(index, q, n_probes, "torch"))
+    log(f"[pq] full-size requests (n_probes {PQ_PROBES} x batch 10, 500): "
+        "the cuda engine equals the plain engine bit for bit "
+        f"({time.perf_counter() - t0:.1f} s with the plain runs)")
+    for n_probes, batch in ((32, 10), (128, 500)):
+        sp = ivf_pq.IvfPqSearchParams(n_probes=n_probes)
+        q = queries[:batch]
+        ivf_pq.search(res, sp, index, q, K)
+        wall_us, events = profiled(
+            torch, lambda: ivf_pq.search(res, sp, index, q, K), 3)
+        busy, _, _, ops = device_split(events, 3)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+        log(f"[pq] profile n_probes={n_probes} batch={batch}: wall "
+            f"{wall_us:.0f} us a request, device busy {busy:.0f} us, {ops} "
+            "device ops; top: " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / 3:.0f} us"
+                for e in top))
+
+    # the requests, counted
+    torch.cuda.synchronize()
+    reset_launches()
+    pq_recall = {}
+    for n_probes in PQ_PROBES:
+        for batch, n_q in ((10, 1000), (500, N_QUERIES)):
+            sp = ivf_pq.IvfPqSearchParams(n_probes=n_probes)
+            outs, refined, times = [], [], []
+            for s in range(0, n_q, batch):
+                q = queries[s:s + batch]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                outs.append(ivf_pq.search(res, sp, index, q, K))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                _, cand = ivf_pq.search(res, sp, index, q,
+                                        int(K * PQ_REFINE_RATIO))
+                refined.append(refine.refine(res, x, q, cand, K)[1])
+            r = recall(torch.cat([o[1] for o in outs]), gt_i[:n_q])
+            rr = recall(torch.cat(refined), gt_i[:n_q])
+            ms = float(np.median(times[1:]))
+            pq_recall[n_probes, batch] = (r, rr, ms)
+            log(f"[pq] ivf_pq.search n_probes={n_probes} batch={batch}: "
+                f"recall@10 {r:.4f}, with refine_ratio {PQ_REFINE_RATIO} "
+                f"{rr:.4f} over {n_q} queries; median {ms:.3f} ms per "
+                "request")
+    launches = read_launches(("ivf_pq_scan",), "IVF-PQ")["ivf_pq_scan"]
+    floor_r = pq_recall[128, 500][1]
+    if floor_r < PQ_REFINED_RECALL_FLOOR:
+        fail(f"IVF-PQ refined recall@10 {floor_r:.4f} at n_probes 128, "
+             f"batch 500 is under its floor {PQ_REFINED_RECALL_FLOOR}")
+    state.update(pq_index=index, pq_recall=pq_recall)
+    served = pq_serve(torch, state, index)
+    served += pq_ragged(torch, state, index)
+    cagra_launches = pq_cagra(torch, state)
+    state["launches"]["ivf_pq_scan"] = (launches + served
+                                        + cagra_launches["ivf_pq_scan"])
+    state["launches"]["beam_search"] = (state["launches"].get(
+        "beam_search", 0) + cagra_launches["beam_search"])
+    log(f"[pq] ivf_pq_scan launches: requests {launches}, served and "
+        f"packed {served}, CAGRA graph source {cagra_launches['ivf_pq_scan']}")
+    state["pq_record"] = times_pq(torch, state)
+
+
+def pq_serve(torch, state: dict, index) -> int:
+    """Captured IVF-PQ plans on the ladder 8..512 at n_probes 32 and 128:
+    each served request equal to its direct search, no capture after
+    warmup, launches as the replays record. Returns the launches."""
+    import collections
+
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res, queries = state["res"], state["queries"]
+    sizes = _request_sizes(state["seed"] + 10, PQ_SERVE_REQUESTS)
+    total = 0
+    for n_probes in PQ_PROBES:
+        sp = ivf_pq.IvfPqSearchParams(n_probes=n_probes)
+        label = f"ivf_pq n_probes={n_probes}"
+        ex = SearchExecutor(res)
+        t0 = time.perf_counter()
+        ex.warmup(index, buckets=SERVE_LADDER, k=K, params=sp)
+        warm_s = time.perf_counter() - t0
+        built = ex.stats.compile_count
+        costs = list(ex.executable_costs().values())
+        if built != len(SERVE_LADDER) or not all(c["captured"]
+                                                 for c in costs):
+            fail(f"serve {label}: warmup captured {built} plans")
+        want = [ivf_pq.search(res, sp, index, queries[at:at + m], K)
+                for m, at in sizes]
+        per_replay = {e.bucket: e.launches for e in ex._cache.values()}
+        expected = collections.Counter()
+        for m, _ in sizes:
+            expected.update(per_replay[ex.bucket_for(m)])
+        torch.cuda.synchronize()
+        reset_launches()
+        got = [ex.search(index, queries[at:at + m], K, params=sp)
+               for m, at in sizes]
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        if counts != dict(expected) or "ivf_pq_scan" not in counts:
+            fail(f"serve {label}: requests launched {counts}, their "
+                 f"replays record {dict(expected)}")
+        for g, w in zip(got, want):
+            _served_equal(torch, label, g, w)
+        if ex.stats.compile_count != built:
+            fail(f"serve {label}: captures after warmup")
+        total += counts.get("ivf_pq_scan", 0)
+        pools = sum(c["pool_bytes"] for c in costs)
+        state.setdefault("pq_pools", {})[label] = pools
+        (e16,) = [e for e in ex._cache.values() if e.bucket == 16]
+        replay_ms = median_ms(e16.graph.replay, 20)
+        log(f"[pq] serve {label}: warmup captured {built} plans in "
+            f"{warm_s:.2f} s, graph pools {pools} bytes "
+            f"{[c['pool_bytes'] for c in costs]}; {len(sizes)} requests of "
+            f"1-500 rows each bit-identical to ivf_pq.search, launches "
+            f"{counts} as the replays record, no capture after warmup; "
+            f"the batch-10 plan's replay {replay_ms:.3f} ms")
+        del ex
+    torch.cuda.empty_cache()
+    return total
+
+
+def pq_ragged(torch, state: dict, index) -> int:
+    """A ragged IVF-PQ params class (n_probes {72, 96, 128}, k {10, 16})
+    on 256-row tiles: each packed row equal to its solo bucketed search,
+    no capture after warmup. Returns the launches."""
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res, queries = state["res"], state["queries"]
+    mix = [(ivf_pq.IvfPqSearchParams(n_probes=n), k)
+           for n in (72, 96, 128) for k in RAGGED_KS]
+    ex = SearchExecutor(res, ragged_tile=RAGGED_TILE)
+    ex.warmup_ragged(index, k=mix[0][1], params=mix[0][0])
+    if ex.stats.compile_count != 1 or ex.ragged_executables("ivf_pq") != 1:
+        fail(f"ragged ivf_pq: warmup built {ex.stats.compile_count} entries")
+    keys = {ex.ragged_key(index, k, params=p) for p, k in mix}
+    if len(keys) != 1 or None in keys:
+        fail(f"ragged ivf_pq: the mix spans {len(keys)} packing keys")
+    rng = np.random.default_rng(state["seed"] + 11)
+    reqs = [_ragged_draw(mix)(rng) for _ in range(PQ_RAGGED_REQUESTS)]
+    solo = SearchExecutor(res, capture=False)
+    want = [solo.search(index, queries[at:at + m], mix[j][1],
+                        params=mix[j][0]) for m, at, j in reqs]
+    del solo
+    groups, cur, rows = [], [], 0
+    for r in reqs:
+        if rows + r[0] > RAGGED_TILE:
+            groups.append(cur)
+            cur, rows = [], 0
+        cur.append(r)
+        rows += r[0]
+    groups.append(cur)
+    (entry,) = [e for e in ex._cache.values()]
+    torch.cuda.synchronize()
+    reset_launches()
+    got = []
+    for g in groups:
+        got += ex.search_ragged(
+            index, [queries[at:at + m] for m, at, _ in g],
+            [mix[j][1] for _, _, j in g],
+            params_list=[mix[j][0] for _, _, j in g])
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    expected = {n: c * len(groups) for n, c in entry.launches.items()}
+    if counts != expected or "ivf_pq_scan" not in counts:
+        fail(f"ragged ivf_pq: {len(groups)} packed calls launched {counts}, "
+             f"their replays record {expected}")
+    bad = sum(int((g[1] != w[1]).any(dim=1).sum())
+              + int((g[0] != w[0]).any(dim=1).sum())
+              for g, w in zip(got, want))
+    if bad:
+        fail(f"ragged ivf_pq: {bad} packed rows differ from their solo "
+             "search")
+    if ex.stats.compile_count != 1:
+        fail("ragged ivf_pq: captures after warmup")
+    (cost,) = ex.executable_costs().values()
+    tile_ms = median_ms(entry.graph.replay, 20)
+    log(f"[pq] ragged ivf_pq (n_probes {{72, 96, 128}} x k {RAGGED_KS}): "
+        f"{len(reqs)} requests ({sum(m for m, _, _ in reqs)} rows) packed "
+        f"into {len(groups)} {RAGGED_TILE}-row tiles, every packed row "
+        f"bit-identical to its solo bucketed search; launches {counts} as "
+        f"the replays record; no capture after warmup; graph pool "
+        f"{cost['pool_bytes']} bytes; tile replay {tile_ms:.3f} ms")
+    state["pq_ragged_pool"] = cost["pool_bytes"]
+    return counts.get("ivf_pq_scan", 0)
+
+
+def pq_cagra(torch, state: dict) -> dict:
+    """CAGRA with the IVF-PQ graph source (the sift raft_cagra entry:
+    graph_degree 64, intermediate 128) on the first CAGRA_PQ_ROWS rows:
+    build s and the PQ kernel's launches during it; recall@10 at itopk 64
+    and 128, batch 500, on the beam kernel."""
+    from raft_tpu_torch.neighbors import brute_force, cagra
+
+    res, queries = state["res"], state["queries"]
+    sub = state["x"][:CAGRA_PQ_ROWS]
+    q = queries[:1000]
+    bf = brute_force.build(res, sub)
+    truth = torch.cat([brute_force.search(res, bf, q[s:s + 500], K)[1]
+                       for s in (0, 500)])
+    del bf
+    params = cagra.CagraIndexParams(graph_degree=64,
+                                    intermediate_graph_degree=128)
+    if params.build_algo != cagra.BuildAlgo.IVF_PQ:
+        fail("CagraIndexParams() does not default to the IVF-PQ source")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    index = cagra.build(res, params, sub)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_counts = _launch_counts()
+    if not build_counts.get("ivf_pq_scan"):
+        fail(f"the CAGRA IVF-PQ build launched {build_counts}")
+    out = {"ivf_pq_scan": build_counts.get("ivf_pq_scan", 0),
+           "beam_search": 0}
+    rec = {}
+    for itopk in (64, 128):
+        sp = cagra.CagraSearchParams(itopk_size=itopk, search_width=4)
+        reset_launches()
+        ids = torch.cat([cagra.search(res, sp, index, q[s:s + 500], K)[1]
+                         for s in (0, 500)])
+        torch.cuda.synchronize()
+        n = _launch_counts().get("beam_search", 0)
+        if not n:
+            fail("the CAGRA search on the IVF-PQ graph skipped the beam "
+                 "kernel")
+        out["beam_search"] += n
+        rec[itopk] = recall(ids, truth)
+    state["pq_cagra"] = dict(build_s=build_s, recall=rec,
+                             launches=build_counts)
+    log(f"[pq] cagra.build (IVF-PQ graph source, graph_degree 64, "
+        f"intermediate 128) on {CAGRA_PQ_ROWS} rows: {build_s:.2f} s, "
+        f"launches {build_counts}; recall@10 at batch 500 itopk 64 "
+        f"{rec[64]:.4f}, itopk 128 {rec[128]:.4f} (beam kernel)")
+    return out
+
+
+def times_pq(torch, state: dict) -> dict:
+    """ivf_pq_scan at the batch-500, n_probes=128 request (and batch 10,
+    n_probes 32): CUDA events around the wrapper, the plain version, and
+    the bound from this request's probed rows."""
+    from raft_tpu_torch.neighbors.ivf_bq import _coarse
+    from raft_tpu_torch.ops.ivf_pq_scan import codebook_norms, ivf_pq_scan
+
+    index = state["pq_index"]
+    saved = {name: fn.launches for name, fn in _counted().items()}
+
+    def args_for(batch, n_probes):
+        qf = state["queries"][:batch]
+        probes, _, _ = _coarse(index.centers, index.metric, qf, n_probes,
+                               "exact")
+        lists = probes.to(torch.int64)
+        qres = (qf[:, None, :] - index.centers[lists]) @ index.rotation.T
+        args = (qres, None, index.codebooks, codebook_norms(index.codebooks),
+                index.codes, index.indices, probes, None)
+        kw = dict(k=K, ip_metric=False, per_cluster=False,
+                  lut_dtype=torch.float32, packed=index.packed)
+        return args, kw, probes
+
+    out = {}
+    for batch, n_probes in ((500, 128), (10, 32)):
+        args, kw, probes = args_for(batch, n_probes)
+        got = ivf_pq_scan(*args, **kw, engine="cuda")
+        want = ivf_pq_scan(*args, **kw, engine="torch")
+        pq_equal(torch, f"times pq batch={batch}", got, want)
+        fin = torch.isfinite(want[0])
+        err = float((got[0][fin] - want[0][fin]).abs().max()) if bool(
+            fin.any()) else 0.0
+        ms = median_ms(lambda: ivf_pq_scan(*args, **kw, engine="cuda"), 20)
+        plain_ms = median_ms(lambda: ivf_pq_scan(*args, **kw,
+                                                 engine="torch"), 3, 1)
+        out[batch] = (ms, plain_ms, err, probes)
+    ms, plain_ms, err, probes = out[500]
+    q, p = probes.shape
+    sizes = index.list_sizes.to(torch.int64)
+    pr = probes.to(torch.int64)
+    live = pr < index.n_lists
+    probed_rows = int(sizes[pr.clamp(max=index.n_lists - 1)][live].sum())
+    uniq = torch.unique(pr[live])
+    union_rows = int(sizes[uniq].sum())
+    pq_dim, book, L = index.pq_dim, index.pq_book_size, index.pq_len
+    row_bytes = index.codes.shape[2]
+    # inputs read once: the union's code rows and ids, the residuals,
+    # codebooks and their norms, the probes; outputs written once
+    nbytes = (union_rows * (row_bytes + 4) + 4 * q * p * pq_dim * L
+              + 4 * pq_dim * book * (L + 1) + 4 * q * p + 8 * q * K)
+    lookups = float(probed_rows * pq_dim)
+    lut_flops = float(q * p * pq_dim * book * (2 * L + 2))
+    log(f"[times] ivf_pq_scan work at q=500 n_probes=128: {probed_rows} "
+        f"probed rows x pq_dim {pq_dim} = {lookups:.4g} LUT lookups, "
+        f"{union_rows} rows in the union of {uniq.numel()} lists; batch 10 "
+        f"n_probes 32: {out[10][0]:.4f} ms (plain {out[10][1]:.3f} ms)")
+    rec = _record("ivf_pq_scan", "raft_tpu_torch/csrc/ivf_pq_scan.cu",
+                  "none (port kernel; JAX raft_tpu/neighbors/ivf_pq.py:876 "
+                  "is XLA)", state["launches"]["ivf_pq_scan"], err, ms,
+                  plain_ms, nbytes, {"smem": lookups,
+                                     "f32": lookups + lut_flops}, None,
+                  ms_b10_p32=out[10][0], plain_ms_b10_p32=out[10][1])
+    for name, fn in _counted().items():
+        fn.launches = saved[name]
+    return rec
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
@@ -2940,7 +3468,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="env,build,kernels,main,serve,ragged,times")
+                    default="env,build,kernels,main,serve,ragged,pq,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2979,6 +3507,11 @@ def main() -> int:
             timed("serve", phase_serve, torch, state)
             if "ragged" in phases:
                 timed("ragged", phase_ragged, torch, state)
+    if "pq" in phases:
+        if "x" not in state:
+            pq_data(torch, args.seed, state)
+        timed("pq", phase_pq, torch, state)
+    if "main" in phases:
         if "times" in phases:
             records = timed("times", phase_times, torch, state)
         if "profile" in phases:

@@ -171,13 +171,14 @@ def _kernel_wrappers() -> dict:
         select_k_tiles,
         stream_read_sum,
     )
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
     from raft_tpu_torch.ops.ivf_scan import list_major_scan
     from raft_tpu_torch.ops.tier_scan import tiered_list_major_scan
 
     return {"fused_knn": fused_knn, "list_major_scan": list_major_scan,
             "bq_scan": bq_list_major_scan, "select_k": select_k_tiles,
             "beam_search": beam_search, "tier_scan": tiered_list_major_scan,
-            "stream_read_sum": stream_read_sum}
+            "stream_read_sum": stream_read_sum, "ivf_pq_scan": ivf_pq_scan}
 
 
 def _sig(*arrays) -> tuple:
@@ -599,7 +600,7 @@ class SearchExecutor:
         ``(None, reason)`` where the request stays bucketed. The engine
         comes from the family's bucketed plan at the class caps, so the
         raggability decision and the plan cannot disagree."""
-        from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, tiered
+        from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq, tiered
         from raft_tpu_torch.neighbors.brute_force import BruteForceIndex
         from raft_tpu_torch.neighbors.cagra import CagraIndex
 
@@ -609,6 +610,7 @@ class SearchExecutor:
             (ivf_flat.IvfFlatIndex, "ivf_flat",
              ivf_flat.IvfFlatSearchParams),
             (ivf_bq.IvfBqIndex, "ivf_bq", ivf_bq.IvfBqSearchParams),
+            (ivf_pq.IvfPqIndex, "ivf_pq", ivf_pq.IvfPqSearchParams),
         )
         for typ, family, params_type in families:
             if isinstance(index, typ):
@@ -678,6 +680,7 @@ class SearchExecutor:
         "ivf_flat": ("raft_tpu_torch.neighbors.ivf_flat",
                      "_search_ragged_fn"),
         "ivf_bq": ("raft_tpu_torch.neighbors.ivf_bq", "_search_ragged_fn"),
+        "ivf_pq": ("raft_tpu_torch.neighbors.ivf_pq", "_search_ragged_fn"),
         "tiered_ivf": ("raft_tpu_torch.neighbors.tiered",
                        "_tiered_search_ragged_fn"),
         "cagra": ("raft_tpu_torch.neighbors.cagra", "_search_ragged_fn"),
@@ -708,7 +711,8 @@ class SearchExecutor:
     def ragged_executables(self, family: Optional[str] = None) -> int:
         """Resident ragged plan entries (at most one per (index, params
         class) per configured tile); ``family`` filters to one family
-        tag (``"ivf_flat"``, ``"ivf_bq"``, ``"cagra"``, ``"tiered_ivf"``)."""
+        tag (``"ivf_flat"``, ``"ivf_bq"``, ``"ivf_pq"``, ``"cagra"``,
+        ``"tiered_ivf"``)."""
         with self._lock:
             return sum(1 for key in self._cache
                        if key[0].endswith("_ragged")
@@ -1092,6 +1096,7 @@ class SearchExecutor:
         from raft_tpu_torch.neighbors.cagra import CagraIndex
         from raft_tpu_torch.neighbors.ivf_bq import IvfBqIndex
         from raft_tpu_torch.neighbors.ivf_flat import IvfFlatIndex
+        from raft_tpu_torch.neighbors.ivf_pq import IvfPqIndex
         from raft_tpu_torch.neighbors.tiered import TieredIvf
 
         if isinstance(index, BruteForceIndex):
@@ -1102,6 +1107,8 @@ class SearchExecutor:
             plan = self._plan_ivf_flat(index, params, k, bucket, fw)
         elif isinstance(index, IvfBqIndex):
             plan = self._plan_ivf_bq(index, params, k, bucket, fw)
+        elif isinstance(index, IvfPqIndex):
+            plan = self._plan_ivf_pq(index, params, k, bucket, fw)
         elif isinstance(index, CagraIndex):
             plan = self._plan_cagra(index, params, k, bucket, fw)
         else:
@@ -1165,6 +1172,19 @@ class SearchExecutor:
                      qdim=index.dim,
                      capturable=static["scan_engine"] in ("cuda", "rank"),
                      probe=probe)
+
+    def _plan_ivf_pq(self, index, params, k, bucket, fw) -> _Plan:
+        from raft_tpu_torch.neighbors import ivf_pq as m
+
+        fn, arrays, static = m.serving_plan(
+            params or m.IvfPqSearchParams(), index, k, fw)
+        key = ("ivf_pq", bucket, _sig(*arrays), _statics(static),
+               _filter_spec(fw))
+        key, probe = self._probe_plumbing(index, "ivf_pq", key)
+        return _Plan(key=key, fn=fn, static=static, arrays=arrays,
+                     device=index.centers.device, use_filter=True,
+                     qdim=index.dim,
+                     capturable=static["scan_engine"] == "cuda", probe=probe)
 
     def _plan_cagra(self, index, params, k, bucket, fw) -> _Plan:
         from raft_tpu_torch.neighbors import cagra as m

@@ -274,7 +274,7 @@ __device__ __forceinline__ void bitonic_pass(float (&d)[S], int (&id)[S],
 // log2 of KP = 32 * S
 template <int S>
 __host__ __device__ constexpr int log2_kp() {
-  return S == 1 ? 5 : S == 2 ? 6 : 7;
+  return S == 1 ? 5 : S == 2 ? 6 : S == 4 ? 7 : S == 8 ? 8 : 9;
 }
 
 template <int S>

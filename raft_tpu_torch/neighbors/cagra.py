@@ -9,8 +9,8 @@
   member table); optionally the **BQ record plane** (``bq_bits``: the
   IVF-BQ pinned rotation, RaBitQ codes about the global mean, packed per
   row by :func:`raft_tpu_torch.ops.bq_scan.pack_bq_records`).
-  ``BuildAlgo.IVF_PQ``, the JAX package's default graph source, needs
-  IVF-PQ, which is not ported yet: it raises.
+  ``BuildAlgo.IVF_PQ`` (the default) builds it by a batched IVF-PQ
+  self-search and refine (:func:`build_knn_graph`).
 - **search**: seeds from the seed plane (or the strided pool for an
   index without one), then the beam walk. Two engines behind
   ``CagraSearchParams.algo``: ``cuda``, the one-launch kernel
@@ -25,7 +25,6 @@ The executor (:mod:`raft_tpu_torch.core.executor`) serves the index
 through :func:`_serving_fn` (the JAX package's ``_serve_impl`` and
 ``_serving_fn`` in one) and its ragged plans through
 :func:`_search_ragged_fn`, the same body with per-row iteration budgets.
-Not ported yet: the IVF-PQ graph source.
 """
 
 from __future__ import annotations
@@ -50,7 +49,7 @@ from raft_tpu_torch.core.serialize import (
 )
 from raft_tpu_torch.core.validation import expect
 from raft_tpu_torch.distance.types import DistanceType
-from raft_tpu_torch.neighbors import cluster_join
+from raft_tpu_torch.neighbors import cluster_join, ivf_pq
 from raft_tpu_torch.neighbors import nn_descent as nn_descent_mod
 from raft_tpu_torch.neighbors._exact import (
     dedup_candidate_mask,
@@ -60,6 +59,7 @@ from raft_tpu_torch.neighbors._exact import (
 from raft_tpu_torch.neighbors.filters import resolve_filter_words, test_filter
 from raft_tpu_torch.neighbors.ivf_bq import _encode, _pinned_rotation
 from raft_tpu_torch.neighbors.nn_descent import _reverse_sample
+from raft_tpu_torch.neighbors.refine import refine
 from raft_tpu_torch.ops import beam_search as bs
 from raft_tpu_torch.ops.bq_scan import (
     _block_estimate,
@@ -164,12 +164,41 @@ def build_knn_graph(res, dataset, k: int,
                     metric: DistanceType = DistanceType.L2Expanded,
                     n_lists: int = 0, n_probes: int = 0,
                     refine_rate: float = 2.0, batch: int = 1024):
-    """The IVF-PQ graph source (batched IVF-PQ self-search + refine). It
-    needs IVF-PQ, which the port does not have yet."""
-    raise NotImplementedError(
-        "cagra: BuildAlgo.IVF_PQ builds the k-NN graph with IVF-PQ, which "
-        "raft_tpu_torch does not port yet (ROADMAP.md Queue 1 item 8); "
-        "use BuildAlgo.CLUSTER_JOIN or BuildAlgo.NN_DESCENT")
+    """Intermediate k-NN graph by a batched IVF-PQ self-search and refine
+    (``detail/cagra/cagra_build.cuh:44-123``, 1024-query batches): 4-bit
+    codes at twice the auto ``pq_dim`` (nibble-packed), ``gpu_k = max(k +
+    1, (k + 1)·refine_rate)`` candidates a row re-ranked exactly, the
+    self-hit dropped and each row stably compacted. Returns (n, k)
+    int32."""
+    res = ensure_resources(res)
+    dataset = res.put(dataset)
+    n, dim = dataset.shape
+    n_lists = n_lists or max(8, min(n // 39 + 1, int(np.sqrt(n) * 2)))
+    n_probes = n_probes or max(8, n_lists // 10)
+    gpu_k = max(k + 1, int((k + 1) * refine_rate))
+    params = ivf_pq.IvfPqIndexParams(
+        metric=metric, n_lists=n_lists, pq_bits=4,
+        pq_dim=min(dim, 2 * ivf_pq._auto_pq_dim(dim)),
+        kmeans_trainset_fraction=min(1.0, 10240 / max(n, 1) + 0.1))
+    index = ivf_pq.build(res, params, dataset)
+    sp = ivf_pq.IvfPqSearchParams(n_probes=n_probes)
+    out = []
+    for start in range(0, n, batch):
+        q = dataset[start:start + batch]
+        rows = q.shape[0]
+        _, cand = ivf_pq.search(res, sp, index, q, gpu_k)
+        _, idx = refine(res, dataset, q, cand, k + 1, metric)
+        # drop the self-hit and compact each row stably to k entries
+        own = torch.arange(start, start + rows, dtype=torch.int32,
+                           device=idx.device)[:, None]
+        keep = idx != own
+        pos = torch.where(keep, torch.cumsum(keep.to(torch.int64), dim=1) - 1,
+                          torch.full_like(idx, k + 1, dtype=torch.int64))
+        row = torch.full((rows, k + 2), -1, dtype=torch.int32,
+                         device=idx.device)
+        row.scatter_(1, pos, idx)
+        out.append(row[:, :k])
+    return torch.cat(out)
 
 
 def _detour_counts(graph: torch.Tensor, tile: int,

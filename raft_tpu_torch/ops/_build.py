@@ -44,6 +44,8 @@ SIGNATURES = {
                     [_P, _P, _I, _P, _I, _I, _P, _I, _P] + [_I] * 7 + [_P]
                     + [_I] * 5 + [_P, _P, _F, _P, _P, _P, _I, _P, _P]),
     "tier_scan": ("raft_tier_scan", [_P] * 19 + [_I] * 9 + [_P] * 12),
+    "ivf_pq_scan": ("raft_ivf_pq_scan",
+                    [_P] * 9 + [_L] + [_I] * 13 + [_P] * 5),
     "stream_read": ("raft_stream_read_sum",
                     [_P, _I, _I, _L, _I, _L, _I, _P, _P, _P]),
 }

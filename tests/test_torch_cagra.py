@@ -298,11 +298,50 @@ def test_engine_resolution_and_errors(jax_index):
         sp(algo="cuda", itopk_size=513), t, None) == "cuda"
     assert t_cagra._resolve_search_algo(
         sp(itopk_size=513), t, None) == "torch"        # a CPU index
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t_cagra.build(CPU, t_cagra.CagraIndexParams(), x)
+    # the default graph source is IVF-PQ: the default params build
+    default = t_cagra.build(CPU, t_cagra.CagraIndexParams(), x)
+    assert default.graph.shape == (N, 64) and bool((default.graph >= 0).all())
+    _, i = t_cagra.search(CPU, sp(itopk_size=64), default, q, 5)
+    assert _recall(i, _truth(x, q, 5)) >= 0.9
     with pytest.raises(Exception, match="bq_traversal='on'"):
         t_cagra.search(CPU, sp(bq_traversal="on"), t_cagra.from_graph(
             CPU, x, t.graph), q, 5)
     plain = t_cagra.from_graph(CPU, x, t.graph)
     _, i = t_cagra.search(CPU, sp(itopk_size=32), plain, q, 5)  # pool seeds
     assert _recall(i, _truth(x, q, 5)) >= 0.8
+
+
+def test_ivf_pq_graph_source_equals_jax(monkeypatch):
+    """``build_knn_graph`` against the JAX package's on integer data, both
+    searching one carried-across IVF-PQ index (integer centers and
+    codebooks, identity rotation): the same candidates, the same exact
+    re-rank, the same self-hit drop and compaction."""
+    from raft_tpu.neighbors import ivf_pq as j_pq
+    from raft_tpu_torch.neighbors import ivf_pq as t_pq
+
+    rng = np.random.default_rng(5)
+    n, dim, n_lists, pq_dim = 600, 16, 8, 8
+    x = rng.integers(-8, 9, (n, dim)).astype(np.float32)
+    empty = j_pq.IvfPqIndex(
+        centers=jnp.asarray(rng.integers(-6, 7, (n_lists, dim)), jnp.float32),
+        rotation=jnp.eye(dim, dtype=jnp.float32),
+        codebooks=jnp.asarray(rng.integers(-3, 4, (pq_dim, 16, 2)),
+                              jnp.float32),
+        codes=jnp.zeros((n_lists, 0, pq_dim), jnp.uint8),
+        indices=jnp.full((n_lists, 0), -1, jnp.int32),
+        list_sizes=jnp.zeros((n_lists,), jnp.int32),
+        metric=JD.L2Expanded,
+        codebook_kind=j_pq.CodebookKind.PER_SUBSPACE, pq_bits=4)
+    ji = j_pq.extend(None, empty, x)
+    assert ji.packed
+    ti = t_pq.from_numpy(*(np.asarray(getattr(ji, f)) for f in (
+        "centers", "rotation", "codebooks", "codes", "indices",
+        "list_sizes")), pq_bits=4, packed=True, res=CPU)
+    monkeypatch.setattr(j_cagra.ivf_pq_mod, "build", lambda *a: ji)
+    monkeypatch.setattr(t_pq, "build", lambda *a: ti)
+    want = np.asarray(j_cagra.build_knn_graph(None, x, 12, n_lists=n_lists,
+                                              n_probes=3, batch=256))
+    got = t_cagra.build_knn_graph(CPU, x, 12, n_lists=n_lists, n_probes=3,
+                                  batch=256)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != np.arange(n)[:, None]).all()

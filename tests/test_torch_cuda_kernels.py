@@ -897,3 +897,185 @@ def test_memory_ledger_live_headroom(dev):
     ledger.reserve("hold", int(ledger.headroom_bytes()) - 3 * block)
     assert tiered.resolve_hot_slots(index, ledger=ledger,
                                     safety_fraction=0.0) == 3
+
+
+# ---------------------------------------------------------------------------
+# IVF-PQ: the LUT scan kernel (csrc/ivf_pq_scan.cu) against its plain
+# version, bit for bit, over metric x codebook kind x pq_bits x lut_dtype
+# x k, with shared and per-query filters, sentinel probe slots, odd pq_dim
+# and three-wide subspaces, and LUTs too large for shared memory
+# ---------------------------------------------------------------------------
+
+PQ_LUTS = (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+           torch.float8_e5m2)
+
+
+def _pq_scan_case(dev, ip_metric, per_cluster, bits, k, case, pq_dim=None,
+                  L=None):
+    """Random scan inputs: 9 lists of 300 slots (ids -1 past 250 and at
+    every 37th slot), 40 queries x 5 probe slots (drawn with repeats, each
+    repeat made the sentinel)."""
+    from raft_tpu_torch.neighbors.ivf_pq import _pack_nibbles
+    from raft_tpu_torch.ops.ivf_pq_scan import codebook_norms, dedup_slots
+
+    rng = np.random.default_rng(case)
+    n_lists, m, q, p = 9, 300, 40, 5
+    pq_dim = pq_dim or (6, 16, 64)[case % 3]
+    L = L or 2 + case % 2
+    book = 1 << bits
+    cb = torch.from_numpy(rng.standard_normal(
+        (n_lists if per_cluster else pq_dim, book, L)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, book, (n_lists, m, pq_dim)
+                                          ).astype(np.uint8))
+    packed = bits == 4 and pq_dim % 2 == 0
+    if packed:
+        codes = _pack_nibbles(codes)
+    ids = rng.permutation(n_lists * m).reshape(n_lists, m).astype(np.int32)
+    ids[:, 250:] = -1
+    ids[:, ::37] = -1
+    probes = rng.integers(0, n_lists, (q, p)).astype(np.int32)
+    probes[::3, 3:] = n_lists                          # ragged budgets
+    probes = dedup_slots(torch.from_numpy(probes), n_lists)
+    shape = (q, pq_dim * L) if ip_metric else (q, p, pq_dim * L)
+    qres = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    base = (torch.from_numpy(rng.standard_normal((q, p)).astype(np.float32))
+            if ip_metric else None)
+    n_words = -(-n_lists * m // 32)
+    fw = [None, rng.integers(-2**31, 2**31, n_words),
+          rng.integers(-2**31, 2**31, (q, n_words))][case % 3]
+    to = (lambda t: None if t is None else torch.as_tensor(t).to(dev))
+    return dict(qres=to(qres), base=to(base), codebooks=to(cb),
+                cb_norms=None if ip_metric else to(codebook_norms(cb)),
+                codes=to(codes), indices=to(torch.from_numpy(ids)),
+                probes=to(probes),
+                filter_words=None if fw is None else to(
+                    torch.from_numpy(fw.astype(np.int32)))), packed
+
+
+@pytest.mark.parametrize("k", [10, 258])
+@pytest.mark.parametrize("lut", PQ_LUTS, ids=str)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("per_cluster", [False, True])
+@pytest.mark.parametrize("ip_metric", [False, True])
+def test_ivf_pq_scan_kernel_matches_plain(dev, ip_metric, per_cluster, bits,
+                                          lut, k):
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
+
+    for case in range(3):
+        args, packed = _pq_scan_case(dev, ip_metric, per_cluster, bits, k,
+                                     case + 7 * k)
+        kw = dict(k=k, ip_metric=ip_metric, per_cluster=per_cluster,
+                  lut_dtype=lut, packed=packed)
+        before = ivf_pq_scan.launches
+        got = ivf_pq_scan(**args, **kw, engine="cuda")
+        assert ivf_pq_scan.launches == before + 1
+        want = ivf_pq_scan(**args, **kw, engine="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+        assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("lut", [torch.float32, torch.bfloat16,
+                                 torch.float8_e5m2], ids=str)
+@pytest.mark.parametrize("ip_metric", [False, True])
+@pytest.mark.parametrize("shape", [(240, 4, 10), (240, 4, 258),
+                                   (196, 4, 258), (512, 1, 10)],
+                         ids=lambda s: "pq_dim%d-len%d-k%d" % s)
+def test_ivf_pq_scan_kernel_builds_large_luts_in_parts(dev, shape, ip_metric,
+                                                       lut):
+    """Tables past shared memory (an fp32 table of pq_dim 240 at 8 bits is
+    240 KB; pq_dim 196 is 196 KB beside k=258's queues) are built and
+    scored in parts: still the plain version bit for bit."""
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
+
+    pq_dim, L, k = shape
+    args, packed = _pq_scan_case(dev, ip_metric, False, 8, k, pq_dim + k,
+                                 pq_dim=pq_dim, L=L)
+    kw = dict(k=k, ip_metric=ip_metric, per_cluster=False, lut_dtype=lut,
+              packed=packed)
+    got = ivf_pq_scan(**args, **kw, engine="cuda")
+    want = ivf_pq_scan(**args, **kw, engine="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("dim", [128, 20])
+@pytest.mark.parametrize("metric", ["L2Expanded", "L2SqrtExpanded",
+                                    "InnerProduct"])
+def test_quantized_search_on_the_card_equals_cpu(dev, metric, dim):
+    """``quantized.search`` on the card (``torch._int_mm``) against its CPU
+    path (an exact int32 product) at the default 32,768-row tile, with a
+    ragged last tile and fewer than 17 queries. Integers spanning exactly
+    [-127, 127] give scale 1 and zero 0, so every distance is an exact
+    integer (its sqrt to 1e-6) and the ids are equal."""
+    from raft_tpu_torch.neighbors import quantized
+
+    rng = np.random.default_rng(dim)
+    x = rng.integers(-127, 128, (40_003, dim)).astype(np.float32)
+    x[0, 0], x[1, 1] = -127.0, 127.0
+    q = rng.integers(-127, 128, (50, dim)).astype(np.float32)
+    gpu_res, cpu_res = Resources(device="cuda"), Resources(device="cpu")
+    gpu = quantized.build(gpu_res, x, DistanceType[metric])
+    cpu = quantized.build(cpu_res, x, DistanceType[metric])
+    assert (gpu.scale, gpu.zero) == (cpu.scale, cpu.zero) == (1.0, 0.0)
+    assert gpu.codes.device.type == "cuda"
+    for nq in (5, 50):
+        got = quantized.search(gpu_res, gpu, q[:nq], 10)
+        want = quantized.search(cpu_res, cpu, q[:nq], 10)
+        assert got[1].device.type == "cuda"
+        assert torch.equal(got[1].cpu(), want[1])
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=0)
+
+
+def test_ivf_pq_scan_kernel_replays_in_a_graph(dev):
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
+
+    args, packed = _pq_scan_case(dev, False, False, 8, 10, 1)
+    kw = dict(k=10, ip_metric=False, per_cluster=False,
+              lut_dtype=torch.float32, packed=packed, engine="cuda")
+    want = ivf_pq_scan(**args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ivf_pq_scan(**args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ivf_pq_scan(**args, **kw)
+    args["qres"].mul_(1.0)                   # same values, replayed in place
+    before = ivf_pq_scan.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ivf_pq_scan.launches == before    # a replay runs no Python
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("lut", PQ_LUTS, ids=str)
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.L2SqrtExpanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+def test_ivf_pq_search_cuda_engine_equals_torch_engine(dev, metric, lut):
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res = Resources(device="cuda", seed=5)
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((20, 32)) * 3
+    x = (centers[rng.integers(0, 20, 4000)]
+         + rng.standard_normal((4000, 32))).astype(np.float32)
+    q = torch.from_numpy((centers[rng.integers(0, 20, 70)] + rng.standard_normal(
+        (70, 32))).astype(np.float32)).to(dev)
+    for bits, kind in ((8, ivf_pq.CodebookKind.PER_SUBSPACE),
+                       (4, ivf_pq.CodebookKind.PER_CLUSTER)):
+        index = ivf_pq.build(res, ivf_pq.IvfPqIndexParams(
+            n_lists=16, pq_dim=16, pq_bits=bits, codebook_kind=kind,
+            metric=metric), x)
+        assert index.packed == (bits == 4)
+        got = ivf_pq.search(res, ivf_pq.IvfPqSearchParams(
+            n_probes=6, lut_dtype=lut), index, q, 10)
+        want = ivf_pq.search(res, ivf_pq.IvfPqSearchParams(
+            n_probes=6, lut_dtype=lut, scan_engine="torch"), index, q, 10)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])

@@ -28,6 +28,7 @@ from raft_tpu.neighbors import brute_force as j_bf
 from raft_tpu.neighbors import cagra as j_cagra
 from raft_tpu.neighbors import ivf_bq as j_bq
 from raft_tpu.neighbors import ivf_flat as j_ivf
+from raft_tpu.neighbors import ivf_pq as j_pq
 from raft_tpu.neighbors.filters import BitmapFilter as JBitmap
 from raft_tpu.neighbors.filters import BitsetFilter as JBitsetFilter
 from raft_tpu_torch import Resources, SearchExecutor
@@ -35,13 +36,13 @@ from raft_tpu_torch.core import executor, tracing
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.validation import RaftError
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
-from raft_tpu_torch.neighbors import tiered
+from raft_tpu_torch.neighbors import ivf_pq, tiered
 from raft_tpu_torch.neighbors.filters import BitmapFilter, BitsetFilter
 
 CPU = Resources(device="cpu")
 N, D, N_LISTS = 600, 16, 8
-FAMILIES = ("brute_force", "ivf_flat", "ivf_bq", "cagra", "tiered")
-IVF = ("ivf_flat", "ivf_bq", "tiered")
+FAMILIES = ("brute_force", "ivf_flat", "ivf_bq", "cagra", "tiered", "ivf_pq")
+IVF = ("ivf_flat", "ivf_bq", "tiered", "ivf_pq")
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +61,20 @@ def _carry(j_mod, t_mod, jidx):
     return t_mod.load(CPU, buf)
 
 
+def _jax_pq(x, n_lists):
+    """A JAX IVF-PQ index with its centers and codebooks rounded to
+    integers before the rows are added: every ADC sum is exact."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    empty = j_pq.build(None, j_pq.IvfPqIndexParams(
+        n_lists=n_lists, pq_dim=8, add_data_on_build=False), x)
+    empty = dataclasses.replace(empty, centers=jnp.round(empty.centers),
+                                codebooks=jnp.round(empty.codebooks))
+    return j_pq.extend(None, empty, x)
+
+
 @pytest.fixture(scope="module")
 def indexes(data):
     """{family: (JAX index, port index)}; tiered pairs the JAX IVF-Flat
@@ -72,7 +87,9 @@ def indexes(data):
         graph_degree=8, intermediate_graph_degree=16,
         build_algo=j_cagra.BuildAlgo.NN_DESCENT), x)
     ti = _carry(j_ivf, ivf_flat, ji)
+    jp = _jax_pq(x, N_LISTS)
     return {
+        "ivf_pq": (jp, _carry(j_pq, ivf_pq, jp)),
         "brute_force": (jb, _carry(j_bf, brute_force, jb)),
         "ivf_flat": (ji, ti),
         "ivf_bq": (jq, _carry(j_bq, ivf_bq, jq)),
@@ -93,6 +110,8 @@ def _params(name, n_probes=N_LISTS):
                   cagra.CagraSearchParams(itopk_size=16)),
         "tiered": (j_ivf.IvfFlatSearchParams(n_probes=n_probes),
                    tiered.TieredSearchParams(n_probes=n_probes)),
+        "ivf_pq": (j_pq.IvfPqSearchParams(n_probes=n_probes),
+                   ivf_pq.IvfPqSearchParams(n_probes=n_probes)),
     }[name]
 
 
@@ -100,7 +119,7 @@ def _direct(name, index, params, q, k, sample_filter=None):
     if name == "brute_force":
         return brute_force.search(CPU, index, q, k)
     mod = {"ivf_flat": ivf_flat, "ivf_bq": ivf_bq, "cagra": cagra,
-           "tiered": tiered}[name]
+           "tiered": tiered, "ivf_pq": ivf_pq}[name]
     return mod.search(CPU, params, index, q, k, sample_filter=sample_filter)
 
 
@@ -162,7 +181,8 @@ class TestBitIdentity:
                               5))
         _close_to_jax(got, JExecutor().search(jidx, q[:11], 5, params=jp))
 
-    @pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "tiered"])
+    @pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "tiered",
+                                      "ivf_pq"])
     @pytest.mark.parametrize("kind", ["bitset", "bitmap"])
     def test_filtered_search(self, data, indexes, name, kind):
         x, q = data

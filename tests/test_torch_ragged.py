@@ -29,23 +29,25 @@ from raft_tpu.neighbors import brute_force as j_bf
 from raft_tpu.neighbors import cagra as j_cagra
 from raft_tpu.neighbors import ivf_bq as j_bq
 from raft_tpu.neighbors import ivf_flat as j_ivf
+from raft_tpu.neighbors import ivf_pq as j_pq
 from raft_tpu_torch import Resources, SearchExecutor
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.validation import RaftError
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
-from raft_tpu_torch.neighbors import tiered
+from raft_tpu_torch.neighbors import ivf_pq, tiered
 from raft_tpu_torch.neighbors.filters import BitmapFilter, BitsetFilter
 from raft_tpu_torch.serving import metrics
 
 CPU = Resources(device="cpu")
 N, D, N_LISTS = 600, 16, 16
-FAMILIES = ("ivf_flat", "ivf_bq", "cagra", "tiered")
+FAMILIES = ("ivf_flat", "ivf_bq", "cagra", "tiered", "ivf_pq")
 # one params class each: n_probes 2..8 -> class 8; k 3..8 -> class 8;
 # CAGRA max_iterations 9..16 -> class 16
 SIZES = (3, 2, 4, 1, 6)
 KS = (3, 7, 5, 8, 4)
 BUDGETS = {"ivf_flat": (5, 8, 2, 7, 3), "ivf_bq": (5, 8, 2, 7, 3),
+           "ivf_pq": (5, 8, 2, 7, 3),
            "tiered": (5, 8, 2, 7, 3), "cagra": (9, 12, 16, 10, 11)}
 
 
@@ -65,6 +67,20 @@ def _carry(j_mod, t_mod, jidx):
     return t_mod.load(CPU, buf)
 
 
+def _jax_pq(x):
+    """A JAX IVF-PQ index with its centers and codebooks rounded to
+    integers before the rows are added: every ADC sum is exact."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    empty = j_pq.build(None, j_pq.IvfPqIndexParams(
+        n_lists=N_LISTS, pq_dim=8, add_data_on_build=False), x)
+    empty = dataclasses.replace(empty, centers=jnp.round(empty.centers),
+                                codebooks=jnp.round(empty.codebooks))
+    return j_pq.extend(None, empty, x)
+
+
 @pytest.fixture(scope="module")
 def indexes(data):
     """{family: (JAX index, port index)}; tiered pairs the JAX IVF-Flat
@@ -76,7 +92,9 @@ def indexes(data):
         graph_degree=8, intermediate_graph_degree=16,
         build_algo=j_cagra.BuildAlgo.NN_DESCENT), x)
     ti = _carry(j_ivf, ivf_flat, ji)
+    jp = _jax_pq(x)
     return {
+        "ivf_pq": (jp, _carry(j_pq, ivf_pq, jp)),
         "ivf_flat": (ji, ti),
         "ivf_bq": (jq, _carry(j_bq, ivf_bq, jq)),
         "cagra": (jc, _carry(j_cagra, cagra, jc)),
@@ -98,6 +116,10 @@ def _params(name, budget, **kw):
     if name == "ivf_bq":
         return (j_bq.IvfBqSearchParams(n_probes=budget, scan_engine="xla"),
                 ivf_bq.IvfBqSearchParams(n_probes=budget, **kw))
+    if name == "ivf_pq":
+        kw.setdefault("scan_engine", "torch")
+        return (j_pq.IvfPqSearchParams(n_probes=budget, scan_engine="xla"),
+                ivf_pq.IvfPqSearchParams(n_probes=budget, **kw))
     return (j_cagra.CagraSearchParams(itopk_size=16, max_iterations=budget,
                                       algo="xla"),
             cagra.CagraSearchParams(itopk_size=16, max_iterations=budget,
@@ -298,7 +320,8 @@ class TestRaggedPlans:
             ids = g[1].numpy()
             assert (ids[ids >= 0] % 2 == 0).all()
 
-    @pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "tiered"])
+    @pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "tiered",
+                                      "ivf_pq"])
     def test_probe_accounting_counts_exactly(self, data, indexes, name):
         """The plane counts each packed request's own n_probes per row;
         pad rows and masked slots count nothing, and the plane is the
@@ -322,7 +345,8 @@ class TestPadRows:
     the sentinel), so the scan merges nothing for them (inf / -1 rows)
     and the probe histogram counts none of them."""
 
-    @pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "tiered"])
+    @pytest.mark.parametrize("name", ["ivf_flat", "ivf_bq", "tiered",
+                                      "ivf_pq"])
     def test_budget_zero_rows_probe_nothing(self, data, indexes, name):
         _, q = data
         _, tidx = indexes[name]
@@ -457,6 +481,15 @@ class TestRaggedFamilies:
         assert reason(bq, 4, params=ivf_bq.IvfBqSearchParams(
             scan_engine="rank")) == ex._RAGGED_RESIDUE["rank"]
         assert reason(bq, 4) is None
+        # IVF-PQ's rank engine (auto on the CPU) stays bucketed, as the
+        # JAX package's non-xla PQ engines do
+        jpq, pq = indexes["ivf_pq"]
+        assert reason(pq, 4) == ex._RAGGED_RESIDUE["rank"]
+        assert reason(pq, 4) == jex.ragged_fallback_reason(jpq, 4)
+        assert ex.ragged_key(pq, 4, params=ivf_pq.IvfPqSearchParams(
+            scan_engine="rank")) is None
+        assert reason(pq, 4, params=ivf_pq.IvfPqSearchParams(
+            scan_engine="torch")) is None
         with pytest.raises(RaftError, match="brute_force"):
             ex.warmup_ragged(indexes["brute_force"][1], k=4)
 
