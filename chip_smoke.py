@@ -147,13 +147,15 @@ non-zero exit (nothing is caught and passed over):
             its direct search. Its launches add to the kernels line's.
 7. pq       the IVF-PQ path on main's data and truth (alone with
             --phases env,build,pq, which makes them): ivf_pq_scan
-            against its plain version bit for bit on 204 small cases
+            against its plain version bit for bit on 252 small cases
             (L2 and IP, both codebook kinds, pq_bits 4 and 8, float32,
             bfloat16 and both fp8 LUTs, k 10 and 258, three draws of
             pq_dim 6/16/64 with no, a shared or a per-query filter,
-            ragged sentinel probe slots; and 12 tables past shared
-            memory, pq_dim 240 and 196, which the kernel builds in
-            parts); ivf_pq.build with
+            ragged sentinel probe slots; 12 tables past shared
+            memory, pq_dim 240 and 196; and 48 cases of the list-major
+            work items: a list probed by every query, lists past two
+            chunks, a batch of one, all four LUTs, k 10 and 258);
+            ivf_pq.build with
             the sift-128-euclidean config's raft_ivf_pq entry (n_lists
             1024, pq_dim 64, 8 bits; build s, index bytes) and a second
             same-seed build, torch.equal; full-size requests at n_probes
@@ -252,6 +254,9 @@ EARLIER_BEAM_MS = 0.3397
 # redesign (PERF.md, the same card)
 EARLIER_KNN_MS = 7.9003
 EARLIER_SELECT_MS = {"64x2^20": 0.5834, "2048x2048": 0.2145}
+# ivf_pq_scan before its redesign (one block a (query, probe slot)) at
+# (n_probes 128, batch 500) and (32, 10), by batch (PERF.md, the same card)
+EARLIER_PQ_MS = {500: 17.1268, 10: 0.3131}
 # the rows of the second CAGRA build that checks reproducibility: a cut of
 # the 1M rows that keeps the run inside its time limit
 CAGRA_REPRO_ROWS = 200_000
@@ -2963,18 +2968,20 @@ CAGRA_PQ_ROWS = 200_000
 
 
 def pq_scan_case(torch, seed: int, ip_metric: bool, per_cluster: bool,
-                 bits: int, k: int, pq_dim: int = 0, L: int = 0):
-    """Random inputs of ivf_pq_scan (the card test's grid): 9 lists of 300
-    slots (ids -1 past 250 and every 37th), 40 queries x 5 probe slots
-    drawn with repeats (each repeat made the sentinel) and ragged sentinel
-    tails, pq_dim 6, 16 or 64 (an odd count of bytes, packed and unpacked
+                 bits: int, k: int, pq_dim: int = 0, L: int = 0,
+                 m: int = 300, q: int = 40, hot=None):
+    """Random inputs of ivf_pq_scan (the card test's grid): 9 lists of
+    ``m`` slots (ids -1 in the last 50 and every 37th), ``q`` queries x 5
+    probe slots drawn with repeats (each repeat made the sentinel) and
+    ragged sentinel tails (with ``hot``, every first slot probes that
+    list), pq_dim 6, 16 or 64 (an odd count of bytes, packed and unpacked
     rows) unless given, subspaces 2 or 3 wide, no, a shared or a
     per-query filter."""
     from raft_tpu_torch.neighbors.ivf_pq import _pack_nibbles
     from raft_tpu_torch.ops.ivf_pq_scan import codebook_norms, dedup_slots
 
     rng = np.random.default_rng(seed)
-    n_lists, m, q, p = 9, 300, 40, 5
+    n_lists, p = 9, 5
     pq_dim = pq_dim or (6, 16, 64)[seed % 3]
     L, book = L or 2 + seed % 2, 1 << bits
     cb = torch.from_numpy(rng.standard_normal(
@@ -2985,9 +2992,11 @@ def pq_scan_case(torch, seed: int, ip_metric: bool, per_cluster: bool,
     if packed:
         codes = _pack_nibbles(codes)
     ids = rng.permutation(n_lists * m).reshape(n_lists, m).astype(np.int32)
-    ids[:, 250:] = -1
+    ids[:, m - 50:] = -1
     ids[:, ::37] = -1
     probes = rng.integers(0, n_lists, (q, p)).astype(np.int32)
+    if hot is not None:
+        probes[:, 0] = hot
     probes[::3, 3:] = n_lists
     probes = dedup_slots(torch.from_numpy(probes), n_lists)
     qres = rng.standard_normal((q, pq_dim * L) if ip_metric
@@ -3023,6 +3032,9 @@ def pq_equal(torch, name: str, got, want) -> None:
 # tables past shared memory, which the kernel builds in parts: (pq_dim,
 # subspace width, k) of gist-960's auto pq_dim 240 and mnist-784's 196
 PQ_LARGE_TABLES = ((240, 4, 10), (240, 4, 258), (196, 4, 258))
+# the list-major kernel's work items: a list probed by more pairs than an
+# item holds, lists longer than two chunks of rows, a batch of one
+PQ_ITEM_SHAPES = (dict(q=70, hot=3), dict(m=1300), dict(q=1))
 
 
 def kernels_pq(torch, seed: int) -> int:
@@ -3064,6 +3076,24 @@ def kernels_pq(torch, seed: int) -> int:
                                      ivf_pq_scan(**args, **kw,
                                                  engine="torch"))
                             n += 1
+    for si, shape in enumerate(PQ_ITEM_SHAPES):
+        for lut in PQ_LUTS:
+            for k in (10, 258):
+                for ip_metric in (False, True):
+                    # 4-bit per-cluster codes for L2, 8-bit per-subspace
+                    # for IP; the seed picks no, a shared or a per-query
+                    # filter
+                    args, packed = pq_scan_case(
+                        torch, seed + 31 * si + k + ip_metric, ip_metric,
+                        not ip_metric, 8 if ip_metric else 4, k, **shape)
+                    kw = dict(k=k, ip_metric=ip_metric,
+                              per_cluster=not ip_metric,
+                              lut_dtype=getattr(torch, lut), packed=packed)
+                    pq_equal(torch, f"pq item case {shape} ip={ip_metric} "
+                             f"{lut} k={k}",
+                             ivf_pq_scan(**args, **kw, engine="cuda"),
+                             ivf_pq_scan(**args, **kw, engine="torch"))
+                    n += 1
     return n
 
 
@@ -3103,7 +3133,8 @@ def phase_pq(torch, state: dict) -> None:
     log(f"[pq] ivf_pq_scan equals its plain version bit for bit on "
         f"{n_cases} small cases (metric x codebook kind x pq_bits x "
         f"lut_dtype x k {{10, 258}}, filters, sentinel probe slots; "
-        f"tables past shared memory {PQ_LARGE_TABLES}) in {time.perf_counter() - t0:.1f} s")
+        f"tables past shared memory {PQ_LARGE_TABLES}; work items "
+        f"{PQ_ITEM_SHAPES}) in {time.perf_counter() - t0:.1f} s")
 
     params = ivf_pq.IvfPqIndexParams(**PQ_BUILD)
     torch.cuda.synchronize()
@@ -3429,6 +3460,10 @@ def times_pq(torch, state: dict) -> dict:
         f"probed rows x pq_dim {pq_dim} = {lookups:.4g} LUT lookups, "
         f"{union_rows} rows in the union of {uniq.numel()} lists; batch 10 "
         f"n_probes 32: {out[10][0]:.4f} ms (plain {out[10][1]:.3f} ms)")
+    log(f"[times] ivf_pq_scan list-major: {ms:.4f} ms at (128, 500), "
+        f"{out[10][0]:.4f} ms at (32, 10); the one-block-a-pair design took "
+        f"{EARLIER_PQ_MS[500]} / {EARLIER_PQ_MS[10]} ms (NVIDIA H100 80GB "
+        "HBM3, 700 W)")
     rec = _record("ivf_pq_scan", "raft_tpu_torch/csrc/ivf_pq_scan.cu",
                   "none (port kernel; JAX raft_tpu/neighbors/ivf_pq.py:876 "
                   "is XLA)", state["launches"]["ivf_pq_scan"], err, ms,

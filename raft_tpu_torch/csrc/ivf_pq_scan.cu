@@ -1,47 +1,177 @@
-// IVF-PQ list scan with shared-memory lookup tables: the port's kernel for
-// the JAX package's list-major PQ engine (raft_tpu/neighbors/ivf_pq.py,
-// `_search_impl_fn` with scan_engine "xla"), which is XLA there: there
-// is no Pallas PQ kernel, so this replaces no TPU kernel. Its plain
-// version is `_scan_torch` in raft_tpu_torch/ops/ivf_pq_scan.py.
+// IVF-PQ list scan with shared-memory lookup tables, list-major: the
+// port's kernel for the JAX package's list-major PQ engine
+// (raft_tpu/neighbors/ivf_pq.py:876, `_search_impl_fn` with scan_engine
+// "xla"), which is XLA there: there is no Pallas PQ kernel, so this
+// replaces no TPU kernel. Its plain version is `_scan_torch` in
+// raft_tpu_torch/ops/ivf_pq_scan.py, which it equals bit for bit.
 //
-// RAFT's shape (detail/ivf_pq_compute_similarity-inl.cuh):
-//   1. pq_scan_kernel, one block for each (query, probe slot), 512
-//      threads (256 when k > 128): the block builds that pair's lookup
-//      table in shared memory (pq_dim x 2^pq_bits float32 entries) from
-//      the rotated residual q~ = R(q - c) (L2: (|q~_s|^2 - 2 q~_s.cb_sj) +
-//      |cb_sj|^2) or the rotated query (IP: q~_s.cb_sj), rounds it to the
-//      LUT type (bf16, or fp8 after dividing by the pair's scale
-//      max|lut| / fmax), then streams the list's live code rows through a
-//      shared tile, a row a thread, and scores each row as
-//      sum_s lut[s, code_s]; each warp keeps a filtered top-k queue
-//      (topk_common.cuh), warp 0 merges the others' lists and writes the
-//      block's partial list of k;
-//   2. merge_partials_kernel (topk_common.cuh) merges each query's p
-//      partial lists in (distance, smallest id) order; IP is negated back.
-// A table too large for shared memory beside the queues and the tile (an
-// fp32 table of pq_dim 240 at 8 bits is 240 KB) is built and scored in
-// `passes` parts, a power of two: part c holds the subspaces
-// s = c' + passes * i (c' the bit reversal of c), which are exactly the
-// groups c * G/passes .. (c + 1) * G/passes - 1 of the summation order
-// below, so each row's binary-counter stack carries from part to part in
-// registers and the sum keeps its order. Such a table is rebuilt for each
-// tile of rows; fp8 takes its scale from a sweep of the whole table first.
-// The search runs in min-space (IP negated). Sentinel probe slots (id
-// n_lists), ids < 0 and filtered ids match nothing; a row's slots name
-// each list at most once (coarse select gives distinct lists).
+// Bound on the H100: the lookups. A (query, probe slot) pair scores each
+// live row of its list as sum_s lut[s, code_s], one shared-memory load a
+// subspace: 1.0e10 loads at (n_probes 128, batch 500), 1.2 ms at 32 a
+// clock an SM; the codes (64 MB of distinct rows there) are 0.03 ms of
+// device memory. The earlier design (one block a pair) lost 14x to four
+// costs; this one answers each:
+//   1. a table a pair, built from codebook rows read one entry at a time
+//      through L2 (12 GB): here the rows a table is built from are staged
+//      into shared memory by cp.async, a few subspaces at a time, all
+//      copies of a stage in flight at once, and each one serves every
+//      pair of the work item;
+//   2. every pair restaged its whole list through shared memory (10 GB):
+//      here pq_plan_kernel lays out work items on the device, as the
+//      IVF-Flat scan's `_scan_items` does (its plain twin is
+//      ops/ivf_pq_scan `_pq_items`): (probed list, chunk of `rows` live
+//      rows, group of `group` of the (query, probe slot) pairs that probe
+//      it). The item's tables stay in shared memory while it streams its
+//      chunk in tiles of 512 (row, pair) combinations, so each row is
+//      read once an item for all its pairs; a long list spreads over
+//      many blocks;
+//   3. two shared loads a lookup (the code byte and the entry), with
+//      ~3.5-way bank conflicts: here a thread holds its row's codes in
+//      registers (pq_dim 64: 64 or 32 bytes, four or two 16-byte loads;
+//      other widths read each summation group's eight codes), so a lookup
+//      is one shared load, and the item's tables are interleaved (entry
+//      (g, s, j) at (s * J + j) * GP + g, GP the item's pairs rounded up
+//      to a power of two), the lanes of a warp 32 / GP rows x GP pairs,
+//      so the pairs of one row read different banks;
+//   4. per-block queues merged at the end, two blocks an SM: here one
+//      block of 512 threads fills its SM, the tables are held in the LUT
+//      type (bf16 2 bytes, e4m3/e5m2 1 byte an entry), so a group holds
+//      as many pairs as the tables' bytes allow (the plan: 2 pairs of
+//      64 KB fp32 tables at the sift shape, 16 of 4-bit ones), and every
+//      warp keeps a filtered queue (topk_common.cuh) for one pair over
+//      the chunk, fed 32 rows a tile, merged into the pair's partial list
+//      at the end of the item.
+//
+// The sum keeps the plain version's order: each entry's sum_l in
+// ascending l with __f*_rn; the fp8 scale max|lut| / fmax over the pair's
+// whole table (a sweep before the build), each entry divided by it with
+// __fdiv_rn; sum_s in tree_sum's halving order: groups of eight
+// subspaces s0 + brev3(u) * groups (s0 the bit-reversed group index),
+// each summed as ((0+1)+(2+3))+((4+5)+(6+7)), the groups combined by a
+// binary-counter stack; min-space (IP negated after adding q.c). Ids < 0
+// and filtered ids match nothing; sentinel probe slots (id n_lists) form
+// no pair and get no partial.
+//
+// Each item writes one partial top-k for each of its pairs and its
+// chunk, at slot_off[query * p + slot] + chunk; merge_partials_kernel
+// then merges each query's ragged run of partials in (distance, smallest
+// id) order, and negates IP back.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 
+#include "ivf_pq_parts.cuh"
 #include "topk_common.cuh"
 
 namespace raft_tpu_torch {
 
-// threads a block: 512 for k <= 128 (queues of S <= 4), 256 past it,
-// where the queues are wide; both divide by every codebook size
-__host__ __device__ constexpr int pq_threads(int s) { return s <= 4 ? 512 : 256; }
+constexpr int kPqThreads = 512;  // threads a block, one block an SM
+constexpr int kPqWarps = kPqThreads / 32;
+constexpr int kMaxG = 16;        // probing pairs a work item
+constexpr int kChunk = 2048;     // list rows a work item ...
+constexpr int kChunkWide = 4096; // ... at kWidePairs (query, probe) pairs
+constexpr int kWidePairs = 4096; // or more: a table a pair, mostly
 constexpr int kTreeLevels = 12;  // groups of eight up to 2^11: W <= 16384
 
 enum LutType { kLutF32 = 0, kLutBf16 = 1, kLutE4m3 = 2, kLutE5m2 = 3 };
+// how a thread reads its row's codes: by summation group (any width), or
+// the whole row into registers at pq_dim 64 (8-bit or 4-bit codes)
+enum CodeMode { kCodesAny = 0, kCodesW64 = 1, kCodesW64Packed = 2 };
+
+__host__ __device__ inline int ilog2(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+inline int tree_width(int pq_dim) {
+  int w = 8;
+  while (w < pq_dim) w *= 2;
+  return w;
+}
+
+inline int pq_slots(int k) {
+  int s = 1;
+  while (32 * s < k) s *= 2;
+  return s;
+}
+
+inline int lut_entry_bytes(int lut_type) {
+  return lut_type == kLutF32 ? 4 : lut_type == kLutBf16 ? 2 : 1;
+}
+
+inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Shared memory of one block, region by region (byte offsets): the item's
+// tables (group x pq_dim x book entries), the codebook rows of a build
+// stage (`stage` subspaces of book x (pq_len + 1) floats: rows, then
+// norms), two tiles' distances ([pair][row], odd stride) and ids, a
+// filtered queue a warp and its state, the pairs' residuals and subspace
+// norms (odd strides), and per-pair words.
+struct PqLayout {
+  size_t cb, d, ids, queues, qstate, qs, qn, meta, total;
+  int qs_stride, qn_stride, stage;
+};
+
+inline PqLayout pq_layout(int pq_dim, int pq_len, int book, int k,
+                          int lut_type, int group, int stage) {
+  const int dim_ext = pq_dim * pq_len;
+  PqLayout l;
+  l.qs_stride = dim_ext | 1;
+  l.qn_stride = pq_dim | 1;
+  l.stage = stage;
+  size_t o = align16((size_t)group * pq_dim * book *
+                     lut_entry_bytes(lut_type));
+  l.cb = o;
+  o += align16((size_t)stage * book * (pq_len + 1) * 4);
+  l.d = o;
+  o += align16((size_t)2 * (kPqThreads + kMaxG) * 4);
+  l.ids = o;
+  o += align16((size_t)2 * kPqThreads * 4);
+  l.queues = o;
+  o += align16((size_t)kPqWarps * 16 * 32 * pq_slots(k));
+  l.qstate = o;
+  o += align16((size_t)kPqWarps * 16);
+  l.qs = o;
+  o += align16((size_t)group * l.qs_stride * 4);
+  l.qn = o;
+  o += align16((size_t)group * l.qn_stride * 4);
+  l.meta = o;
+  o += align16((size_t)(4 * kMaxG + kPqWarps * kMaxG) * 4);
+  l.total = o;
+  return l;
+}
+
+struct PqPlan {
+  int rows, group, stage;
+  size_t smem;
+};
+
+// The work-item shape: chunks of kChunk rows (kChunkWide for a search of
+// kWidePairs pairs or more, where the tables a chunk rebuilds cost more
+// than the blocks it spreads over), and the most pairs (a power of two up
+// to 16) whose tables fit `limit` bytes of shared memory beside the rest,
+// with the codebook rows of as many subspaces a build stage as fit too
+// (at most pq_dim). False when not one pair fits.
+inline bool pq_plan(int pq_dim, int pq_len, int book, int k, int lut_type,
+                    long long pairs, size_t limit, PqPlan* out) {
+  const int rows = pairs >= kWidePairs ? kChunkWide : kChunk;
+  for (int group = kMaxG; group >= 1; group /= 2) {
+    const PqLayout l0 = pq_layout(pq_dim, pq_len, book, k, lut_type, group, 0);
+    const size_t per = (size_t)book * (pq_len + 1) * 4;
+    if (l0.total + per > limit) continue;
+    int stage = (int)((limit - l0.total) / per);
+    if (stage > pq_dim) stage = pq_dim;
+    while (pq_layout(pq_dim, pq_len, book, k, lut_type, group, stage).total >
+           limit)
+      --stage;
+    if (stage < 1) continue;
+    *out = PqPlan{rows, group, stage,
+                  pq_layout(pq_dim, pq_len, book, k, lut_type, group, stage)
+                      .total};
+    return true;
+  }
+  return false;
+}
 
 struct PqArgs {
   const float* qres;           // L2 (q, p, dim_ext); IP (q, dim_ext)
@@ -50,399 +180,723 @@ struct PqArgs {
   const float* cb_norms;       // (pq_dim or n_lists, book), L2
   const unsigned char* codes;  // (n_lists, m, row_bytes)
   const int* indices;          // (n_lists, m)
-  const int* live;             // (n_lists,) rows up to the last live id
-  const int* probes;           // (q, p)
   const int* filter;           // words, or null
   long long filter_stride;     // words a query (0: one shared bitset)
-  int p, n_lists, m, row_bytes, pq_dim, pq_len, book, k;
+  const int* offs;             // (n_lists + 1,) CSR over the list-sorted pairs
+  const int* pair_q;           // query row of each pair
+  const int* pair_slot;        // probe slot of each pair
+  const int* live;             // (n_lists,) rows up to each list's last live id
+  const long long* item_off;   // (n_lists + 1,) first item of each list
+  const int* slot_off;         // (q * p + 1,) first partial of each pair
+  int n_lists, p, m, row_bytes, pq_dim, pq_len, book, k, dim_ext;
   int ip_metric, per_cluster, packed, lut_type;
-  // the tree, the table's parts and the tile: G groups of eight, 2^levels
-  // = G; 2^pass_bits parts of lut_slots subspaces; row_tile rows
-  int groups, levels, pass_bits, lut_slots, row_tile, stride_words;
+  int cb_vec4, nrm_vec4, codes_mode;
+  int groups, levels, rows, group, lg_book, S;
+  PqLayout lay;
   float fmax;
   float* pd;
   int* pi;
 };
 
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
-
-inline int pq_slots(int k) {
-  int s = 1;
-  while (32 * s < k) s *= 2;
-  return s;
+__device__ __forceinline__ int brev_bits(int v, int bits) {
+  return bits ? (int)(__brev((unsigned)v) >> (32 - bits)) : 0;
 }
 
-// Shared memory of one block: a table of `slots` subspaces, the rotated
-// residual and its subspace norms, a reduction row, a `rows`-row code tile
-// (an odd word stride) and a queue a warp.
-inline size_t pq_smem_bytes(int slots, int pq_dim, int pq_len, int book,
-                            int row_bytes, int k, int rows) {
-  const int stride = ((row_bytes + 3) / 4) | 1;
-  const int s = pq_slots(k);
-  const size_t floats = (size_t)align4(slots * book) +
-                        align4(pq_dim * pq_len) + align4(pq_dim) + 32 +
-                        align4(rows * stride);
-  return 4 * floats + (size_t)(pq_threads(s) / 32) * 4 * 32 * s * 4;
+__device__ __forceinline__ float lut_get(const float* t, int i) {
+  return t[i];
+}
+__device__ __forceinline__ float lut_get(const __nv_bfloat16* t, int i) {
+  return __bfloat162float(t[i]);
+}
+__device__ __forceinline__ float lut_get(const __nv_fp8_e4m3* t, int i) {
+  return float(t[i]);
+}
+__device__ __forceinline__ float lut_get(const __nv_fp8_e5m2* t, int i) {
+  return float(t[i]);
 }
 
-__device__ __forceinline__ float round_lut(float v, int lut_type,
-                                           float scale) {
-  if (lut_type == kLutBf16) return __bfloat162float(__float2bfloat16_rn(v));
-  if (lut_type == kLutE4m3)
-    return float(__nv_fp8_e4m3(__fdiv_rn(v, scale)));
-  if (lut_type == kLutE5m2)
-    return float(__nv_fp8_e5m2(__fdiv_rn(v, scale)));
+// an entry in the LUT type: bf16 rounded, fp8 divided by the pair's scale
+template <typename T>
+__device__ __forceinline__ T lut_put(float v, float scale);
+template <>
+__device__ __forceinline__ float lut_put<float>(float v, float) {
   return v;
 }
-
-__device__ __forceinline__ int code_at(const unsigned char* row, int s,
-                                       int packed) {
-  if (packed) return (row[s >> 1] >> ((s & 1) << 2)) & 0x0F;
-  return row[s];
+template <>
+__device__ __forceinline__ __nv_bfloat16 lut_put<__nv_bfloat16>(float v,
+                                                                float) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e4m3 lut_put<__nv_fp8_e4m3>(float v,
+                                                               float scale) {
+  return __nv_fp8_e4m3(__fdiv_rn(v, scale));
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e5m2 lut_put<__nv_fp8_e5m2>(float v,
+                                                               float scale) {
+  return __nv_fp8_e5m2(__fdiv_rn(v, scale));
 }
 
-// One table entry: L2 (|q~_s|^2 - 2 q~_s.cb_sj) + |cb_sj|^2, IP q~_s.cb_sj,
-// every sum in ascending l, each product and add rounded.
-__device__ __forceinline__ float lut_entry(const PqArgs& a, const float* qs,
-                                           const float* qn, int lid, int s,
-                                           int j) {
-  const size_t b = (size_t)(a.per_cluster ? lid : s) * a.book + j;
-  const float* cb = a.codebooks + b * a.pq_len;
-  const float* x = qs + s * a.pq_len;
-  float dot = __fmul_rn(x[0], __ldg(cb));
-  for (int l = 1; l < a.pq_len; ++l)
-    dot = __fadd_rn(dot, __fmul_rn(x[l], __ldg(cb + l)));
-  return a.ip_metric ? dot
-                     : __fadd_rn(__fsub_rn(qn[s], __fmul_rn(2.f, dot)),
-                                 __ldg(a.cb_norms + b));
+// Stages, by cp.async (every copy in flight at once), the codebook rows
+// (then their L2 norms) of subspaces [s0, s0 + n), or, per-cluster, the
+// list's own rows (n = 1). Waits for the copies; the caller's barrier
+// publishes them.
+__device__ void stage_rows(float* cbs, const PqArgs& a, int lid, int s0,
+                           int n) {
+  const int tid = threadIdx.x, J = a.book, JL = J * a.pq_len;
+  const int v = a.cb_vec4 ? 4 : 1, pieces = JL / v;
+  for (int e = tid; e < n * pieces; e += kPqThreads) {
+    const int il = e / pieces, o = (e - il * pieces) * v;
+    const float* src =
+        a.codebooks + (size_t)(a.per_cluster ? lid : s0 + il) * JL + o;
+    if (v == 4)
+      cp_async16(cbs + il * JL + o, src, true);
+    else
+      cp_async4(cbs + il * JL + o, src, true);
+  }
+  if (!a.ip_metric) {
+    float* cbn = cbs + n * JL;
+    const int w = a.nrm_vec4 ? 4 : 1, npc = J / w;
+    for (int e = tid; e < n * npc; e += kPqThreads) {
+      const int il = e / npc, o = (e - il * npc) * w;
+      const float* src =
+          a.cb_norms + (size_t)(a.per_cluster ? lid : s0 + il) * J + o;
+      if (w == 4)
+        cp_async16(cbn + il * J + o, src, true);
+      else
+        cp_async4(cbn + il * J + o, src, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
-// Part c of the table: the subspaces s = c + 2^b * i at lut[i * J + j],
-// rounded to the LUT type unless `raw`; with b = 0 the whole table (lut
-// null: a sweep of the whole table that stores nothing). J (a power of
-// two <= 256) divides the block, so a thread keeps its codeword j and
-// steps over subspaces. Returns the thread's max |entry|.
-template <int kThreads>
-__device__ float build_lut(float* lut, const PqArgs& a, const float* qs,
-                           const float* qn, int lid, int c, int b, bool raw,
-                           float scale) {
-  const int tid = threadIdx.x, J = a.book, j = tid & (J - 1);
-  const int step = (kThreads / J) << b;
+// Table rows of subspaces [s0, s0 + n) for the item's pairs g < cnt, from
+// the staged codebook rows: entry (g, s, j) at (s * J + j) * GP + g in
+// the LUT type. An entry is L2 (|q~_s|^2 - 2 q~_s.cb) + |cb|^2 or IP
+// q~_s.cb, every sum in ascending l, each product and add rounded. A
+// thread keeps one pair (tid % GP) and, for each of its subspaces, up to
+// eight codewords j0, j0 + 32, ...: its residual row and subspace norm
+// are read once for them, their codebook rows all loaded first. With
+// `sweep` nothing is stored: the thread's max |entry| (fp8's scale) is
+// returned.
+template <typename T>
+__device__ float build_rows(T* __restrict__ tab, const PqArgs& a,
+                            const float* __restrict__ cbs,
+                            const float* __restrict__ qs,
+                            const float* __restrict__ qn,
+                            const float* __restrict__ scale, int cnt,
+                            int lg_gp, int s0, int n, bool sweep) {
+  const int tid = threadIdx.x, g = tid & ((1 << lg_gp) - 1);
+  const int jl = tid >> lg_gp, J = a.book, L = a.pq_len;
+  const int lanes = kPqThreads >> lg_gp;  // threads of one pair
+  const int nj = min(min(lanes, J), 32), ni = lanes / nj;
+  const int j0 = jl & (nj - 1);
+  const float* __restrict__ cbn = cbs + (a.per_cluster ? 1 : n) * J * L;
   float mx = 0.f;
+  if (g >= cnt) return mx;
+  const float* __restrict__ xg = qs + g * a.lay.qs_stride;
+  const float sc = sweep ? 1.f : scale[g];
+  for (int il = jl / nj; il < n; il += ni) {
+    const int s = s0 + il, ic = a.per_cluster ? 0 : il;
+    const float* __restrict__ x = xg + s * L;
+    const float q2 = a.ip_metric ? 0.f : qn[g * a.lay.qn_stride + s];
+    const float* __restrict__ crow = cbs + ic * J * L;
+    const float* __restrict__ nrow = cbn + ic * J;
+    T* __restrict__ out = tab + ((s * J) << lg_gp) + g;
+    if (L == 2) {
+      const float x0 = x[0], x1 = x[1];
+      const int nk = J / nj;
+      float2 c[8];
+      float nv[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < nk) {
+          c[k] = reinterpret_cast<const float2*>(crow)[j0 + k * nj];
+          nv[k] = a.ip_metric ? 0.f : nrow[j0 + k * nj];
+        }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < nk) {
+          const float dot =
+              __fadd_rn(__fmul_rn(x0, c[k].x), __fmul_rn(x1, c[k].y));
+          const float v =
+              a.ip_metric ? dot
+                          : __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)),
+                                      nv[k]);
+          if (sweep)
+            mx = fmaxf(mx, fabsf(v));
+          else
+            out[(j0 + k * nj) << lg_gp] = lut_put<T>(v, sc);
+        }
+    } else {
 #pragma unroll 4
-  for (int s = c + ((tid / J) << b); s < a.pq_dim; s += step) {
-    const float v = lut_entry(a, qs, qn, lid, s, j);
-    if (lut) lut[(s >> b) * J + j] = raw ? v : round_lut(v, a.lut_type, scale);
-    mx = fmaxf(mx, fabsf(v));
+      for (int j = j0; j < J; j += nj) {
+        const float* __restrict__ cb = crow + j * L;
+        float dot = __fmul_rn(x[0], cb[0]);
+        for (int l = 1; l < L; ++l)
+          dot = __fadd_rn(dot, __fmul_rn(x[l], cb[l]));
+        const float v = a.ip_metric
+                            ? dot
+                            : __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, dot)),
+                                        nrow[j]);
+        if (sweep)
+          mx = fmaxf(mx, fabsf(v));
+        else
+          out[j << lg_gp] = lut_put<T>(v, sc);
+      }
+    }
   }
   return mx;
 }
 
-// The fp8 scale max|lut| / fmax (at least 1e-30) from each thread's max.
-template <int kThreads>
-__device__ float block_scale(float mx, float* red, const PqArgs& a) {
-  constexpr int kWarps = kThreads / 32;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  if (tid == 0) {
-    float m = red[0];
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-    red[kWarps] = fmaxf(__fdiv_rn(m, a.fmax), 1e-30f);
+// The item's whole tables (with `sweep`, only each thread's max |entry|),
+// in stages of the planned number of subspaces: stage their codebook
+// rows, barrier, build. Per-cluster rows were staged once for the item.
+template <typename T>
+__device__ float build_tables(T* tab, float* cbs, const PqArgs& a,
+                              const float* qs, const float* qn,
+                              const float* scale, int lid, int cnt,
+                              int lg_gp, bool sweep) {
+  const int stage = a.per_cluster ? a.pq_dim : a.lay.stage;
+  float mx = 0.f;
+  for (int s0 = 0; s0 < a.pq_dim; s0 += stage) {
+    const int n = min(stage, a.pq_dim - s0);
+    if (!a.per_cluster) {
+      if (s0) __syncthreads();  // the last stage is built
+      stage_rows(cbs, a, lid, s0, n);
+      __syncthreads();
+    }
+    mx = fmaxf(mx, build_rows<T>(tab, a, cbs, qs, qn, scale, cnt, lg_gp, s0,
+                                 n, sweep));
   }
-  __syncthreads();
-  return red[kWarps];
+  return mx;
 }
 
-// Groups [g0, g1) of sum_s lut[s, code_s] for one staged row, in
-// tree_sum's halving order: each group of eight subspaces
-// s0 + brev3(u) * G (s0 the bit-reversed group index) summed as a tree,
-// the groups combined by a binary-counter stack `st`; after the last
-// group `total` is the whole sum. kParts: the table holds one part,
-// subspace s at slot s >> pass_bits.
-template <bool kParts>
-__device__ __forceinline__ void score_groups(const float* lut,
-                                             const unsigned char* row,
-                                             const PqArgs& a, int g0, int g1,
-                                             float (&st)[kTreeLevels],
-                                             float& total) {
+// Group gg of a chunk row, staged: the codes of its subspaces
+// s = brev(gg) + brev3(u) * groups (u = 0..7, the scoring order) in one
+// 8-byte word, nibbles unpacked, 0 past pq_dim.
+__device__ __forceinline__ uint2 gather_group(const unsigned char* src,
+                                              const PqArgs& a, int gg) {
   constexpr int kBrev3[8] = {0, 4, 2, 6, 1, 5, 3, 7};
-  for (int g = g0; g < g1; ++g) {
-    const int s0 = a.levels ? (int)(__brev((unsigned)g) >> (32 - a.levels))
-                            : 0;
+  const int s0 = brev_bits(gg, a.levels);
+  unsigned w[2] = {0u, 0u};
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int s = s0 + kBrev3[u] * a.groups;
+    unsigned code = 0;
+    if (s < a.pq_dim)
+      code = a.packed ? (__ldg(src + (s >> 1)) >> ((s & 1) << 2)) & 0x0Fu
+                      : __ldg(src + s);
+    w[u >> 2] |= code << ((u & 3) * 8);
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+
+// One row's sum for pair g, its codes read by summation group (eight
+// codes a group, from the row in device memory): each group's tree, the
+// groups combined by a binary-counter stack.
+template <typename T>
+__device__ __forceinline__ float score_row_any(const T* tab,
+                                               const unsigned char* src,
+                                               const PqArgs& a, int lg_gp,
+                                               int g) {
+  constexpr int kBrev3[8] = {0, 4, 2, 6, 1, 5, 3, 7};
+  float st[kTreeLevels];
+  float gs = 0.f;
+  for (int gg = 0; gg < a.groups; ++gg) {
+    const int s0 = brev_bits(gg, a.levels);
+    const uint2 cw = gather_group(src, a, gg);
     float v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int s = s0 + kBrev3[u] * a.groups;
-      const int slot = kParts ? s >> a.pass_bits : s;
-      v[u] = s < a.pq_dim ? lut[slot * a.book + code_at(row, s, a.packed)]
-                          : 0.f;
+      const int code = ((u < 4 ? cw.x : cw.y) >> ((u & 3) * 8)) & 0xFF;
+      v[u] = s < a.pq_dim
+                 ? lut_get(tab, (((s << a.lg_book) + code) << lg_gp) + g)
+                 : 0.f;
     }
-    float gs = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]),
-                                   __fadd_rn(v[2], v[3])),
-                         __fadd_rn(__fadd_rn(v[4], v[5]),
-                                   __fadd_rn(v[6], v[7])));
-    int t = g;
-    bool carry = true;
+    gs = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])),
+                   __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
+    const int pops = __ffs(~gg) - 1;  // trailing ones of gg
 #pragma unroll
-    for (int l = 0; l < kTreeLevels; ++l) {
-      if (carry) {
-        if (t & 1) {
-          gs = __fadd_rn(st[l], gs);
-          t >>= 1;
-        } else {
-          st[l] = gs;
-          carry = false;
-        }
-      }
-    }
-    total = gs;
+    for (int l = 0; l < kTreeLevels; ++l)
+      if (l < pops) gs = __fadd_rn(st[l], gs);
+#pragma unroll
+    for (int l = 0; l < kTreeLevels; ++l)
+      if (l == pops) st[l] = gs;
   }
+  return gs;
 }
 
-// kParts: the table is built in parts (a.pass_bits > 0). A kernel of its
-// own, so the one-part kernel keeps its registers (two blocks an SM).
-template <int S, bool kParts>
-__global__ void __launch_bounds__(pq_threads(S))
-    pq_scan_kernel(const PqArgs a) {
+// One row's sum for pair g at pq_dim 64 (eight groups, W = 64), the row's
+// codes in registers: 64 bytes, or 32 of two 4-bit codes each.
+template <typename T, bool kPacked>
+__device__ __forceinline__ float score_row_w64(const T* tab,
+                                               const unsigned char* src,
+                                               int lg_book, int lg_gp,
+                                               int g) {
+  constexpr int kBrev3[8] = {0, 4, 2, 6, 1, 5, 3, 7};
+  constexpr int kWords = kPacked ? 8 : 16;
+  unsigned w[kWords];
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int i = 0; i < kWords / 4; ++i) {
+    const uint4 v = __ldg(s4 + i);
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+  float st[3];
+  float gs = 0.f;
+#pragma unroll
+  for (int gg = 0; gg < 8; ++gg) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int s = kBrev3[gg] + kBrev3[u] * 8;
+      const int code = kPacked ? (w[s >> 3] >> ((s & 7) * 4)) & 0x0F
+                               : (w[s >> 2] >> ((s & 3) * 8)) & 0xFF;
+      v[u] = lut_get(tab, (((s << lg_book) + code) << lg_gp) + g);
+    }
+    gs = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])),
+                   __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
+    const int pops = gg == 1 || gg == 5 ? 1 : gg == 3 ? 2 : gg == 7 ? 3 : 0;
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      if (l < pops) gs = __fadd_rn(st[l], gs);
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      if (l == pops) st[l] = gs;
+  }
+  return gs;
+}
+
+// The warp's filtered queue (one pair's, over the item's chunk): its
+// sorted list, buffer and state in shared memory; qcnt / qthr keep the
+// buffer count and threshold between calls.
+template <int S>
+__device__ __noinline__ void queue_rows(float* area, int* qcnt, u64* qthr,
+                                        int op, int k, float d, int id,
+                                        bool want) {
   constexpr int KP = 32 * S;
-  constexpr int kPqThreads = pq_threads(S);
-  constexpr int kPqWarps = kPqThreads / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int slot = blockIdx.x, row = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t pair = (size_t)row * a.p + slot;
-  const size_t part = pair * a.k;
-  const int lid = a.probes[pair];
-  if (lid < 0 || lid >= a.n_lists) {  // sentinel slot: an empty partial
-    for (int j = tid; j < a.k; j += kPqThreads) {
-      a.pd[part + j] = CUDART_INF_F;
-      a.pi[part + j] = kEmptyId;
-    }
-    return;
-  }
-  const int L = a.pq_len, J = a.book;
-  const int dim_ext = a.pq_dim * L;
-  float* lut = reinterpret_cast<float*>(smem_raw);
-  float* qs = lut + align4(a.lut_slots * J);
-  float* qn = qs + align4(dim_ext);
-  float* red = qn + align4(a.pq_dim);
-  unsigned* tile = reinterpret_cast<unsigned*>(red + 32);
-  float* queues =
-      reinterpret_cast<float*>(tile + align4(a.row_tile * a.stride_words));
-
-  const float* src = a.ip_metric ? a.qres + (size_t)row * dim_ext
-                                 : a.qres + pair * dim_ext;
-  for (int i = tid; i < dim_ext; i += kPqThreads) qs[i] = src[i];
-  __syncthreads();
-  if (!a.ip_metric)
-    for (int s = tid; s < a.pq_dim; s += kPqThreads) {
-      const float* x = qs + s * L;
-      float acc = __fmul_rn(x[0], x[0]);
-      for (int l = 1; l < L; ++l) acc = __fadd_rn(acc, __fmul_rn(x[l], x[l]));
-      qn[s] = acc;
-    }
-  __syncthreads();
-
-  // the pair's lookup table: whole, built once; or in parts, rebuilt for
-  // each tile of rows (fp8 sweeps the whole table for its scale first)
-  const bool fp8 = a.lut_type >= kLutE4m3;
-  float scale = 1.f;
-  if (!kParts) {
-    const float mx =
-        build_lut<kPqThreads>(lut, a, qs, qn, lid, 0, 0, fp8, 1.f);
-    if (fp8) {
-      scale = block_scale<kPqThreads>(mx, red, a);
-      for (int e = tid; e < a.pq_dim * J; e += kPqThreads)
-        lut[e] = round_lut(lut[e], a.lut_type, scale);
-    }
-  } else if (fp8) {
-    scale = block_scale<kPqThreads>(
-        build_lut<kPqThreads>(nullptr, a, qs, qn, lid, 0, 0, true, 1.f),
-        red, a);
-  }
-  const int passes = 1 << a.pass_bits, part_groups = a.groups >> a.pass_bits;
-
-  // stream the list's rows through the tile
-  float* ld = queues + warp * 4 * KP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* ld = area + warp * 4 * KP;
   int* li = reinterpret_cast<int*>(ld + KP);
   float* bd = ld + 2 * KP;
   int* bi = reinterpret_cast<int*>(ld + 3 * KP);
-  queue_init<S>(ld, li);
   int count = 0;
   u64 thr = kNoBound;
-  const float base = a.ip_metric ? a.base[pair] : 0.f;
-  const int n_rows = a.live[lid];
-  const unsigned char* lcodes = a.codes + (size_t)lid * a.m * a.row_bytes;
-  const int* lids = a.indices + (size_t)lid * a.m;
-  const int* fw = a.filter ? a.filter + (size_t)row * a.filter_stride
-                           : nullptr;
-  const int sb = a.stride_words * 4;  // tile row stride in bytes
-  unsigned char* tb = reinterpret_cast<unsigned char*>(tile);
-  const bool words = (a.row_bytes & 3) == 0;
-  const int rw = a.row_bytes >> 2;
-  const bool quads = (a.row_bytes & 15) == 0 && kPqThreads % (rw >> 2) == 0 &&
-                     ((uintptr_t)a.codes & 15) == 0;
-  for (int r0 = 0; r0 < n_rows; r0 += a.row_tile) {
-    const int nt = min(a.row_tile, n_rows - r0);
-    __syncthreads();  // the LUT is written; the last tile is consumed
-    if (quads) {  // 16-byte loads; rw / 4 divides the block
-      const uint4* g =
-          reinterpret_cast<const uint4*>(lcodes + (size_t)r0 * a.row_bytes);
-      const int c = tid % (rw >> 2), step = kPqThreads / (rw >> 2);
-      for (int r = tid / (rw >> 2); r < nt; r += step) {
-        const uint4 v = __ldg(g + (size_t)r * (rw >> 2) + c);
-        unsigned* t = tile + r * a.stride_words + 4 * c;
-        t[0] = v.x;
-        t[1] = v.y;
-        t[2] = v.z;
-        t[3] = v.w;
-      }
-    } else if (words) {
-      const unsigned* g =
-          reinterpret_cast<const unsigned*>(lcodes + (size_t)r0 * a.row_bytes);
-      for (int w = tid; w < nt * rw; w += kPqThreads) {
-        const int r = w / rw;
-        tile[r * a.stride_words + (w - r * rw)] = g[w];
-      }
-    } else {
-      const unsigned char* g = lcodes + (size_t)r0 * a.row_bytes;
-      for (int c = tid; c < nt * a.row_bytes; c += kPqThreads) {
-        const int r = c / a.row_bytes;
-        tb[r * sb + (c - r * a.row_bytes)] = g[c];
-      }
-    }
-    float total = 0.f;
-    if (!kParts) {
-      __syncthreads();
-      if (tid < nt) {
-        float st[kTreeLevels];
-        score_groups<false>(lut, tb + tid * sb, a, 0, a.groups, st, total);
-      }
-    } else {
-      float st[kTreeLevels];
-      for (int c = 0; c < passes; ++c) {
-        if (c) __syncthreads();  // the last part is consumed
-        build_lut<kPqThreads>(
-            lut, a, qs, qn, lid,
-            (int)(__brev((unsigned)c) >> (32 - a.pass_bits)), a.pass_bits,
-            false, scale);
-        __syncthreads();  // the tile and the part are staged
-        if (tid < nt)
-          score_groups<true>(lut, tb + tid * sb, a, c * part_groups,
-                             (c + 1) * part_groups, st, total);
-      }
-    }
-    if (warp * 32 < nt) {  // warp-uniform: the warp has rows in this tile
-      const bool have = tid < nt;
-      float d = CUDART_INF_F;
-      int id = kEmptyId;
-      bool want = false;
-      if (have) {
-        id = lids[r0 + tid];
-        d = total;
-        if (fp8) d = __fmul_rn(d, scale);
-        if (a.ip_metric) d = -__fadd_rn(d, base);
-        bool ok = id >= 0;
-        if (ok && fw) ok = (fw[id >> 5] >> (id & 31)) & 1;
-        want = ok && d < CUDART_INF_F;
-      }
-      queue_push<S>(ld, li, bd, bi, count, thr, a.k, d, id, want);
-    }
+  if (op == 0) {  // an empty queue
+    queue_init<S>(ld, li);
+  } else {
+    count = qcnt[warp];
+    thr = qthr[warp];
+    if (op == 1)  // 32 candidates, one a lane
+      queue_push<S>(ld, li, bd, bi, count, thr, k, d, id, want);
+    else if (count)  // op 2: the buffer into the list
+      thr = queue_flush<S>(ld, li, bd, bi, count, k, thr);
+    if (op == 2) count = 0;
   }
-  if (count) thr = queue_flush<S>(ld, li, bd, bi, count, a.k, thr);
-  __syncthreads();
-  if (warp != 0) return;
-  count = 0;
-  for (int w = 1; w < kPqWarps; ++w) {
-    const float* od = queues + w * 4 * KP;
-    const int* oi = reinterpret_cast<const int*>(od + KP);
-    for (int c0 = 0; c0 < a.k; c0 += 32) {
+  __syncwarp();
+  if (lane == 0) {
+    qcnt[warp] = count;
+    qthr[warp] = thr;
+  }
+  __syncwarp();
+}
+
+// Pair g's partial list: its first warp takes the lists of the pair's
+// other warps (g + GP, g + 2 GP, ...) into its own and writes k entries.
+template <int S>
+__device__ __noinline__ void merge_pair(float* area, int* qcnt, u64* qthr,
+                                        int k, int gp, float* od, int* oi) {
+  constexpr int KP = 32 * S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* ld = area + warp * 4 * KP;
+  int* li = reinterpret_cast<int*>(ld + KP);
+  float* bd = ld + 2 * KP;
+  int* bi = reinterpret_cast<int*>(ld + 3 * KP);
+  int count = 0;
+  u64 thr = qthr[warp];
+  for (int w = warp + gp; w < kPqWarps; w += gp) {
+    const float* od2 = area + w * 4 * KP;
+    const int* oi2 = reinterpret_cast<const int*>(od2 + KP);
+    for (int c0 = 0; c0 < k; c0 += 32) {
       const int c = c0 + lane;
-      const bool in = c < a.k;
-      const float v = in ? od[c] : CUDART_INF_F;
-      const int id = in ? oi[c] : kEmptyId;
-      queue_push<S>(ld, li, bd, bi, count, thr, a.k, v, id,
+      const bool in = c < k;
+      const float v = in ? od2[c] : CUDART_INF_F;
+      queue_push<S>(ld, li, bd, bi, count, thr, k, v, in ? oi2[c] : kEmptyId,
                     in && v < CUDART_INF_F);
     }
   }
-  if (count) thr = queue_flush<S>(ld, li, bd, bi, count, a.k, thr);
-  for (int j = lane; j < a.k; j += 32) {
-    a.pd[part + j] = ld[j];
-    a.pi[part + j] = li[j];
+  if (count) thr = queue_flush<S>(ld, li, bd, bi, count, k, thr);
+  for (int j = lane; j < k; j += 32) {
+    od[j] = ld[j];
+    oi[j] = li[j];
+  }
+  (void)qcnt;
+}
+
+__device__ __forceinline__ void queue_op(int S, float* area, int* qcnt,
+                                         u64* qthr, int op, int k, float d,
+                                         int id, bool want) {
+  switch (S) {
+    case 1: queue_rows<1>(area, qcnt, qthr, op, k, d, id, want); break;
+    case 2: queue_rows<2>(area, qcnt, qthr, op, k, d, id, want); break;
+    case 4: queue_rows<4>(area, qcnt, qthr, op, k, d, id, want); break;
+    case 8: queue_rows<8>(area, qcnt, qthr, op, k, d, id, want); break;
+    default: queue_rows<16>(area, qcnt, qthr, op, k, d, id, want); break;
   }
 }
 
-template <int S>
-cudaError_t launch_pq_s(const PqArgs& a, int q, size_t smem,
-                        cudaStream_t stream) {
-  void (*kernel)(const PqArgs) =
-      a.pass_bits ? pq_scan_kernel<S, true> : pq_scan_kernel<S, false>;
+template <typename T>
+constexpr bool kFp8 = sizeof(T) == 1;
+
+template <typename T, int kCodes>
+__global__ void __launch_bounds__(kPqThreads, 1)
+    pq_items_kernel(const PqArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
+  float* cbs = reinterpret_cast<float*>(smem + a.lay.cb);
+  float* D = reinterpret_cast<float*>(smem + a.lay.d);
+  int* ids_t = reinterpret_cast<int*>(smem + a.lay.ids);
+  float* area = reinterpret_cast<float*>(smem + a.lay.queues);
+  u64* qthr = reinterpret_cast<u64*>(smem + a.lay.qstate);
+  int* qcnt = reinterpret_cast<int*>(qthr + kPqWarps);
+  float* qs = reinterpret_cast<float*>(smem + a.lay.qs);
+  float* qn = reinterpret_cast<float*>(smem + a.lay.qn);
+  float* m_base = reinterpret_cast<float*>(smem + a.lay.meta);
+  float* m_scale = m_base + kMaxG;
+  int* m_query = reinterpret_cast<int*>(m_scale + kMaxG);
+  int* m_out = m_query + kMaxG;
+  float* red = reinterpret_cast<float*>(m_out + kMaxG);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr bool fp8 = kFp8<T>;
+  const long long last = a.item_off[a.n_lists];
+  for (long long it = blockIdx.x; it < last; it += gridDim.x) {
+    // the list with item_off[lid] <= it < item_off[lid + 1]
+    int lo = 0, hi = a.n_lists - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (a.item_off[mid] <= it)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const int lid = lo, t = (int)(it - a.item_off[lid]);
+    const int cnt_all = a.offs[lid + 1] - a.offs[lid];
+    const int ngr = (cnt_all + a.group - 1) / a.group;
+    const int chunk = t / ngr, grp = t - chunk * ngr;
+    const int start = a.offs[lid] + grp * a.group;
+    const int cnt = min(a.group, cnt_all - grp * a.group);
+    const int r0 = chunk * a.rows;
+    const int nrows = min(a.rows, a.live[lid] - r0);
+    const int lg_gp = ilog2(cnt), gp = 1 << lg_gp;
+
+    __syncthreads();  // the last item is done with shared memory
+    if (tid < cnt) {
+      const int e = start + tid, qr = a.pair_q[e];
+      const size_t pair = (size_t)qr * a.p + a.pair_slot[e];
+      m_query[tid] = qr;
+      m_out[tid] = a.slot_off[pair] + chunk;
+      m_base[tid] = a.ip_metric ? a.base[pair] : 0.f;
+      m_scale[tid] = 1.f;
+    }
+    for (int e = tid; e < cnt * a.dim_ext; e += kPqThreads) {
+      const int g = e / a.dim_ext, d = e - g * a.dim_ext;
+      const int ep = start + g, qr = a.pair_q[ep];
+      const size_t src =
+          (a.ip_metric ? (size_t)qr : (size_t)qr * a.p + a.pair_slot[ep]) *
+          a.dim_ext;
+      qs[g * a.lay.qs_stride + d] = a.qres[src + d];
+    }
+    if (a.per_cluster) stage_rows(cbs, a, lid, 0, 1);
+    __syncthreads();
+    if (!a.ip_metric)
+      for (int e = tid; e < cnt * a.pq_dim; e += kPqThreads) {
+        const int g = e / a.pq_dim, s = e - g * a.pq_dim;
+        const float* x = qs + g * a.lay.qs_stride + s * a.pq_len;
+        float acc = __fmul_rn(x[0], x[0]);
+        for (int l = 1; l < a.pq_len; ++l)
+          acc = __fadd_rn(acc, __fmul_rn(x[l], x[l]));
+        qn[g * a.lay.qn_stride + s] = acc;
+      }
+    __syncthreads();
+    if constexpr (fp8) {  // each pair's scale max|lut| / fmax over its table
+      float mx = build_tables<T>(tab, cbs, a, qs, qn, m_scale, lid, cnt,
+                                 lg_gp, true);
+      for (int o = 16; o >= gp; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      __syncthreads();  // the sweep's stages are read
+      if (lane < gp) red[warp * kMaxG + lane] = mx;
+      __syncthreads();
+      if (tid < cnt) {
+        float m = red[tid];
+        for (int w = 1; w < kPqWarps; ++w) m = fmaxf(m, red[w * kMaxG + tid]);
+        m_scale[tid] = fmaxf(__fdiv_rn(m, a.fmax), 1e-30f);
+      }
+      __syncthreads();
+    }
+    // the item's whole tables, then its rows in tiles of 512 (row, pair)
+    build_tables<T>(tab, cbs, a, qs, qn, m_scale, lid, cnt, lg_gp, false);
+    const int wg = warp & (gp - 1);  // the pair this warp selects for
+    if (wg < cnt) queue_op(a.S, area, qcnt, qthr, 0, a.k, 0.f, 0, false);
+    __syncthreads();
+    const int tile = kPqThreads >> lg_gp, dstride = tile + 1;
+    const int g = tid & (gp - 1), rl = tid >> lg_gp;
+    const size_t row0 = (size_t)lid * a.m + r0;
+    for (int t0 = 0, buf = 0; t0 < nrows; t0 += tile, buf ^= 1) {
+      float* Dt = D + buf * (kPqThreads + kMaxG);
+      int* It = ids_t + buf * kPqThreads;
+      const int row = t0 + rl;
+      if (row < nrows && g < cnt) {
+        const unsigned char* src = a.codes + (row0 + row) * a.row_bytes;
+        float v;
+        if constexpr (kCodes == kCodesW64)
+          v = score_row_w64<T, false>(tab, src, a.lg_book, lg_gp, g);
+        else if constexpr (kCodes == kCodesW64Packed)
+          v = score_row_w64<T, true>(tab, src, a.lg_book, lg_gp, g);
+        else
+          v = score_row_any<T>(tab, src, a, lg_gp, g);
+        if constexpr (fp8) v = __fmul_rn(v, m_scale[g]);
+        if (a.ip_metric) v = -__fadd_rn(v, m_base[g]);
+        const int id = a.indices[row0 + row];
+        bool ok = id >= 0;
+        if (ok && a.filter) {
+          const int* fw = a.filter + (size_t)m_query[g] * a.filter_stride;
+          ok = (fw[id >> 5] >> (id & 31)) & 1;
+        }
+        Dt[g * dstride + rl] = ok ? v : CUDART_INF_F;
+        if (g == 0) It[rl] = id;
+      }
+      __syncthreads();  // the tile's distances are whole
+      if (wg < cnt) {  // warp h of pair wg: tile rows h * 32 .. + 31
+        const int r = ((warp >> lg_gp) << 5) + lane;
+        const bool in = r < tile && t0 + r < nrows;
+        const float d = in ? Dt[wg * dstride + r] : CUDART_INF_F;
+        queue_op(a.S, area, qcnt, qthr, 1, a.k, d, in ? It[r] : kEmptyId,
+                 in && d < CUDART_INF_F);
+      }
+    }
+    if (wg < cnt) queue_op(a.S, area, qcnt, qthr, 2, a.k, 0.f, 0, false);
+    __syncthreads();  // every warp's list is whole
+    if (warp < cnt) {
+      float* od = a.pd + (size_t)m_out[warp] * a.k;
+      int* oi = a.pi + (size_t)m_out[warp] * a.k;
+      switch (a.S) {
+        case 1: merge_pair<1>(area, qcnt, qthr, a.k, gp, od, oi); break;
+        case 2: merge_pair<2>(area, qcnt, qthr, a.k, gp, od, oi); break;
+        case 4: merge_pair<4>(area, qcnt, qthr, a.k, gp, od, oi); break;
+        case 8: merge_pair<8>(area, qcnt, qthr, a.k, gp, od, oi); break;
+        default: merge_pair<16>(area, qcnt, qthr, a.k, gp, od, oi); break;
+      }
+    }
+  }
+}
+
+// Exclusive prefix of each thread's value over the block (1,024 threads),
+// and the block's total; ws holds 32 words.
+__device__ long long block_excl_scan(long long v, long long* ws,
+                                     long long& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = ws[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    ws[lane] = w;
+  }
+  __syncthreads();
+  const long long before = warp ? ws[warp - 1] : 0;
+  total = ws[31];
+  __syncthreads();  // ws is free for the next scan
+  return before + x - v;
+}
+
+constexpr int kPlanThreads = 1024;
+
+// The work-item plan of the scan (one block, no host sync), the device
+// form of ops/ivf_pq_scan `_pq_items`: each list's probing pairs (CSR
+// offs over pair_q / pair_slot; a list's pairs in any order, which
+// changes no result), its items ceil(live / rows) * ceil(pairs / group)
+// (item_off), and the first partial list of each (query, probe slot),
+// one a chunk of its list (slot_off). Sentinel slots (ids outside
+// [0, n_lists)) form no pair and get no partial. cursor: n_lists words.
+__global__ void __launch_bounds__(kPlanThreads)
+    pq_plan_kernel(const int* __restrict__ probes, int q, int p, int n_lists,
+                   const int* __restrict__ live, int rows, int group,
+                   int* offs, int* pair_q, int* pair_slot,
+                   long long* item_off, int* slot_off, int* cursor) {
+  __shared__ long long ws[32];
+  const int tid = threadIdx.x;
+  const long long np = (long long)q * p;
+  for (int l = tid; l < n_lists; l += kPlanThreads) cursor[l] = 0;
+  __syncthreads();
+  for (long long e = tid; e < np; e += kPlanThreads) {
+    const int l = probes[e];
+    if (l >= 0 && l < n_lists) atomicAdd(cursor + l, 1);
+  }
+  __syncthreads();
+  long long carry_p = 0, carry_i = 0;
+  for (int b = 0; b < n_lists; b += kPlanThreads) {
+    const int l = b + tid;
+    const int cnt = l < n_lists ? cursor[l] : 0;
+    const long long nch = l < n_lists ? (live[l] + rows - 1) / rows : 0;
+    long long tp, ti;
+    const long long ep = block_excl_scan(cnt, ws, tp);
+    const long long ei = block_excl_scan(
+        cnt ? nch * ((cnt + group - 1) / group) : 0, ws, ti);
+    if (l < n_lists) {
+      offs[l] = (int)(carry_p + ep);
+      item_off[l] = carry_i + ei;
+    }
+    carry_p += tp;
+    carry_i += ti;
+  }
+  if (tid == 0) {
+    offs[n_lists] = (int)carry_p;
+    item_off[n_lists] = carry_i;
+  }
+  __syncthreads();
+  for (int l = tid; l < n_lists; l += kPlanThreads) cursor[l] = offs[l];
+  __syncthreads();
+  long long carry_s = 0;
+  for (long long b = 0; b < np; b += kPlanThreads) {
+    const long long e = b + tid;
+    const int l = e < np ? probes[e] : -1;
+    const bool pair = l >= 0 && l < n_lists;
+    if (pair) {
+      const int at = atomicAdd(cursor + l, 1);
+      pair_q[at] = (int)(e / p);
+      pair_slot[at] = (int)(e % p);
+    }
+    long long ts;
+    const long long es =
+        block_excl_scan(pair ? (live[l] + rows - 1) / rows : 0, ws, ts);
+    if (e < np) slot_off[e] = (int)(carry_s + es);
+    carry_s += ts;
+  }
+  if (tid == 0) slot_off[np] = (int)carry_s;
+}
+
+template <typename T>
+cudaError_t launch_items(const PqArgs& a, size_t smem, long long max_items,
+                         cudaStream_t stream) {
+  auto kernel = a.codes_mode == kCodesW64 ? pq_items_kernel<T, kCodesW64>
+                 : a.codes_mode == kCodesW64Packed
+                     ? pq_items_kernel<T, kCodesW64Packed>
+                     : pq_items_kernel<T, kCodesAny>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.p, q), pq_threads(S), smem, stream>>>(a);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kPqThreads, smem);
+  if (err != cudaSuccess) return err;
+  const long long full = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(max_items < full ? max_items : full);
+  if (blocks <= 0) return cudaSuccess;
+  kernel<<<blocks, kPqThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t launch_pq(const PqArgs& a, int q, size_t smem,
-                      cudaStream_t stream) {
-  if (a.k <= 32) return launch_pq_s<1>(a, q, smem, stream);
-  if (a.k <= 64) return launch_pq_s<2>(a, q, smem, stream);
-  if (a.k <= 128) return launch_pq_s<4>(a, q, smem, stream);
-  if (a.k <= 256) return launch_pq_s<8>(a, q, smem, stream);
-  return launch_pq_s<16>(a, q, smem, stream);
+cudaError_t launch_pq_merge(const PqArgs& a, int q, int epilog, float* outd,
+                            int* outi, cudaStream_t stream) {
+#define RAFT_PQ_MERGE(S_)                                                   \
+  return launch_merge_s<S_>(a.pd, a.pi, q, 0, a.k, epilog, outd, outi,     \
+                            stream, a.slot_off, a.p)
+  switch (a.S) {
+    case 1: RAFT_PQ_MERGE(1);
+    case 2: RAFT_PQ_MERGE(2);
+    case 4: RAFT_PQ_MERGE(4);
+    case 8: RAFT_PQ_MERGE(8);
+    default: RAFT_PQ_MERGE(16);
+  }
+#undef RAFT_PQ_MERGE
 }
 
-cudaError_t launch_pq_merge(const float* pd, const int* pi, int q, int m,
-                            int k, int epilog, float* outd, int* outi,
-                            cudaStream_t stream) {
-  if (k <= 128) return launch_merge(pd, pi, q, m, k, epilog, outd, outi, stream);
-  if (k <= 256)
-    return launch_merge_s<8>(pd, pi, q, m, k, epilog, outd, outi, stream);
-  return launch_merge_s<16>(pd, pi, q, m, k, epilog, outd, outi, stream);
+inline cudaError_t smem_limit(int* limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+}
+
+inline bool pq_shape_ok(int pq_dim, int pq_len, int book, int k,
+                        int lut_type) {
+  return pq_dim >= 1 && pq_len >= 1 && book >= 2 && book <= 256 &&
+         !(book & (book - 1)) && k >= 1 && k <= 512 && lut_type >= 0 &&
+         lut_type <= 3 && ilog2(tree_width(pq_dim) / 8) < kTreeLevels;
 }
 
 }  // namespace raft_tpu_torch
 
 using namespace raft_tpu_torch;
 
-// Plain C entry for ctypes. qres: L2 (q, p, pq_dim * pq_len) f32, IP
-// (q, pq_dim * pq_len); base: IP (q, p) f32 (L2: null); codebooks
-// (pq_dim or n_lists, book, pq_len) f32, cb_norms (pq_dim or n_lists,
-// book) f32 (L2); codes (n_lists, m, row_bytes) u8, two 4-bit codes a
-// byte when packed; indices (n_lists, m) int32; live (n_lists,) int32;
-// probes (q, p) int32 without repeats in a row (sentinel n_lists);
-// filter words (null, one shared bitset with filter_stride 0, or
-// filter_stride words a query); lut_type 0 f32, 1 bf16, 2 e4m3, 3 e5m2;
-// pd/pi scratch of q * p * k; outd/outi (q, k). Returns cudaError_t.
-extern "C" int raft_ivf_pq_scan(
-    const void* qres, const void* base, const void* codebooks,
-    const void* cb_norms, const void* codes, const void* indices,
-    const void* live, const void* probes, const void* filter,
-    long long filter_stride, int q, int p, int n_lists, int m, int row_bytes,
-    int pq_dim, int pq_len, int book, int k, int ip_metric, int per_cluster,
-    int packed, int lut_type, void* pd, void* pi, void* outd, void* outi,
-    void* stream) {
-  if (q < 0 || q > 65535 || p < 1 || n_lists < 1 || m < 0 || pq_dim < 1 || pq_len < 1 ||
-      book < 1 || book > 256 || (book & (book - 1)) || k < 1 ||
-      k > 512 || lut_type < 0 || lut_type > 3 ||
-      row_bytes != (packed ? (pq_dim + 1) / 2 : pq_dim) ||
-      (ip_metric && !base) || (!ip_metric && !cb_norms))
+// The work-item shape the scan takes for a table shape and a count of
+// (query, probe) pairs on this device:
+// out = {rows, group, stage, shared bytes} of the list-major kernel, or
+// {0, 0, 0, shared bytes} when its block cannot hold one pair's table
+// (the per-pair instance of ivf_pq_parts.cuh then scans, with no item
+// plan). The wrapper plans items with rows and group; raft_ivf_pq_scan
+// takes only that plan. Returns cudaErrorInvalidValue for a shape no
+// block fits.
+extern "C" int raft_ivf_pq_plan(int pq_dim, int pq_len, int book, int k,
+                                int lut_type, long long pairs, int* out) {
+  if (!pq_shape_ok(pq_dim, pq_len, book, k, lut_type))
     return (int)cudaErrorInvalidValue;
-  if (q == 0) return (int)cudaSuccess;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return (int)err;
-  int width = 8;
-  while (width < pq_dim) width *= 2;
-  PqArgs a;
+  PqPlan plan;
+  if (pq_plan(pq_dim, pq_len, book, k, lut_type, pairs, (size_t)limit,
+              &plan)) {
+    out[0] = plan.rows;
+    out[1] = plan.group;
+    out[2] = plan.stage;
+    out[3] = (int)plan.smem;
+    return (int)cudaSuccess;
+  }
+  pq_parts::PqArgs pa;
+  const size_t smem = pq_parts::plan(pa, pq_dim, pq_len, book,
+                                     pq_dim /* unpacked row bytes */, k,
+                                     limit);
+  if (!smem) return (int)cudaErrorInvalidValue;
+  out[0] = out[1] = out[2] = 0;
+  out[3] = (int)smem;
+  return (int)cudaSuccess;
+}
+
+// The per-pair instance (ivf_pq_parts.cuh) on (q, p) probes.
+static int scan_parts(const void* qres, const void* base,
+                      const void* codebooks, const void* cb_norms,
+                      const void* codes, const void* indices,
+                      const void* live, const void* probes,
+                      const void* filter, long long filter_stride, int q,
+                      int p, int n_lists, int m, int row_bytes, int pq_dim,
+                      int pq_len, int book, int k, int ip_metric,
+                      int per_cluster, int packed, int lut_type, int limit,
+                      void* pd, void* pi, void* outd, void* outi,
+                      cudaStream_t s) {
+  pq_parts::PqArgs a;
   a.qres = (const float*)qres;
   a.base = (const float*)base;
   a.codebooks = (const float*)codebooks;
@@ -465,32 +919,145 @@ extern "C" int raft_ivf_pq_scan(
   a.per_cluster = per_cluster;
   a.packed = packed;
   a.lut_type = lut_type;
-  a.groups = width / 8;
-  a.levels = 0;
-  while ((1 << a.levels) < a.groups) ++a.levels;
-  if (a.levels >= kTreeLevels) return (int)cudaErrorInvalidValue;
-  a.stride_words = ((row_bytes + 3) / 4) | 1;
   a.fmax = lut_type == kLutE5m2 ? 57344.f : 448.f;
   a.pd = (float*)pd;
   a.pi = (int*)pi;
-  // the fewest table parts, then the widest code tile (a row a thread,
-  // halved down to 32), that fit the device's shared memory
-  size_t smem = 0;
-  for (a.pass_bits = 0; a.pass_bits <= a.levels; ++a.pass_bits) {
-    a.lut_slots = (pq_dim + (1 << a.pass_bits) - 1) >> a.pass_bits;
-    a.row_tile = pq_threads(pq_slots(k));
-    for (;;) {
-      smem = pq_smem_bytes(a.lut_slots, pq_dim, pq_len, book, row_bytes, k,
-                           a.row_tile);
-      if (smem <= (size_t)limit || a.row_tile == 32) break;
-      a.row_tile /= 2;
-    }
-    if (smem <= (size_t)limit) break;
-  }
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-  err = launch_pq(a, q, smem, s);
+  const size_t smem =
+      pq_parts::plan(a, pq_dim, pq_len, book, row_bytes, k, limit);
+  if (!smem || q > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = pq_parts::launch_pq(a, q, smem, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_pq_merge(a.pd, a.pi, q, p * k, k,
-                              ip_metric ? kEpilogNegate : kEpilogNone,
+  return (int)pq_parts::launch_pq_merge(
+      a.pd, a.pi, q, p * k, k, ip_metric ? kEpilogNegate : kEpilogNone,
+      (float*)outd, (int*)outi, s);
+}
+
+// The work items of one search on the device (pq_plan_kernel): probes
+// (q, p) int32 without repeats in a row (sentinel: any id outside
+// [0, n_lists)); live (n_lists,) int32 rows up to each list's last live
+// id; rows and group from raft_ivf_pq_plan. Writes offs (n_lists + 1,)
+// int32, pair_q / pair_slot (q * p,) int32, item_off (n_lists + 1,)
+// int64, slot_off (q * p + 1,) int32, with cursor (n_lists,) int32
+// scratch. Returns cudaError_t.
+extern "C" int raft_ivf_pq_items(const void* probes, int q, int p,
+                                 int n_lists, const void* live, int rows,
+                                 int group, void* offs, void* pair_q,
+                                 void* pair_slot, void* item_off,
+                                 void* slot_off, void* cursor,
+                                 void* stream) {
+  if (q < 0 || p < 1 || n_lists < 1 || rows < 1 || group < 1)
+    return (int)cudaErrorInvalidValue;
+  pq_plan_kernel<<<1, kPlanThreads, 0,
+                   reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int*)probes, q, p, n_lists, (const int*)live, rows, group,
+      (int*)offs, (int*)pair_q, (int*)pair_slot, (long long*)item_off,
+      (int*)slot_off, (int*)cursor);
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry for ctypes. qres: L2 (q, p, pq_dim * pq_len) f32, IP
+// (q, pq_dim * pq_len); base: IP (q, p) f32 (L2: null); codebooks
+// (pq_dim or n_lists, book, pq_len) f32, cb_norms (pq_dim or n_lists,
+// book) f32 (L2); codes (n_lists, m, row_bytes) u8, two 4-bit codes a
+// byte when packed; indices (n_lists, m) int32; filter words (null, one
+// shared bitset with filter_stride 0, or filter_stride words a query);
+// probes (q, p) int32 without repeats in a row (sentinel n_lists); live
+// (n_lists,) int32 rows up to each list's last live id; the item plan of
+// raft_ivf_pq_items (or ops/ivf_pq_scan `_pq_items`) with
+// raft_ivf_pq_plan's rows and group: offs, pair_q / pair_slot, item_off,
+// slot_off; max_items a host bound on item_off[n_lists]; with group 0
+// the per-pair instance scans and the plan pointers are unused; lut_type
+// 0 f32, 1 bf16, 2 e4m3, 3 e5m2; pd/pi scratch of slot_off[q * p] * k
+// entries (group 0: q * p * k), written whole; outd/outi (q, k).
+// Returns cudaError_t.
+extern "C" int raft_ivf_pq_scan(
+    const void* qres, const void* base, const void* codebooks,
+    const void* cb_norms, const void* codes, const void* indices,
+    const void* probes, const void* filter, long long filter_stride,
+    const void* offs,
+    const void* pair_q, const void* pair_slot, const void* live,
+    const void* item_off, const void* slot_off, int q, int p, int n_lists,
+    int m, int row_bytes, int pq_dim, int pq_len, int book, int k,
+    int ip_metric, int per_cluster, int packed, int lut_type,
+    long long max_items, int rows, int group, void* pd, void* pi,
+    void* outd, void* outi, void* stream) {
+  if (q < 0 || p < 1 || n_lists < 1 || m < 0 ||
+      !pq_shape_ok(pq_dim, pq_len, book, k, lut_type) ||
+      row_bytes != (packed ? (pq_dim + 1) / 2 : pq_dim) ||
+      (ip_metric && !base) || (!ip_metric && !cb_norms))
+    return (int)cudaErrorInvalidValue;
+  if (q == 0) return (int)cudaSuccess;
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  PqPlan plan;
+  const bool items =
+      pq_plan(pq_dim, pq_len, book, k, lut_type, (long long)q * p,
+              (size_t)limit, &plan);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (!items && group == 0)
+    return scan_parts(qres, base, codebooks, cb_norms, codes, indices, live,
+                      probes, filter, filter_stride, q, p, n_lists, m,
+                      row_bytes, pq_dim, pq_len, book, k, ip_metric,
+                      per_cluster, packed, lut_type, limit, pd, pi, outd,
+                      outi, s);
+  if (!items || plan.rows != rows || plan.group != group)
+    return (int)cudaErrorInvalidValue;
+  PqArgs a;
+  a.qres = (const float*)qres;
+  a.base = (const float*)base;
+  a.codebooks = (const float*)codebooks;
+  a.cb_norms = (const float*)cb_norms;
+  a.codes = (const unsigned char*)codes;
+  a.indices = (const int*)indices;
+  a.filter = (const int*)filter;
+  a.filter_stride = filter_stride;
+  a.offs = (const int*)offs;
+  a.pair_q = (const int*)pair_q;
+  a.pair_slot = (const int*)pair_slot;
+  a.live = (const int*)live;
+  a.item_off = (const long long*)item_off;
+  a.slot_off = (const int*)slot_off;
+  a.n_lists = n_lists;
+  a.p = p;
+  a.m = m;
+  a.row_bytes = row_bytes;
+  a.pq_dim = pq_dim;
+  a.pq_len = pq_len;
+  a.book = book;
+  a.k = k;
+  a.dim_ext = pq_dim * pq_len;
+  a.ip_metric = ip_metric;
+  a.per_cluster = per_cluster;
+  a.packed = packed;
+  a.lut_type = lut_type;
+  a.cb_vec4 = (book * pq_len) % 4 == 0 && ((uintptr_t)codebooks & 15) == 0;
+  a.nrm_vec4 = a.cb_vec4 && book % 4 == 0 && ((uintptr_t)cb_norms & 15) == 0;
+  a.groups = tree_width(pq_dim) / 8;
+  a.levels = ilog2(a.groups);
+  a.rows = rows;
+  a.group = group;
+  a.lg_book = ilog2(book);
+  a.S = pq_slots(k);
+  a.lay = pq_layout(pq_dim, pq_len, book, k, lut_type, group, plan.stage);
+  a.codes_mode =
+      pq_dim != 64 || ((uintptr_t)codes & 15) != 0 ? kCodesAny
+      : packed                                     ? kCodesW64Packed
+                                                   : kCodesW64;
+  a.fmax = lut_type == kLutE5m2 ? 57344.f : 448.f;
+  a.pd = (float*)pd;
+  a.pi = (int*)pi;
+  switch (lut_type) {
+    case kLutF32: err = launch_items<float>(a, plan.smem, max_items, s); break;
+    case kLutBf16:
+      err = launch_items<__nv_bfloat16>(a, plan.smem, max_items, s);
+      break;
+    case kLutE4m3:
+      err = launch_items<__nv_fp8_e4m3>(a, plan.smem, max_items, s);
+      break;
+    default: err = launch_items<__nv_fp8_e5m2>(a, plan.smem, max_items, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_pq_merge(a, q, ip_metric ? kEpilogNegate : kEpilogNone,
                               (float*)outd, (int*)outi, s);
 }

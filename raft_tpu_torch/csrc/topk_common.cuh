@@ -390,15 +390,18 @@ __device__ __forceinline__ void queue_init(float* ld, int* li) {
 
 // Merge `parts` partial lists of k entries per query, laid out
 // (q, parts * k), into (q, k): one warp per query, through the filtered
-// queue (four loads a lane in flight). Applies the metric's final step
-// (sqrt, or the sign of inner products) and writes id -1 for every slot
-// no finite candidate filled.
+// queue (four loads a lane in flight). With `row_off` the runs are
+// ragged: query `row` owns the lists row_off[row * off_stride] ..
+// row_off[(row + 1) * off_stride] (m is then unused). Applies the
+// metric's final step (sqrt, or the sign of inner products) and writes
+// id -1 for every slot no finite candidate filled.
 template <int S>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     merge_partials_kernel(const float* __restrict__ pd,
                           const int* __restrict__ pi, int q, int m, int k,
                           int epilog, float* __restrict__ outd,
-                          int* __restrict__ outi) {
+                          int* __restrict__ outi,
+                          const int* __restrict__ row_off, int off_stride) {
   constexpr int KP = 32 * S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -411,8 +414,14 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   queue_init<S>(ld, li);
   int count = 0;
   u64 thr = kNoBound;
-  const float* rd = pd + (size_t)row * m;
-  const int* ri = pi + (size_t)row * m;
+  size_t base = (size_t)row * m;
+  if (row_off) {
+    base = (size_t)row_off[(size_t)row * off_stride] * k;
+    m = (row_off[(size_t)(row + 1) * off_stride] -
+         row_off[(size_t)row * off_stride]) * k;
+  }
+  const float* rd = pd + base;
+  const int* ri = pi + base;
   for (int c0 = 0; c0 < m; c0 += 128) {
     float v[4];
     int id[4];
@@ -441,15 +450,18 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
 template <int S>
 cudaError_t launch_merge_s(const float* pd, const int* pi, int q, int m,
                            int k, int epilog, float* outd, int* outi,
-                           cudaStream_t stream) {
+                           cudaStream_t stream,
+                           const int* row_off = nullptr,
+                           int off_stride = 0) {
   const size_t smem = (size_t)kMergeWarps * 4 * 32 * S * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       merge_partials_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  if (q == 0) return cudaSuccess;
   const int blocks = (q + kMergeWarps - 1) / kMergeWarps;
   merge_partials_kernel<S><<<blocks, kMergeWarps * 32, smem, stream>>>(
-      pd, pi, q, m, k, epilog, outd, outi);
+      pd, pi, q, m, k, epilog, outd, outi, row_off, off_stride);
   return cudaGetLastError();
 }
 

@@ -45,7 +45,8 @@ SIGNATURES = {
                     + [_I] * 5 + [_P, _P, _F, _P, _P, _P, _I, _P, _P]),
     "tier_scan": ("raft_tier_scan", [_P] * 19 + [_I] * 9 + [_P] * 12),
     "ivf_pq_scan": ("raft_ivf_pq_scan",
-                    [_P] * 9 + [_L] + [_I] * 13 + [_P] * 5),
+                    [_P] * 8 + [_L] + [_P] * 6 + [_I] * 13 + [_L]
+                    + [_I] * 2 + [_P] * 5),
     "stream_read": ("raft_stream_read_sum",
                     [_P, _I, _I, _L, _I, _L, _I, _P, _P, _P]),
 }
@@ -120,14 +121,20 @@ def load(name: str):
     return getattr(lib, SIGNATURES[name][0])
 
 
+def function(name: str, symbol: str, argtypes):
+    """Another ``int``-returning C function of library ``name`` (a
+    planning helper beside its entry), bound with ``argtypes``."""
+    load(name)
+    fn = getattr(_loaded[name], symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def constant(name: str, symbol: str) -> int:
     """The value of library ``name``'s ``int symbol(void)``: a constant of
     its source that a wrapper plans with."""
-    load(name)
-    fn = getattr(_loaded[name], symbol)
-    fn.argtypes = []
-    fn.restype = ctypes.c_int
-    return int(fn())
+    return int(function(name, symbol, [])())
 
 
 def check(err: int, what: str) -> None:

@@ -17,14 +17,18 @@ slots), ids ``< 0`` and filtered ids match nothing; unfilled slots carry
 id -1. A row's slots name each list at most once, as coarse select gives
 them (:func:`dedup_slots` makes hand-built slots so).
 
-- ``cuda``: ``csrc/ivf_pq_scan.cu``. One block for each (query, probe
-  slot) builds that pair's LUT in shared memory, streams the list's code
-  rows through a shared tile, scores each row, keeps a per-warp filtered
-  top-k (``topk_common.cuh``), merges the warps' lists and writes one
-  partial list; a second launch merges each query's partial lists. A LUT
-  too large for shared memory is built and scored in parts that keep the
-  order of the sum. The C entry alone decides whether a shape fits, and
-  a shape that does not raises.
+- ``cuda``: ``csrc/ivf_pq_scan.cu``, list-major. A plan kernel lays out
+  work items on the device (:func:`_pq_items` is its plain twin): (probed
+  list, chunk of its live rows, group of up to 16 of the (query, probe
+  slot) pairs that probe it), sized by the C library's
+  ``raft_ivf_pq_plan`` for the table shape (:func:`_pq_plan`). A block
+  builds the group's whole tables in shared memory once, streams the
+  chunk's rows past them (a row's codes in registers), keeps a filtered
+  top-k queue a warp and writes one partial top-k per pair and chunk; a
+  last launch merges each query's partial lists. A table too large for
+  the block (gist-960's pq_dim 240 in fp32) takes a per-pair instance
+  that builds it in parts keeping the order of the sum. The C entry alone
+  decides whether a shape fits, and a shape that does not raises.
 - ``torch``: the plain version, the twin of the JAX ``xla`` engine: a
   loop over the probed-list union that builds every query's LUT for the
   list, gathers, sums and merges by ``_merge_smallest_id``. CPU tensors
@@ -252,6 +256,120 @@ def _lut_code(lut_dtype) -> int:
     return LUT_DTYPES.index(lut_dtype)
 
 
+#: (pq_dim, pq_len, book, k, lut code, wide) -> (rows, group) of the C
+#: plan ("wide": the library's kWidePairs test on q * p), and "items", the
+#: bound plan-kernel entry
+_PLANS: dict = {}
+_WIDE_PAIRS = 4096
+
+
+def _pq_plan(pq_dim: int, pq_len: int, book: int, k: int, lut: int,
+             pairs: int):
+    """``(rows, group)`` of the kernel's work items for this table shape:
+    the C library's choice (``raft_ivf_pq_plan``), which its entry holds
+    the launch to; ``(0, 0)`` when one pair's table does not fit the
+    list-major block and the per-pair instance scans. Raises for a shape
+    no block fits."""
+    key = (pq_dim, pq_len, book, k, lut, pairs >= _WIDE_PAIRS)
+    if key not in _PLANS:
+        import ctypes
+
+        from raft_tpu_torch.ops import _build
+
+        fn = _build.function("ivf_pq_scan", "raft_ivf_pq_plan",
+                             [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p])
+        out = (ctypes.c_int * 4)()
+        _build.check(fn(pq_dim, pq_len, book, k, lut, pairs, out),
+                     f"ivf_pq_scan: no block fits pq_dim {pq_dim}, "
+                     f"pq_len {pq_len}, book {book}, k {k}")
+        _PLANS[key] = (out[0], out[1])
+    return _PLANS[key]
+
+
+def _pq_items(probes, indices, k: int, rows: int, group: int):
+    """The kernel's work-item plan in plain PyTorch, the twin of the
+    library's ``raft_ivf_pq_items`` (which the wrapper runs on the card);
+    no host sync. Every list is a step: ``offs`` (n_lists + 1,) CSR over
+    the (list, query)-sorted pairs ``pair_q`` / ``pair_slot`` (a pair's
+    own probe slot; sentinel slots form no pair), ``live`` each list's
+    rows up to its last live id, ``item_off`` (n_lists + 1,) int64 the
+    first item of each list: its items are (chunk of ``rows`` live rows,
+    group of ``group`` pairs), from
+    :func:`~raft_tpu_torch.ops.ivf_scan._scan_items`; ``slot_off`` (q * p
+    + 1,) the first partial list of each (query, probe slot), one a chunk
+    of its list, and partial buffers of a bound from the shapes alone
+    (``q * p * ceil(m / rows)`` lists of k). The device plan orders a
+    list's pairs by arrival, which changes no result."""
+    from raft_tpu_torch.ops.ivf_scan import _scan_items, live_rows
+
+    q, p = probes.shape
+    n_lists, m = indices.shape
+    dev = probes.device
+    pr = probes.to(torch.int64)
+    pr = torch.where((pr < 0) | (pr >= n_lists), torch.full_like(pr, n_lists),
+                     pr)
+    rows_of = torch.arange(q, device=dev)[:, None]
+    skey, order = torch.sort((pr * q + rows_of).reshape(-1))
+    counts = torch.zeros(n_lists + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, skey // q, torch.ones_like(skey))
+    offs = torch.zeros(n_lists + 1, dtype=torch.int64, device=dev)
+    offs[1:] = torch.cumsum(counts[:n_lists], 0)
+    pair_q = (skey % q).to(torch.int32)
+    pair_slot = (order % p).to(torch.int32)
+    live = live_rows(indices)
+    _, item_off, slot_off = _scan_items(offs, pair_q, pair_slot, live, q, p,
+                                        chunk=rows, group=group)
+    n_part = q * p * max(1, -(-m // rows)) * k
+    return dict(offs=offs.to(torch.int32), pair_q=pair_q,
+                pair_slot=pair_slot, live=live.contiguous(),
+                item_off=item_off, slot_off=slot_off,
+                pd=torch.empty((n_part,), dtype=torch.float32, device=dev),
+                pi=torch.empty((n_part,), dtype=torch.int32, device=dev))
+
+
+def _pq_items_cuda(probes, indices, k: int, rows: int, group: int):
+    """:func:`_pq_items` by the library's plan kernel (one launch): the
+    same arrays, in one int32 workspace."""
+    import ctypes
+
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops.ivf_scan import live_rows
+
+    q, p = probes.shape
+    n_lists, m = indices.shape
+    dev = probes.device
+    live = live_rows(indices).contiguous()
+    probes = probes.to(torch.int32).contiguous()
+    # item_off (int64) first, then offs, pair_q, pair_slot, slot_off, cursor
+    n_i64 = 2 * (n_lists + 1)
+    sizes = (n_i64, n_lists + 1, q * p, q * p, q * p + 1, n_lists)
+    ws = torch.empty((sum(sizes),), dtype=torch.int32, device=dev)
+    parts, at = [], 0
+    for n in sizes:
+        parts.append(ws[at:at + n])
+        at += n
+    item_off = parts[0].view(torch.int64)
+    fn = _PLANS.get("items")
+    if fn is None:
+        fn = _PLANS["items"] = _build.function(
+            "ivf_pq_scan", "raft_ivf_pq_items",
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 7)
+    _build.check(fn(probes.data_ptr(), q, p, n_lists, live.data_ptr(), rows,
+                    group, parts[1].data_ptr(), parts[2].data_ptr(),
+                    parts[3].data_ptr(), item_off.data_ptr(),
+                    parts[4].data_ptr(), parts[5].data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "ivf_pq_scan plan")
+    n_part = q * p * max(1, -(-m // rows)) * k
+    return dict(offs=parts[1], pair_q=parts[2], pair_slot=parts[3],
+                live=live, item_off=item_off, slot_off=parts[4],
+                pd=torch.empty((n_part,), dtype=torch.float32, device=dev),
+                pi=torch.empty((n_part,), dtype=torch.int32, device=dev))
+
+
 def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
                filter_words, *, k: int, ip_metric: bool, per_cluster: bool,
                lut_dtype, packed: bool):
@@ -284,12 +402,25 @@ def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops.ivf_scan import live_rows
 
+    outd = torch.empty((q, k), dtype=torch.float32, device=dev)
+    outi = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return outd, outi
     launch = _build.load("ivf_pq_scan")
+    lut = _lut_code(lut_dtype)
+    rows, group = _pq_plan(pq_dim, L, book, k, lut, q * p)
     qres = qres.contiguous()
     codebooks = codebooks.contiguous()
     codes = codes.contiguous()
     indices = indices.contiguous()
-    probes = probes.contiguous()
+    probes = probes.to(torch.int32).contiguous()
+    if group:
+        g = _pq_items_cuda(probes, indices, k, rows, group)
+    else:  # the per-pair instance: no items, one partial list a pair
+        g = dict(live=live_rows(indices).contiguous(),
+                 pd=torch.empty((q * p * k,), dtype=torch.float32,
+                                device=dev),
+                 pi=torch.empty((q * p * k,), dtype=torch.int32, device=dev))
     base_t = None if base is None else base.to(torch.float32).contiguous()
     cbn = None if ip_metric else cb_norms.to(torch.float32).contiguous()
     fw = None
@@ -297,11 +428,9 @@ def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
     if filter_words is not None:
         fw = filter_words.to(torch.int32).contiguous()
         fw_stride = fw.shape[1] if fw.dim() == 2 else 0
-    live = live_rows(indices).contiguous()
-    pd = torch.empty((q * p * k,), dtype=torch.float32, device=dev)
-    pi = torch.empty((q * p * k,), dtype=torch.int32, device=dev)
-    outd = torch.empty((q, k), dtype=torch.float32, device=dev)
-    outi = torch.empty((q, k), dtype=torch.int32, device=dev)
+    # a host bound on the item count sizes the grid (no sync)
+    max_items = (q * p // max(group, 1) + n_lists) * max(1, -(-m // max(
+        rows, 1)))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -309,11 +438,15 @@ def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = launch(qres.data_ptr(), ptr(base_t), codebooks.data_ptr(),
                  ptr(cbn), codes.data_ptr(), indices.data_ptr(),
-                 live.data_ptr(), probes.data_ptr(), ptr(fw), fw_stride,
+                 probes.data_ptr(), ptr(fw), fw_stride,
+                 *(ptr(g.get(n)) for n in (
+                     "offs", "pair_q", "pair_slot", "live", "item_off",
+                     "slot_off")),
                  q, p, n_lists, m, row_bytes, pq_dim, L, book, k,
-                 int(ip_metric), int(per_cluster), int(packed),
-                 _lut_code(lut_dtype), pd.data_ptr(), pi.data_ptr(),
-                 outd.data_ptr(), outi.data_ptr(), stream)
+                 int(ip_metric), int(per_cluster), int(packed), lut,
+                 max_items, rows, group, g["pd"].data_ptr(),
+                 g["pi"].data_ptr(), outd.data_ptr(), outi.data_ptr(),
+                 stream)
     _build.check(err, "ivf_pq_scan")
     ivf_pq_scan.launches += 1
     return outd, outi

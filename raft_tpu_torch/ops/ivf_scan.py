@@ -268,10 +268,12 @@ def _scan_pairs(probes: torch.Tensor, n_lists: int):
             (order % p).to(torch.int32))
 
 
-def _scan_items(offs, pair_q, pair_slot, live, q: int, p: int):
+def _scan_items(offs, pair_q, pair_slot, live, q: int, p: int,
+                chunk: int = _CHUNK_ROWS, group: int = _QUERY_GROUP):
     """The work-item plan of the scan kernels, on the pairs' device with
-    no host sync: (list, chunk of ``_CHUNK_ROWS`` of its ``live`` rows,
-    group of ``_QUERY_GROUP`` of its probing pairs).
+    no host sync: (list, chunk of ``chunk`` of its ``live`` rows, group of
+    ``group`` of its probing pairs); the IVF-Flat kernels take the
+    defaults, the IVF-PQ kernel its own (``ops/ivf_pq_scan``).
 
     Returns ``items`` (cap,) int64, each union step's item count;
     ``item_off`` (cap + 1,) int64, the first item of each step; and
@@ -282,8 +284,8 @@ def _scan_items(offs, pair_q, pair_slot, live, q: int, p: int):
     cap = live.shape[0]
     dev = live.device
     cnt = (offs[1:] - offs[:-1]).to(torch.int64)
-    nch = -(-live.to(torch.int64) // _CHUNK_ROWS)
-    items = nch * -(-cnt // _QUERY_GROUP)
+    nch = -(-live.to(torch.int64) // chunk)
+    items = nch * -(-cnt // group)
     item_off = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
     item_off[1:] = torch.cumsum(items, 0)
     # pair e lies in list j with offs[j] <= e < offs[j + 1]

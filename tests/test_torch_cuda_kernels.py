@@ -911,15 +911,16 @@ PQ_LUTS = (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
 
 
 def _pq_scan_case(dev, ip_metric, per_cluster, bits, k, case, pq_dim=None,
-                  L=None):
-    """Random scan inputs: 9 lists of 300 slots (ids -1 past 250 and at
-    every 37th slot), 40 queries x 5 probe slots (drawn with repeats, each
-    repeat made the sentinel)."""
+                  L=None, m=300, q=40, hot=None):
+    """Random scan inputs: 9 lists of ``m`` slots (ids -1 in the last 50
+    and at every 37th slot), ``q`` queries x 5 probe slots (drawn with
+    repeats, each repeat made the sentinel; with ``hot``, every query's
+    first slot probes list ``hot``)."""
     from raft_tpu_torch.neighbors.ivf_pq import _pack_nibbles
     from raft_tpu_torch.ops.ivf_pq_scan import codebook_norms, dedup_slots
 
     rng = np.random.default_rng(case)
-    n_lists, m, q, p = 9, 300, 40, 5
+    n_lists, p = 9, 5
     pq_dim = pq_dim or (6, 16, 64)[case % 3]
     L = L or 2 + case % 2
     book = 1 << bits
@@ -931,9 +932,11 @@ def _pq_scan_case(dev, ip_metric, per_cluster, bits, k, case, pq_dim=None,
     if packed:
         codes = _pack_nibbles(codes)
     ids = rng.permutation(n_lists * m).reshape(n_lists, m).astype(np.int32)
-    ids[:, 250:] = -1
+    ids[:, m - 50:] = -1
     ids[:, ::37] = -1
     probes = rng.integers(0, n_lists, (q, p)).astype(np.int32)
+    if hot is not None:
+        probes[:, 0] = hot
     probes[::3, 3:] = n_lists                          # ragged budgets
     probes = dedup_slots(torch.from_numpy(probes), n_lists)
     shape = (q, pq_dim * L) if ip_metric else (q, p, pq_dim * L)
@@ -952,6 +955,11 @@ def _pq_scan_case(dev, ip_metric, per_cluster, bits, k, case, pq_dim=None,
                     torch.from_numpy(fw.astype(np.int32)))), packed
 
 
+# the list-major kernel's work items: a list probed by more pairs than an
+# item holds, lists longer than two chunks of rows, a batch of one
+PQ_ITEM_SHAPES = (dict(q=70, hot=3), dict(m=1300), dict(q=1))
+
+
 @pytest.mark.parametrize("k", [10, 258])
 @pytest.mark.parametrize("lut", PQ_LUTS, ids=str)
 @pytest.mark.parametrize("bits", [4, 8])
@@ -961,9 +969,10 @@ def test_ivf_pq_scan_kernel_matches_plain(dev, ip_metric, per_cluster, bits,
                                           lut, k):
     from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
 
-    for case in range(3):
+    for case in range(3 + len(PQ_ITEM_SHAPES)):
+        shape = PQ_ITEM_SHAPES[case - 3] if case >= 3 else {}
         args, packed = _pq_scan_case(dev, ip_metric, per_cluster, bits, k,
-                                     case + 7 * k)
+                                     case + 7 * k, **shape)
         kw = dict(k=k, ip_metric=ip_metric, per_cluster=per_cluster,
                   lut_dtype=lut, packed=packed)
         before = ivf_pq_scan.launches
@@ -973,7 +982,7 @@ def test_ivf_pq_scan_kernel_matches_plain(dev, ip_metric, per_cluster, bits,
         torch.cuda.synchronize()
         assert torch.equal(got[1], want[1])
         assert torch.equal(got[0], want[0])
-        assert (got[1] >= 0).any()
+        assert (got[1] >= 0).any() or shape.get("q") == 1
 
 
 @pytest.mark.parametrize("lut", [torch.float32, torch.bfloat16,
@@ -985,20 +994,22 @@ def test_ivf_pq_scan_kernel_matches_plain(dev, ip_metric, per_cluster, bits,
 def test_ivf_pq_scan_kernel_builds_large_luts_in_parts(dev, shape, ip_metric,
                                                        lut):
     """Tables past shared memory (an fp32 table of pq_dim 240 at 8 bits is
-    240 KB; pq_dim 196 is 196 KB beside k=258's queues) are built and
-    scored in parts: still the plain version bit for bit."""
+    240 KB; pq_dim 196 is 196 KB beside k=258's queues) take the
+    per-pair instance, which builds them in parts, on plain lists and on
+    a list probed by every query: still the plain version bit for bit."""
     from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
 
     pq_dim, L, k = shape
-    args, packed = _pq_scan_case(dev, ip_metric, False, 8, k, pq_dim + k,
-                                 pq_dim=pq_dim, L=L)
-    kw = dict(k=k, ip_metric=ip_metric, per_cluster=False, lut_dtype=lut,
-              packed=packed)
-    got = ivf_pq_scan(**args, **kw, engine="cuda")
-    want = ivf_pq_scan(**args, **kw, engine="torch")
-    torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-    assert (got[1] >= 0).any()
+    for items in ({}, dict(q=70, hot=4, m=700)):
+        args, packed = _pq_scan_case(dev, ip_metric, False, 8, k, pq_dim + k,
+                                     pq_dim=pq_dim, L=L, **items)
+        kw = dict(k=k, ip_metric=ip_metric, per_cluster=False, lut_dtype=lut,
+                  packed=packed)
+        got = ivf_pq_scan(**args, **kw, engine="cuda")
+        want = ivf_pq_scan(**args, **kw, engine="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        assert (got[1] >= 0).any()
 
 
 @pytest.mark.parametrize("dim", [128, 20])
@@ -1027,6 +1038,37 @@ def test_quantized_search_on_the_card_equals_cpu(dev, metric, dim):
         assert got[1].device.type == "cuda"
         assert torch.equal(got[1].cpu(), want[1])
         torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("rows,group", [(512, 16), (64, 4)])
+def test_ivf_pq_plan_kernel_equals_its_torch_twin(dev, rows, group):
+    """The plan kernel lays out what ``_pq_items`` does: the same CSR
+    offsets, items and partial slots, and each list's pairs (as a set:
+    the kernel places them in arrival order)."""
+    from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+    for shape in ({}, *PQ_ITEM_SHAPES):
+        args, _ = _pq_scan_case(dev, False, False, 8, 10, 5, **shape)
+        probes, indices = args["probes"], args["indices"]
+        got = ops._pq_items_cuda(probes, indices, 10, rows, group)
+        want = ops._pq_items(probes, indices, 10, rows, group)
+        torch.cuda.synchronize()
+        for name in ("offs", "live", "item_off", "slot_off"):
+            assert torch.equal(got[name].cpu().to(torch.int64),
+                               want[name].cpu().to(torch.int64)), name
+        q, p = probes.shape
+        offs = want["offs"].cpu().to(torch.int64)
+        owner = torch.repeat_interleave(torch.arange(offs.numel() - 1),
+                                        offs[1:] - offs[:-1])
+        n = int(offs[-1])
+
+        def keys(plan):
+            pq = plan["pair_q"][:n].cpu().to(torch.int64)
+            ps = plan["pair_slot"][:n].cpu().to(torch.int64)
+            return torch.sort(owner * q * p + pq * p + ps).values
+
+        assert torch.equal(keys(got), keys(want))
+        assert got["pd"].numel() == want["pd"].numel()
 
 
 def test_ivf_pq_scan_kernel_replays_in_a_graph(dev):

@@ -3,7 +3,8 @@
 engine against the JAX ``rank`` engine and the ``torch`` engine against
 the JAX ``xla`` engine over metric x codebook kind x pq_bits x
 lut_dtype x score_mode x filter, the v4 file both ways, build quality,
-and a CPU model of the CUDA kernel's (query, probe) blocks.
+and a CPU model of the CUDA kernel's sums and of its per-pair partial
+lists (its list-major work items: ``test_torch_ivf_pq_items.py``).
 
 Exactness: the carried-across indexes have integer centers and
 codebooks, an identity rotation and integer data and queries, so every
@@ -305,7 +306,7 @@ def _kernel_row_sum(terms: torch.Tensor, pq_dim: int,
     W/8, s0 the bit-reversed group index), each summed as ((0+1)+(2+3))+
     ((4+5)+(6+7)), the groups combined by a binary-counter stack. With
     ``pass_bits`` b the table is built in 2^b parts (csrc
-    ``build_lut``/``score_groups``): part c holds the subspaces s with
+    ``build_part``/``score_group``): part c holds the subspaces s with
     s mod 2^b = brev_b(c) at slot s >> b, and scores the groups
     c·G/2^b .. (c+1)·G/2^b - 1 with the stack carried over."""
     W = t_scan.tree_width(pq_dim)
@@ -363,7 +364,7 @@ def test_kernel_group_sum_equals_tree_sum(pq_dim):
 
 def _emulate_blocks(qres, base, codebooks, cb_norms, codes, indices, probes,
                     fw, *, k, ip_metric, per_cluster, lut_dtype, packed):
-    """One (query, probe slot) block at a time: the pair's LUT, the rows'
+    """One (query, probe slot) pair at a time: the pair's LUT, the rows'
     scores by :func:`_kernel_row_sum`, a partial top-k by (distance, id);
     then each query's partials merged by (distance, id)."""
     q, p = probes.shape
