@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--phases env,build,kernels,main,serve,ragged,pq,times]
+    python3 chip_smoke.py [--seed 0]
+        [--phases env,build,kernels,main,serve,ragged,distance,pq,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -173,7 +174,31 @@ non-zero exit (nothing is caught and passed over):
             128) on the first 200,000 rows (build s, the PQ kernel's
             launches in it, recall@10 at itopk 64 and 128, batch 500, on
             the beam kernel); the kernel's time and bound.
-8. times    per kernel at the main path's shapes: kernel ms (CUDA
+8. distance the distance family on main's data (alone with --phases
+            env,build,distance, which makes main's data and IVF-Flat
+            index): brute force over all 20 metrics on 1M rows (the main
+            rows; |x| rows normalised to sum 1 for KL, JensenShannon and
+            Hellinger; x > 0 as 0/1 for Jaccard, Dice, RusselRao and
+            Hamming; 1M (lat, lon) radians for Haversine), k 10, at batch
+            10 (10 dataset rows as queries, median of 3; each true
+            distance finds the row itself at rank 0) and 500 (one call),
+            and 10 queries against the first 50,000 rows equal to a
+            float64 numpy brute force up to ties; unbalanced k-means
+            (1,024 clusters, k-means++, max_iter 20) on the 1M rows, two
+            same-seed fits torch.equal, inertia below its seeds', predict
+            equal to fused_l2_nn_argmin on 10,000 rows; the IVF-Flat rank
+            engine against the kernel at (32, 10) and (128, 500), ids
+            equal up to ties; ball cover on 1M Haversine points
+            (knn_query for 1,000 queries equal to brute force up to ties;
+            eps_nn_query and eps_neighbors, 100 x 1M, equal to pairwise
+            <= eps^2); masked_l2_nn for 1,000 queries with main's 1,024
+            lists as groups, each query's 32 nearest enabled, equal to a
+            masked pairwise argmin; the four gram matrices at 500 x
+            100,000 against float64 on a slice; 8 threads asking for
+            the default handle get one. Query counts are cut for the time
+            limit, never widths. Its launches add to the kernels line's;
+            its numbers go to chiprun_out/distance.json.
+9. times    per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -192,7 +217,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-9. profile  (not in the default run) torch.profiler over five requests
+10. profile (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -3475,6 +3500,502 @@ def times_pq(torch, state: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# distance: the distance family, k-means, the rank engine, ball cover
+# ---------------------------------------------------------------------------
+
+#: the real-valued metrics run on the main data; the others on rows made
+#: for them (see ``distance_data``)
+PROB_METRICS = ("KLDivergence", "JensenShannon", "HellingerExpanded")
+BINARY_METRICS = ("JaccardExpanded", "DiceExpanded", "RusselRaoExpanded",
+                  "HammingUnexpanded")
+#: the metrics that are not a true distance (no self-distance of 0)
+NOT_TRUE_DISTANCES = ("InnerProduct", "RusselRaoExpanded")
+LP_ARG = 3.0
+CHECK_ROWS, CHECK_QUERIES = 50_000, 10
+KMEANS_CLUSTERS, KMEANS_ITERS = 1024, 20
+BALL_QUERIES, EPS_QUERIES, MASKED_QUERIES = 1000, 100, 1000
+GRAM_ROWS, GRAM_COLS = 500, 100_000
+
+
+def np_distance(metric: str, q, x, p: float = LP_ARG):
+    """(q, n) float64 distances of ``metric``: a plain numpy reference of
+    the 20 metrics, independent of the port (the reference's
+    definitions, with its zero-denominator guards)."""
+    q = q.astype(np.float64)
+    x = x.astype(np.float64)
+    k = q.shape[1]
+    ip = q @ x.T
+    qn = (q * q).sum(1)[:, None]
+    xn = (x * x).sum(1)[None, :]
+    if metric in ("L2Expanded", "L2Unexpanded"):
+        return np.maximum(qn + xn - 2 * ip, 0)
+    if metric in ("L2SqrtExpanded", "L2SqrtUnexpanded"):
+        return np.sqrt(np.maximum(qn + xn - 2 * ip, 0))
+    if metric == "InnerProduct":
+        return ip
+    if metric == "CosineExpanded":
+        return 1 - ip / np.sqrt(qn * xn)
+    if metric == "CorrelationExpanded":
+        qc = q - q.mean(1, keepdims=True)
+        xc = x - x.mean(1, keepdims=True)
+        return 1 - (qc @ xc.T) / np.sqrt(
+            (qc * qc).sum(1)[:, None] * (xc * xc).sum(1)[None, :])
+    if metric == "HellingerExpanded":
+        return np.sqrt(np.maximum(1 - np.sqrt(q) @ np.sqrt(x).T, 0))
+    if metric == "RusselRaoExpanded":
+        return (k - ip) / k
+    if metric == "JaccardExpanded":
+        den = qn + xn - ip
+        return 1 - np.where(den != 0, ip / np.where(den == 0, 1, den), 0)
+    if metric == "DiceExpanded":
+        den = qn + xn
+        return 1 - np.where(den != 0, 2 * ip / np.where(den == 0, 1, den),
+                            0)
+    if metric == "Haversine":
+        a = (np.sin(0.5 * (q[:, None, 0] - x[None, :, 0])) ** 2
+             + np.cos(q[:, None, 0]) * np.cos(x[None, :, 0])
+             * np.sin(0.5 * (q[:, None, 1] - x[None, :, 1])) ** 2)
+        return 2 * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+    out = np.empty((q.shape[0], x.shape[0]))
+    for i, row in enumerate(q):                       # elementwise family
+        a, b = row[None, :], x
+        if metric == "L1":
+            out[i] = np.abs(a - b).sum(1)
+        elif metric == "Linf":
+            out[i] = np.abs(a - b).max(1)
+        elif metric == "LpUnexpanded":
+            out[i] = (np.abs(a - b) ** p).sum(1) ** (1 / p)
+        elif metric == "Canberra":
+            den = np.abs(a) + np.abs(b)
+            out[i] = np.where(den != 0, np.abs(a - b)
+                              / np.where(den == 0, 1, den), 0).sum(1)
+        elif metric == "BrayCurtis":
+            num, den = np.abs(a - b).sum(1), np.abs(a + b).sum(1)
+            out[i] = np.where(den != 0, num / np.where(den == 0, 1, den), 0)
+        elif metric == "HammingUnexpanded":
+            out[i] = (a != b).sum(1) / k
+        elif metric in ("KLDivergence", "JensenShannon"):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                la = np.where(a > 0, np.log(np.where(a > 0, a, 1)), 0)
+                lb = np.where(b > 0, np.log(np.where(b > 0, b, 1)), 0)
+                if metric == "KLDivergence":
+                    out[i] = (np.where(a > 0, a * la, 0) - a * lb).sum(1)
+                else:
+                    m = 0.5 * (a + b)
+                    lm = np.where(m > 0, np.log(np.where(m > 0, m, 1)), 0)
+                    out[i] = np.sqrt(0.5 * (np.where(a > 0, a * (la - lm), 0)
+                                            + np.where(b > 0, b * (lb - lm),
+                                                       0)).sum(1))
+        else:
+            raise ValueError(metric)
+    return out
+
+
+def distance_data(torch, state: dict) -> dict:
+    """The rows each metric runs on, all 1M long: the main data for the
+    real-valued metrics, |x| rows normalised to sum 1 for KL,
+    JensenShannon and Hellinger, x > 0 as 0/1 for the binary metrics, and
+    1M (lat, lon) points in radians (uniform in [-1.4, 1.4] x [-pi, pi))
+    for Haversine; with the queries of each kind."""
+    x, queries = state["x"], state["queries"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(state["seed"] + 7)
+
+    def prob(a):
+        a = a.abs()
+        return a / a.sum(dim=1, keepdim=True)
+
+    n = N_ROWS + N_QUERIES
+    geo = torch.stack([(torch.rand(n, generator=g, device="cuda") * 2 - 1)
+                       * 1.4, (torch.rand(n, generator=g, device="cuda")
+                               * 2 - 1) * float(np.pi)], 1)
+    return {"real": (x, queries), "prob": (prob(x), prob(queries)),
+            "binary": ((x > 0).float(), (queries > 0).float()),
+            "geo": (geo[:N_ROWS].contiguous(), geo[N_ROWS:].contiguous())}
+
+
+def _kind(name: str) -> str:
+    if name in PROB_METRICS:
+        return "prob"
+    if name in BINARY_METRICS:
+        return "binary"
+    return "geo" if name == "Haversine" else "real"
+
+
+def same_up_to_ties(name: str, got_d, got_i, true_got, true_want, want_i,
+                    tol) -> int:
+    """Holds a top-k list against the wanted one up to ties: ``true_got``
+    and ``true_want`` are the float64 distances of the got and wanted
+    ids, position by position. Fails unless every got distance is within
+    ``tol`` (per row) of its id's true distance, every position's true
+    distances agree within ``tol`` (so a differing id ties the wanted
+    one), and no row repeats an id. Returns how many ids differ."""
+    import torch
+
+    torch.cuda.synchronize()
+    gd, gi = got_d.double().cpu(), got_i.cpu()
+    tg, tw = true_got.double().cpu(), true_want.double().cpu()
+    wi = want_i.cpu()
+    tol = torch.as_tensor(tol).double().cpu().reshape(-1, 1)
+    if not torch.equal(gi < 0, wi < 0):
+        fail(f"{name}: filled slots differ")
+    ok = gi >= 0
+    err = (gd - tg).abs()
+    if bool((err > tol)[ok].any()):
+        fail(f"{name}: a distance is {float(err[ok].max())} off its id's "
+             "float64 distance")
+    gap = (tg - tw).abs()
+    if bool((gap > tol)[ok].any()):
+        fail(f"{name}: ids differ away from ties (float64 gap "
+             f"{float(gap[ok].max())})")
+    srt = torch.sort(torch.where(ok, gi, -1 - torch.arange(
+        gi.shape[1]).expand_as(gi)), dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        fail(f"{name}: a row repeats an id")
+    return int((gi != wi).sum())
+
+
+def _rows_f64(fn, q, rows, ids):
+    """float64 distances ``fn(q, rows[ids])`` of each query's ids (the
+    -1 slots read row 0 and are ignored by :func:`same_up_to_ties`)."""
+    return fn(q.double()[:, None, :],
+              rows[ids.clamp(min=0).long()].double())
+
+
+def _l2_f64(a, b):
+    return ((a - b) ** 2).sum(-1)
+
+
+def _haversine_f64(a, b):
+    h = ((0.5 * (a[..., 0] - b[..., 0])).sin() ** 2
+         + a[..., 0].cos() * b[..., 0].cos()
+         * (0.5 * (a[..., 1] - b[..., 1])).sin() ** 2)
+    return 2 * h.clamp(0, 1).sqrt().arcsin()
+
+
+def distance_brute_force(torch, state: dict, data: dict) -> dict:
+    """All 20 metrics through brute_force.search over 1M rows: batch 10
+    (10 dataset rows as queries, median of 3) and batch 500 (one call);
+    each true distance finds the query row at rank 0; 10 queries against
+    the first 50,000 rows equal a float64 numpy brute force up to ties."""
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import brute_force
+
+    res = state["dres"]
+    self_rows = (torch.arange(CHECK_QUERIES, device="cuda")
+                 * (N_ROWS // CHECK_QUERIES) + 13)
+    out = {}
+    for metric in DistanceType:
+        if metric == DistanceType.Precomputed:
+            continue
+        name = metric.name
+        x, qs = data[_kind(name)]
+        index = brute_force.build(res, x, metric, LP_ARG)
+        q10 = x[self_rows]
+        d10, i10 = brute_force.search(res, index, q10, K)
+        ms10 = median_ms(lambda: brute_force.search(res, index, q10, K), 3,
+                         warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d500, i500 = brute_force.search(res, index, qs[:500], K)
+        torch.cuda.synchronize()
+        ms500 = (time.perf_counter() - t0) * 1e3
+        if not (torch.isfinite(d500).all() and bool((i500 >= 0).all())):
+            fail(f"brute force {name}: non-finite distances or -1 ids")
+        if name not in NOT_TRUE_DISTANCES and not torch.equal(
+                i10[:, 0], self_rows.to(torch.int32)):
+            fail(f"brute force {name}: a dataset row used as a query did "
+                 "not find itself at rank 0")
+        # against float64 numpy on the first 50,000 rows
+        sub = brute_force.build(res, x[:CHECK_ROWS], metric, LP_ARG)
+        gd, gi = brute_force.search(res, sub, qs[:CHECK_QUERIES], K)
+        want = np_distance(name, qs[:CHECK_QUERIES].cpu().numpy(),
+                           x[:CHECK_ROWS].cpu().numpy())
+        order = np.argsort(-want if name == "InnerProduct" else want,
+                           axis=1, kind="stable")[:, :K]
+        wd = np.take_along_axis(want, order, 1)
+        tol = 1e-4 * (1.0 + np.abs(wd[:, -1]))
+        if name in ("L2Expanded", "InnerProduct", "L2SqrtExpanded"):
+            # the product's cancellation: relative to the norms
+            norms = ((qs[:CHECK_QUERIES].double() ** 2).sum(1).cpu().numpy()
+                     + float((x[:CHECK_ROWS].double() ** 2).sum(1).max()))
+            tol = tol + 1e-5 * (np.sqrt(norms) if name == "L2SqrtExpanded"
+                                else norms)
+        gi_np = gi.cpu().numpy().astype(np.int64)
+        ties = same_up_to_ties(
+            f"brute force {name} vs float64", gd, gi,
+            torch.from_numpy(np.take_along_axis(want, gi_np, 1)),
+            torch.from_numpy(wd), torch.from_numpy(order.astype(np.int32)),
+            tol)
+        out[name] = {"ms_b10": ms10, "ms_b500": ms500, "ties": ties}
+        log(f"[distance] brute_force {name}: batch 10 {ms10:.3f} ms, batch "
+            f"500 {ms500:.3f} ms; self at rank 0"
+            f"{' (n/a)' if name in NOT_TRUE_DISTANCES else ''}; 10 x "
+            f"{CHECK_ROWS} equal float64 ({ties} ids at ties)")
+    return out
+
+
+def distance_kmeans(torch, state: dict) -> dict:
+    """Unbalanced k-means on the 1M rows: two same-seed fits equal, the
+    inertia below its k-means++ seeds', predict equal to fused L2 NN."""
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.distance import fused_l2_nn_argmin
+
+    res, x = state["dres"], state["x"]
+    params = kmeans.KMeansParams(n_clusters=KMEANS_CLUSTERS,
+                                 max_iter=KMEANS_ITERS, seed=state["seed"])
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append(kmeans.fit(res, params, x))
+        torch.cuda.synchronize()
+        fits[-1] = fits[-1] + (time.perf_counter() - t0,)
+    (c, inertia, n_iter, s1), (c2, inertia2, _, s2) = fits
+    if not (torch.equal(c, c2) and torch.equal(inertia, inertia2)):
+        fail("two same-seed k-means fits differ")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(state["seed"])
+    seeds = kmeans._kmeanspp_init(gen, x, KMEANS_CLUSTERS)
+    seed_cost = float(kmeans.cluster_cost(res, seeds, x))
+    if not float(inertia) < seed_cost:
+        fail(f"k-means inertia {float(inertia)} not below its k-means++ "
+             f"seeds' {seed_cost}")
+    labels, _ = kmeans.predict(res, params, c, x[:10_000])
+    _, want = fused_l2_nn_argmin(x[:10_000], c)
+    if not torch.equal(labels, want):
+        fail("kmeans.predict differs from fused_l2_nn_argmin")
+    log(f"[distance] kmeans.fit k={KMEANS_CLUSTERS} k-means++ "
+        f"max_iter={KMEANS_ITERS} on {N_ROWS} rows: {s1:.2f} s and "
+        f"{s2:.2f} s, {n_iter} iterations, inertia {float(inertia):.6g} "
+        f"(seeds {seed_cost:.6g}); two fits torch.equal; predict equals "
+        "fused_l2_nn_argmin on 10,000 rows")
+    return {"fit_s": [s1, s2], "n_iter": n_iter,
+            "inertia": float(inertia), "seed_cost": seed_cost}
+
+
+def distance_rank_engine(torch, state: dict) -> dict:
+    """The IVF-Flat rank engine on the main index against the cuda
+    engine at (32, 10) and (128, 500): ids equal up to ties, times."""
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    res, index, queries = state["dres"], state["index"], state["queries"]
+    out = {}
+    for n_probes, batch in ((32, 10), (128, 500)):
+        q = queries[:batch]
+        runs = {}
+        for engine in ("rank", "cuda"):
+            sp = ivf_flat.IvfFlatSearchParams(n_probes=n_probes,
+                                              scan_engine=engine)
+            runs[engine] = (ivf_flat.search(res, sp, index, q, K),
+                            median_ms(lambda: ivf_flat.search(
+                                res, sp, index, q, K), 5))
+        (rd, ri), rms = runs["rank"]
+        (cd, ci), cms = runs["cuda"]
+        ties = same_up_to_ties(
+            f"rank engine ({n_probes}, {batch})", rd, ri,
+            _rows_f64(_l2_f64, q, state["x"], ri),
+            _rows_f64(_l2_f64, q, state["x"], ci), ci,
+            1e-5 * (1 + cd.abs().amax(dim=1)))
+        out[f"{n_probes}x{batch}"] = {"rank_ms": rms, "cuda_ms": cms,
+                                      "ties": ties}
+        log(f"[distance] ivf_flat rank engine n_probes={n_probes} "
+            f"batch={batch}: {rms:.3f} ms, the cuda kernel {cms:.3f} ms; "
+            f"ids equal ({ties} at ties)")
+    return out
+
+
+def distance_ball_cover(torch, state: dict, data: dict) -> dict:
+    """Ball cover on the 1M Haversine points: knn_query ids equal brute
+    force's; eps_nn_query and eps_neighbors equal pairwise <= eps^2."""
+    from raft_tpu_torch.distance import pairwise_distance
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import (
+        ball_cover,
+        brute_force,
+        epsilon_neighborhood,
+    )
+
+    res = state["dres"]
+    pts, qs = data["geo"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ball_cover.build_index(res, pts, DistanceType.Haversine)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = qs[:BALL_QUERIES]
+    bd, bi = ball_cover.knn_query(res, index, q, K)
+    knn_ms = median_ms(lambda: ball_cover.knn_query(res, index, q, K), 3,
+                       warmup=1)
+    wd, wi = brute_force.knn(res, pts, q, K, DistanceType.Haversine)
+    ties = same_up_to_ties("ball_cover.knn_query vs brute force", bd, bi,
+                           _rows_f64(_haversine_f64, q, pts, bi),
+                           _rows_f64(_haversine_f64, q, pts, wi), wi, 1e-6)
+    eps = 0.01
+    qe = qs[:EPS_QUERIES]
+    adj, deg = ball_cover.eps_nn_query(res, index, qe, eps)
+    adj2, deg2 = epsilon_neighborhood.eps_neighbors(res, qe, pts, eps)
+    want = pairwise_distance(res, qe, pts, DistanceType.L2Expanded) \
+        <= torch.tensor(eps, dtype=torch.float32, device="cuda") ** 2
+    if not (torch.equal(adj, want) and torch.equal(adj2, want)
+            and torch.equal(deg, want.sum(1, dtype=torch.int32))
+            and torch.equal(deg2, deg)):
+        fail("eps_nn_query / eps_neighbors differ from pairwise <= eps^2")
+    eps_ms = median_ms(lambda: ball_cover.eps_nn_query(res, index, qe, eps),
+                       3, warmup=1)
+    log(f"[distance] ball_cover on {N_ROWS} Haversine points: build "
+        f"{build_s:.2f} s ({index.n_landmarks} balls, largest "
+        f"{index.members.shape[1]}); knn_query {BALL_QUERIES} queries "
+        f"{knn_ms:.3f} ms, ids equal brute force ({ties} at ties); "
+        f"eps_nn_query {EPS_QUERIES} x {N_ROWS} {eps_ms:.3f} ms, "
+        f"{int(deg.sum())} pairs, equal to pairwise <= eps^2")
+    return {"build_s": build_s, "knn_ms": knn_ms, "eps_ms": eps_ms}
+
+
+def distance_masked_nn(torch, state: dict) -> dict:
+    """masked_l2_nn with the main index's lists as groups, each query's
+    32 nearest lists enabled, against a masked pairwise argmin."""
+    from raft_tpu_torch.distance import masked_l2_nn, pairwise_distance
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    res, index, queries = state["dres"], state["index"], state["queries"]
+    live = index.indices >= 0
+    y = index.data[live]
+    ends = torch.cumsum(live.sum(dim=1), 0)
+    q = queries[:MASKED_QUERIES]
+    probes = ivf_flat.coarse_probes(q, index.centers, index.center_norms,
+                                    index.metric, 32, "exact")
+    adj = torch.zeros(MASKED_QUERIES, N_LISTS, dtype=torch.bool,
+                      device="cuda")
+    adj.scatter_(1, probes.long(), True)
+    d, i = masked_l2_nn(res, q, y, adj, ends)
+    ms = median_ms(lambda: masked_l2_nn(res, q, y, adj, ends), 3, warmup=1)
+    group = torch.searchsorted(ends, torch.arange(y.shape[0], device="cuda"),
+                               right=True)
+    wd, wi = [], []
+    for s in range(0, MASKED_QUERIES, 100):
+        full = pairwise_distance(res, q[s:s + 100], y,
+                                 DistanceType.L2Expanded)
+        full = torch.where(adj[s:s + 100][:, group], full,
+                           torch.full_like(full, float("inf")))
+        v, a = torch.min(full, dim=1)
+        wd.append(v)
+        wi.append(a.to(torch.int32))
+    wd, wi = torch.cat(wd), torch.cat(wi)
+    tol = 1e-5 * ((q * q).sum(1) + float((y * y).sum(1).max()))
+    if not torch.equal(i >= 0, wi >= 0) or bool((i < 0).any()):
+        fail("masked_l2_nn: a query found no row in its enabled groups")
+    if not bool(adj[torch.arange(MASKED_QUERIES, device="cuda"),
+                    group[i.long()]].all()):
+        fail("masked_l2_nn: a result lies in a group its query disabled")
+    ties = same_up_to_ties("masked_l2_nn", d[:, None], i[:, None],
+                           _rows_f64(_l2_f64, q, y, i[:, None]),
+                           _rows_f64(_l2_f64, q, y, wi[:, None]),
+                           wi[:, None], tol)
+    log(f"[distance] masked_l2_nn {MASKED_QUERIES} queries x {y.shape[0]} "
+        f"rows in {N_LISTS} groups (32 enabled each): {ms:.3f} ms; equals "
+        f"a masked pairwise argmin ({ties} ids at ties)")
+    return {"ms": ms}
+
+
+def distance_gram(torch, state: dict) -> dict:
+    """gram_matrix for the four kernels at 500 x 100,000, each against a
+    float64 computation on a 50 x 1,000 slice."""
+    from raft_tpu_torch.distance import KernelParams, KernelType, gram_matrix
+
+    res = state["dres"]
+    x, y = state["queries"][:GRAM_ROWS], state["x"][:GRAM_COLS]
+    out = {}
+    xs, ys = x[:50].double(), y[:1000].double()
+    ip = xs @ ys.T
+    sq = (xs * xs).sum(1)[:, None] + (ys * ys).sum(1)[None, :] - 2 * ip
+    gamma = 1.0 / DIM
+    want = {KernelType.LINEAR: ip,
+            KernelType.POLYNOMIAL: (gamma * ip + 1.0) ** 3,
+            KernelType.RBF: torch.exp(-gamma * sq),
+            KernelType.TANH: torch.tanh(gamma * ip + 1.0)}
+    for kern in KernelType:
+        p = KernelParams(kern, degree=3, gamma=gamma, coef0=1.0)
+        g = gram_matrix(res, x, y, p)
+        if g.shape != (GRAM_ROWS, GRAM_COLS) or not bool(
+                torch.isfinite(g).all()):
+            fail(f"gram_matrix {kern.name}: shape or non-finite values")
+        w = want[kern]
+        err = float((g[:50, :1000].double() - w).abs().max())
+        if err > 1e-4 * (1.0 + float(w.abs().max())):
+            fail(f"gram_matrix {kern.name}: error {err} against float64")
+        ms = median_ms(lambda: gram_matrix(res, x, y, p), 3, warmup=1)
+        out[kern.name] = ms
+        log(f"[distance] gram_matrix {kern.name} {GRAM_ROWS} x {GRAM_COLS}: "
+            f"{ms:.3f} ms (max err {err:.3g} against float64)")
+    return out
+
+
+def distance_manager(torch) -> None:
+    """8 threads asking for the default handle at once get one."""
+    import threading
+
+    from raft_tpu_torch.core import resources
+
+    got = [None] * 8
+    go = threading.Barrier(8)
+
+    def ask(i):
+        go.wait()
+        got[i] = resources.get_default_resources()
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if any(h is not got[0] for h in got) or got[0].device.type != "cuda":
+        fail("threads got more than one default handle")
+    log(f"[distance] resources manager: 8 threads, one handle on "
+        f"{got[0].device}")
+
+
+def distance_alone(torch, seed: int, state: dict) -> None:
+    """Main's data and IVF-Flat index, for a run of the distance phase
+    without main (``--phases env,build,distance``)."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    res = Resources(device="cuda", seed=seed)
+    x, queries = make_data(torch, seed)
+    index = ivf_flat.build(res, ivf_flat.IvfFlatIndexParams(n_lists=N_LISTS),
+                           x)
+    state.update(res=res, x=x, queries=queries, index=index, seed=seed)
+
+
+def phase_distance(torch, state: dict) -> None:
+    """The distance family on main's data (see the module docstring)."""
+    from raft_tpu_torch import Resources
+
+    state["dres"] = Resources(device="cuda", seed=state["seed"],
+                              workspace_limit_bytes=1 << 30)
+    data = distance_data(torch, state)
+    reset_launches()
+    out = {"brute_force": distance_brute_force(torch, state, data),
+           "kmeans": distance_kmeans(torch, state),
+           "rank_engine": distance_rank_engine(torch, state),
+           "ball_cover": distance_ball_cover(torch, state, data),
+           "masked_l2_nn": distance_masked_nn(torch, state),
+           "gram": distance_gram(torch, state)}
+    counts = read_launches(("fused_knn", "list_major_scan"), "distance")
+    launches = state.setdefault("launches", {})
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    distance_manager(torch)
+    path = os.path.join("chiprun_out", "distance.json")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"card": state.get("card"), **out}, f, indent=1)
+    log(f"[distance] {state.get('card')}: results in {path}")
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
@@ -3503,7 +4024,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="env,build,kernels,main,serve,ragged,pq,times")
+                    default="env,build,kernels,main,serve,ragged,"
+                            "distance,pq,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3530,7 +4052,7 @@ def main() -> int:
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    phase_env(torch)
+    state["card"] = phase_env(torch)["card"]
     if "build" in phases:
         timed("build", phase_build)
     if "kernels" in phases:
@@ -3542,8 +4064,12 @@ def main() -> int:
             timed("serve", phase_serve, torch, state)
             if "ragged" in phases:
                 timed("ragged", phase_ragged, torch, state)
+    if "distance" in phases:
+        if "index" not in state:
+            distance_alone(torch, args.seed, state)
+        timed("distance", phase_distance, torch, state)
     if "pq" in phases:
-        if "x" not in state:
+        if "gt_i" not in state:
             pq_data(torch, args.seed, state)
         timed("pq", phase_pq, torch, state)
     if "main" in phases:

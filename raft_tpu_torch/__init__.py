@@ -2,7 +2,7 @@
 Hopper GPUs.
 
 It mirrors the JAX package's layout and names (``core``, ``distance``,
-``cluster``, ``neighbors``, ``ops``, ``serving``); every Pallas kernel of the JAX
+``cluster``, ``neighbors``, ``ops``, ``serving``, ``spatial``, ``utils``); every Pallas kernel of the JAX
 package becomes a hand-written CUDA kernel under ``csrc/``, built with
 ``nvcc`` at first use. Entry points run on ``cuda`` unless the caller's
 :class:`Resources` says ``device="cpu"``, where the kernels' plain
@@ -10,6 +10,11 @@ PyTorch versions run. The package imports neither JAX nor ``raft_tpu``.
 """
 
 from raft_tpu_torch.core.executor import SearchExecutor
-from raft_tpu_torch.core.resources import Resources, ensure_resources
+from raft_tpu_torch.core.resources import (
+    DeviceResources,
+    Resources,
+    ensure_resources,
+)
 
-__all__ = ["Resources", "SearchExecutor", "ensure_resources"]
+__all__ = ["DeviceResources", "Resources", "SearchExecutor",
+           "ensure_resources"]

@@ -95,21 +95,28 @@ def _normalize_rows(c: torch.Tensor) -> torch.Tensor:
     return c / torch.clamp(n, min=1e-12)
 
 
-def _weighted_draw(gen: torch.Generator, big: torch.Tensor,
+def draw_by_weight(gen: torch.Generator, w: torch.Tensor,
                    count: int) -> torch.Tensor:
-    """``count`` row indices drawn with replacement, a row with ``big``
-    set (1 + 1e-6) / 1e-6 times as likely as one without: the weights
-    of ``_adjust_centers`` scaled by 1e6 to exact integers. Their running
-    sum is an integer scan and each draw a search in it, so the draws
-    depend on the generator alone. (``torch.multinomial`` on CUDA scans
-    float weights in no fixed order: two fits from one seed drew other
-    rows.)"""
-    w = torch.where(big, _DRAW_SCALE + 1, 1).to(torch.int64)
+    """``count`` row indices drawn with replacement, row i with
+    probability ``w[i] / sum(w)`` for int64 weights ``w`` (their sum
+    positive and at most 2^53, exact in float64). Their running sum is an
+    integer scan and each draw a search in it, so the draws depend on the
+    generator alone. (``torch.multinomial`` on CUDA scans float weights in
+    no fixed order: two fits from one seed drew other rows.)"""
     cum = torch.cumsum(w, 0)
-    u = torch.rand((count,), generator=gen, device=big.device,
+    u = torch.rand((count,), generator=gen, device=w.device,
                    dtype=torch.float64)
     target = torch.floor(u * cum[-1].to(torch.float64)).to(torch.int64)
     return torch.searchsorted(cum, target, right=True)
+
+
+def _weighted_draw(gen: torch.Generator, big: torch.Tensor,
+                   count: int) -> torch.Tensor:
+    """:func:`draw_by_weight` with a row with ``big`` set (1 + 1e-6) /
+    1e-6 times as likely as one without: the weights of
+    ``_adjust_centers`` scaled by 1e6 to exact integers."""
+    w = torch.where(big, _DRAW_SCALE + 1, 1).to(torch.int64)
+    return draw_by_weight(gen, w, count)
 
 
 def _adjust_centers(gen: torch.Generator, centers, sizes, x, labels,

@@ -8,12 +8,16 @@ with a ``torch.Generator`` on that device, and the tunables
 The device defaults to ``cuda``. A handle that asks for CUDA on a
 machine without it raises at construction: it never quietly runs on the
 CPU. Callers that want the CPU (the tests) say ``device="cpu"``.
+Callers that pass no handle share one a device from
+:data:`resources_manager` (:class:`ResourcesManager`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import threading
+import warnings
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,8 +30,11 @@ class Resources:
     Attributes:
       device: where indexes live and kernels run (``"cuda"`` by default).
       seed: base seed of the handle-owned ``generator``.
-      matmul_precision: ``"highest"`` keeps float32 products in full
-        float32 (no TF32), as the JAX package's ``Precision.HIGHEST``.
+      matmul_precision: the distance products' precision
+        (:func:`raft_tpu_torch.distance.pairwise.matmul`): ``"highest"``
+        (also ``"float32"``, ``"default"``) keeps float32 products in full
+        float32 (no TF32), as the JAX package's ``Precision.HIGHEST``;
+        ``"bfloat16"`` takes one bfloat16 pass with float32 sums.
       workspace_limit_bytes: soft budget that batching heuristics use
         when sizing tiles (the reference's workspace memory resource).
     """
@@ -56,14 +63,84 @@ class Resources:
         return torch.as_tensor(arr).to(device=self.device, dtype=dtype)
 
 
-_DEFAULT: Optional[Resources] = None
+# the JAX package's alias, after ``raft::handle_t`` == device_resources
+DeviceResources = Resources
+
+
+class ResourcesManager:
+    """Process-wide pool of shared :class:`Resources`, one a device — the
+    analog of ``raft::device_resources_manager`` (``core/
+    device_resources_manager.hpp:49-154``), which hands a multi-threaded
+    server one pre-configured handle per GPU.
+
+    Set-then-freeze, as the reference's manager: the ``set_*`` defaults
+    apply to every handle the manager builds, and once it has built one
+    they are frozen (a later ``set_*`` warns and changes nothing). Handles
+    are built under the manager's lock, so threads asking at once get
+    one handle."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._handles: Dict[Tuple[str, Optional[int]], Resources] = {}
+        self._defaults: Dict[str, Any] = {}
+
+    def _set(self, name: str, value) -> None:
+        with self._lock:
+            if self._handles:
+                warnings.warn(
+                    f"ResourcesManager.set_{name} after a handle was built "
+                    "is ignored: the defaults are frozen", RuntimeWarning,
+                    stacklevel=3)
+                return
+            self._defaults[name] = value
+
+    def set_seed(self, seed: int) -> None:
+        self._set("seed", int(seed))
+
+    def set_matmul_precision(self, precision: str) -> None:
+        self._set("matmul_precision", precision)
+
+    def set_workspace_limit_bytes(self, n: int) -> None:
+        self._set("workspace_limit_bytes", int(n))
+
+    def set_compilation_cache_dir(self, path: str) -> None:
+        """A no-op kept for the JAX package's API: the port compiles no
+        XLA programs, and its kernels' build cache is ``ops/_build``'s."""
+        del path
+
+    def get_device_resources(
+            self, device: Union[None, int, str, torch.device] = None
+    ) -> Resources:
+        """The shared handle of ``device``: a CUDA device index, a torch
+        device (or its string), or None for the current CUDA device.
+        Handles are keyed by the CUDA device index; ``"cpu"`` has one of
+        its own. Asking for CUDA without a card raises, and caches
+        nothing."""
+        if isinstance(device, int):
+            device = torch.device("cuda", device)
+        device = torch.device("cuda" if device is None else device)
+        index = device.index
+        if device.type == "cuda" and index is None \
+                and torch.cuda.is_available():
+            index = torch.cuda.current_device()
+        key = (device.type, index)
+        with self._lock:
+            if key not in self._handles:
+                dev = device if index is None else torch.device(
+                    device.type, index)
+                self._handles[key] = Resources(device=dev, **self._defaults)
+            return self._handles[key]
+
+
+resources_manager = ResourcesManager()
+
+
+def get_default_resources() -> Resources:
+    """The process-wide default handle (the current CUDA device), shared
+    by every caller that passes no handle."""
+    return resources_manager.get_device_resources(None)
 
 
 def ensure_resources(res: Optional[Resources]) -> Resources:
     """``res`` itself, or the process-wide default handle (on CUDA)."""
-    global _DEFAULT
-    if res is not None:
-        return res
-    if _DEFAULT is None:
-        _DEFAULT = Resources()
-    return _DEFAULT
+    return res if res is not None else get_default_resources()

@@ -46,7 +46,7 @@ struct PqArgs {
   // the tree, the table's parts and the tile: G groups of eight, 2^levels
   // = G; 2^pass_bits parts of lut_slots subspaces; row_tile rows
   int groups, levels, pass_bits, lut_slots, row_tile, stride_words;
-  float fmax;
+  float inv_fmax;  // 1 / fmax in float: the fp8 scale is max|lut| * inv_fmax
   float* pd;
   int* pi;
 };
@@ -125,7 +125,7 @@ __device__ float build_lut(float* lut, const PqArgs& a, const float* qs,
   return mx;
 }
 
-// The fp8 scale max|lut| / fmax (at least 1e-30) from each thread's max.
+// The fp8 scale max|lut| * (1 / fmax) (at least 1e-30) from each thread's max.
 template <int kThreads>
 __device__ float block_scale(float mx, float* red, const PqArgs& a) {
   constexpr int kWarps = kThreads / 32;
@@ -137,7 +137,7 @@ __device__ float block_scale(float mx, float* red, const PqArgs& a) {
   if (tid == 0) {
     float m = red[0];
     for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-    red[kWarps] = fmaxf(__fdiv_rn(m, a.fmax), 1e-30f);
+    red[kWarps] = fmaxf(__fmul_rn(m, a.inv_fmax), 1e-30f);
   }
   __syncthreads();
   return red[kWarps];
@@ -330,8 +330,10 @@ __global__ void __launch_bounds__(pq_threads(S))
       if (have) {
         id = lids[r0 + tid];
         d = total;
-        if (fp8) d = __fmul_rn(d, scale);
-        if (a.ip_metric) d = -__fadd_rn(d, base);
+        if (fp8)  // IP: one rounding, as XLA contracts it
+          d = a.ip_metric ? -__fmaf_rn(d, scale, base) : __fmul_rn(d, scale);
+        else if (a.ip_metric)
+          d = -__fadd_rn(d, base);
         bool ok = id >= 0;
         if (ok && fw) ok = (fw[id >> 5] >> (id & 31)) & 1;
         want = ok && d < CUDART_INF_F;

@@ -43,14 +43,15 @@
 //      at the end of the item.
 //
 // The sum keeps the plain version's order: each entry's sum_l in
-// ascending l with __f*_rn; the fp8 scale max|lut| / fmax over the pair's
-// whole table (a sweep before the build), each entry divided by it with
-// __fdiv_rn; sum_s in tree_sum's halving order: groups of eight
-// subspaces s0 + brev3(u) * groups (s0 the bit-reversed group index),
-// each summed as ((0+1)+(2+3))+((4+5)+(6+7)), the groups combined by a
-// binary-counter stack; min-space (IP negated after adding q.c). Ids < 0
-// and filtered ids match nothing; sentinel probe slots (id n_lists) form
-// no pair and get no partial.
+// ascending l with __f*_rn; the fp8 scale max|lut| * (1 / fmax) over the
+// pair's whole table (a sweep before the build; the float reciprocal, as
+// XLA folds the JAX package's division by the constant), each entry
+// divided by it with __fdiv_rn; sum_s in tree_sum's halving order:
+// groups of eight subspaces s0 + brev3(u) * groups (s0 the bit-reversed
+// group index), each summed as ((0+1)+(2+3))+((4+5)+(6+7)), the groups
+// combined by a binary-counter stack; min-space (IP negated after adding
+// q.c). Ids < 0 and filtered ids match nothing; sentinel probe slots (id
+// n_lists) form no pair and get no partial.
 //
 // Each item writes one partial top-k for each of its pairs and its
 // chunk, at slot_off[query * p + slot] + chunk; merge_partials_kernel
@@ -193,7 +194,7 @@ struct PqArgs {
   int cb_vec4, nrm_vec4, codes_mode;
   int groups, levels, rows, group, lg_book, S;
   PqLayout lay;
-  float fmax;
+  float inv_fmax;  // 1 / fmax in float: the fp8 scale is max|lut| * inv_fmax
   float* pd;
   int* pi;
 };
@@ -626,7 +627,7 @@ __global__ void __launch_bounds__(kPqThreads, 1)
         qn[g * a.lay.qn_stride + s] = acc;
       }
     __syncthreads();
-    if constexpr (fp8) {  // each pair's scale max|lut| / fmax over its table
+    if constexpr (fp8) {  // each pair's scale max|lut| * (1 / fmax)
       float mx = build_tables<T>(tab, cbs, a, qs, qn, m_scale, lid, cnt,
                                  lg_gp, true);
       for (int o = 16; o >= gp; o >>= 1)
@@ -637,7 +638,7 @@ __global__ void __launch_bounds__(kPqThreads, 1)
       if (tid < cnt) {
         float m = red[tid];
         for (int w = 1; w < kPqWarps; ++w) m = fmaxf(m, red[w * kMaxG + tid]);
-        m_scale[tid] = fmaxf(__fdiv_rn(m, a.fmax), 1e-30f);
+        m_scale[tid] = fmaxf(__fmul_rn(m, a.inv_fmax), 1e-30f);
       }
       __syncthreads();
     }
@@ -662,8 +663,11 @@ __global__ void __launch_bounds__(kPqThreads, 1)
           v = score_row_w64<T, true>(tab, src, a.lg_book, lg_gp, g);
         else
           v = score_row_any<T>(tab, src, a, lg_gp, g);
-        if constexpr (fp8) v = __fmul_rn(v, m_scale[g]);
-        if (a.ip_metric) v = -__fadd_rn(v, m_base[g]);
+        if constexpr (fp8)  // IP: one rounding, as XLA contracts it
+          v = a.ip_metric ? -__fmaf_rn(v, m_scale[g], m_base[g])
+                          : __fmul_rn(v, m_scale[g]);
+        else if (a.ip_metric)
+          v = -__fadd_rn(v, m_base[g]);
         const int id = a.indices[row0 + row];
         bool ok = id >= 0;
         if (ok && a.filter) {
@@ -919,7 +923,8 @@ static int scan_parts(const void* qres, const void* base,
   a.per_cluster = per_cluster;
   a.packed = packed;
   a.lut_type = lut_type;
-  a.fmax = lut_type == kLutE5m2 ? 57344.f : 448.f;
+  a.inv_fmax = lut_type == kLutE5m2 ? (float)(1.0 / 57344.0)
+                                     : (float)(1.0 / 448.0);
   a.pd = (float*)pd;
   a.pi = (int*)pi;
   const size_t smem =
@@ -1044,7 +1049,8 @@ extern "C" int raft_ivf_pq_scan(
       pq_dim != 64 || ((uintptr_t)codes & 15) != 0 ? kCodesAny
       : packed                                     ? kCodesW64Packed
                                                    : kCodesW64;
-  a.fmax = lut_type == kLutE5m2 ? 57344.f : 448.f;
+  a.inv_fmax = lut_type == kLutE5m2 ? (float)(1.0 / 57344.0)
+                                     : (float)(1.0 / 448.0);
   a.pd = (float*)pd;
   a.pi = (int*)pi;
   switch (lut_type) {

@@ -40,3 +40,19 @@ class DistanceType(enum.IntEnum):
 def is_min_close(metric: DistanceType) -> bool:
     """True if smaller distance means more similar (``distance_types.hpp:72``)."""
     return metric != DistanceType.InnerProduct
+
+
+#: The metrics whose pairwise form is one product and an epilog (the
+#: reference's "expanded" family, ``distance/detail/distance_ops/``).
+EXPANDED_METRICS = frozenset({
+    DistanceType.L2Expanded,
+    DistanceType.L2SqrtExpanded,
+    DistanceType.CosineExpanded,
+    DistanceType.InnerProduct,
+    DistanceType.CorrelationExpanded,
+    DistanceType.JaccardExpanded,
+    DistanceType.HellingerExpanded,
+    DistanceType.RusselRaoExpanded,
+    DistanceType.DiceExpanded,
+    DistanceType.KLDivergence,
+})

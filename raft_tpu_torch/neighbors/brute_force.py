@@ -5,8 +5,9 @@
 Two routes, as in the JAX package. Small batches on a CUDA device with a
 metric the kernel supports go through the hand-written fused kernel
 (:func:`raft_tpu_torch.ops.fused_topk.fused_knn`, the ``fusedL2kNN``
-analog). Everything else runs the tiled scan: one ``torch.matmul`` per
-dataset tile, the tile's top-k, and a running merge (``merge_topk``) —
+analog). Everything else runs the tiled scan: each dataset tile's
+distances from :mod:`raft_tpu_torch.distance.pairwise` (any of the 20
+metrics), the tile's top-k, and a running merge (``merge_topk``) —
 plain tensor code, as the JAX package leaves that route to XLA.
 
 The index caches the dataset's squared norms
@@ -35,13 +36,12 @@ from raft_tpu_torch.core.serialize import (
     serialize_scalar,
 )
 from raft_tpu_torch.core.validation import expect
+from raft_tpu_torch.distance.pairwise import _pairwise_distance_impl
 from raft_tpu_torch.distance.types import DistanceType, is_min_close
 from raft_tpu_torch.matrix.select_k import merge_topk
 from raft_tpu_torch.neighbors._batching import tile_queries
 
 _SERIALIZATION_VERSION = 1
-_EPS_L2_CLAMP = 1e-4         # the |val| >= 1e-4 rectifier of the l2 epilog
-_BROADCAST_ELEMS = 1 << 24   # (rows, tile, d) block of the unexpanded L2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,44 +97,16 @@ def build(
     return from_numpy(dataset, None, metric, metric_arg, res)
 
 
-def _tile_distance(queries: torch.Tensor, yt: torch.Tensor,
-                   metric: DistanceType) -> torch.Tensor:
-    """(q, t) distances of the expanded-metric family — the JAX
-    package's ``pairwise`` forms for the metrics the port has so far."""
-    xf = queries.to(torch.float32)
-    yf = yt.to(torch.float32)
-    if metric in (DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded):
-        rows = max(1, _BROADCAST_ELEMS // max(1, yf.shape[0] * yf.shape[1]))
-        val = torch.cat([
-            torch.square(xf[s : s + rows, None, :] - yf[None]).sum(dim=2)
-            for s in range(0, xf.shape[0], rows)])
-        return torch.sqrt(val) if metric == DistanceType.L2SqrtUnexpanded \
-            else val
-    ip = xf @ yf.T
-    if metric == DistanceType.InnerProduct:
-        return ip
-    xn = (xf * xf).sum(dim=1)[:, None]
-    yn = (yf * yf).sum(dim=1)[None, :]
-    if metric == DistanceType.CosineExpanded:
-        return 1.0 - ip / (torch.sqrt(xn) * torch.sqrt(yn))
-    if metric in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded):
-        val = xn + yn - 2.0 * ip
-        val = val * (torch.abs(val) >= _EPS_L2_CLAMP)
-        val = torch.clamp(val, min=0.0)
-        return torch.sqrt(val) if metric == DistanceType.L2SqrtExpanded \
-            else val
-    raise NotImplementedError(
-        f"brute_force: metric {metric!r} waits for the port of "
-        "distance/pairwise")
-
-
 def _knn_scan_fn(queries: torch.Tensor, dataset: torch.Tensor, *, k: int,
-                 metric: DistanceType, tile: int
+                 metric: DistanceType, tile: int, metric_arg: float = 2.0,
+                 precision: str = "highest",
+                 workspace_bytes: int = 2 * 1024**3
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan dataset tiles, carrying the running top-k (the global-merge
-    loop of ``tiled_brute_force_knn``). Each tile's top-k is taken by a
-    stable sort, so equal distances keep the lower index first, as
-    ``lax.top_k`` does in the JAX package."""
+    loop of ``tiled_brute_force_knn``). A tile's distances are the
+    pairwise module's, for any of the 20 metrics. Each tile's top-k is
+    taken by a stable sort, so equal distances keep the lower index first,
+    as ``lax.top_k`` does in the JAX package."""
     n = dataset.shape[0]
     q = queries.shape[0]
     select_min = is_min_close(metric)
@@ -142,7 +114,9 @@ def _knn_scan_fn(queries: torch.Tensor, dataset: torch.Tensor, *, k: int,
     best_d = queries.new_full((q, k), pad_val, dtype=torch.float32)
     best_i = torch.full((q, k), -1, dtype=torch.int32, device=queries.device)
     for start in range(0, n, tile):
-        dist = _tile_distance(queries, dataset[start : start + tile], metric)
+        dist = _pairwise_distance_impl(queries, dataset[start : start + tile],
+                                       metric, metric_arg, precision,
+                                       workspace_bytes)
         kk = min(k, dist.shape[1])
         tile_d, tile_i = torch.sort(dist, dim=1, descending=not select_min,
                                     stable=True)
@@ -181,15 +155,21 @@ def serving_plan(res: Resources, index: BruteForceIndex, k: int,
     """``(fn, arrays, static)``: the body a block of ``rows`` queries runs,
     called as ``fn(queries, *arrays, **static)``. The fused route where
     :func:`_use_fused_kernel` takes it, else the tiled scan with its
-    dataset tile cut to the workspace budget of ``rows`` queries."""
+    dataset tile cut to the workspace budget of ``rows`` queries, the
+    index's ``metric_arg`` and the handle's precision and budget."""
     expect(0 < k <= index.size, f"k must be in (0, {index.size}]")
     if _use_fused_kernel(index.metric, k, rows, index.dataset.device):
         return (_fused_entry_fn, (index.dataset, index.norms),
                 {"k": k, "metric": index.metric})
     budget_cols = max(128, res.workspace_limit_bytes // (4 * max(rows, 1)))
     tile = min(db_tile, budget_cols, max(128, index.size))
+    # bf16 products are exact in float32: no precision to choose
+    precision = ("highest" if index.dataset.dtype == torch.bfloat16
+                 else res.matmul_precision)
     return (_knn_scan_fn, (index.dataset,),
-            {"k": k, "metric": index.metric, "tile": tile})
+            {"k": k, "metric": index.metric, "tile": tile,
+             "metric_arg": index.metric_arg, "precision": precision,
+             "workspace_bytes": res.workspace_limit_bytes})
 
 
 def search(
@@ -199,10 +179,15 @@ def search(
     k: int,
     query_tile: int = 8192,
     db_tile: int = 32768,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN: (distances (q, k) float32, indices (q, k) int32).
-    For ``InnerProduct`` the "distances" are similarities sorted
-    descending (``is_min_close`` semantics)."""
+    """Exact kNN for any of the 20 metrics: (distances (q, k) float32,
+    indices (q, k) int32). For ``InnerProduct`` the "distances" are
+    similarities sorted descending (``is_min_close`` semantics).
+    ``approx`` is the JAX package's switch to the TPU's approximate top-k
+    unit; the GPU has no such unit, so ``approx=True`` runs the same exact
+    selection and returns the same results."""
+    del approx
     res = ensure_resources(res)
     queries = res.put(queries)
     expect(queries.ndim == 2, "queries must be (q, d)")
@@ -223,10 +208,12 @@ def knn(
     k: int,
     metric: DistanceType = DistanceType.L2Expanded,
     metric_arg: float = 2.0,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-shot convenience matching ``brute_force::knn``."""
+    """One-shot convenience matching ``brute_force::knn`` (``approx`` as
+    :func:`search`: exact on the GPU)."""
     index = build(res, dataset, metric, metric_arg)
-    return search(res, index, queries, k)
+    return search(res, index, queries, k, approx=approx)
 
 
 def knn_merge_parts(distances, indices, select_min: bool = True):

@@ -13,8 +13,9 @@ kernel on the card, the plain engine on the CPU), then the metric epilog.
 The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
 both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up; the
 executor's ragged plans run :func:`_search_ragged_fn`, the same body
-with a per-row probe budget. Not ported yet: ``build_streaming`` and the
-rank-major scan engine.
+with a per-row probe budget. ``scan_engine="rank"`` runs the legacy
+rank-major gather scan instead of the list-major one. Not ported yet:
+``build_streaming``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from raft_tpu_torch.ops.ivf_scan import (
     list_major_scan,
     probe_histogram,
     ragged_probes,
+    rank_major_scan,
     resolve_scan_engine,
 )
 
@@ -77,12 +79,13 @@ class IvfFlatSearchParams(SearchParams):
     ``scan_engine``: ``"auto"`` is the CUDA kernel for an index on a CUDA
     device and the plain engine otherwise; ``"cuda"``/``"torch"`` force
     one (``cuda`` goes to ``torch`` where the kernel does not apply, see
-    ``resolve_scan_engine``). ``coarse_algo="approx"`` is accepted for
-    parity and runs the exact selection."""
+    ``resolve_scan_engine``); ``"rank"`` is the legacy rank-major gather
+    scan (``ops.ivf_scan.rank_major_scan``). ``coarse_algo="approx"`` is
+    accepted for parity and runs the exact selection."""
 
     n_probes: int = 20
     coarse_algo: str = "exact"   # "exact" | "approx"
-    scan_engine: str = "auto"    # "auto" | "cuda" | "torch"
+    scan_engine: str = "auto"    # "auto" | "cuda" | "torch" | "rank"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -366,9 +369,10 @@ def _search_impl_fn(queries, centers, center_norms, data, data_norms,
     if row_probes is not None:
         probes = ragged_probes(probes, row_probes, centers.shape[0])
         n_valid = None
-    best_d, best_i = list_major_scan(
-        qf, data, data_norms, indices, probes, filter_words, k=k,
-        metric=metric, engine=scan_engine)
+    scan = rank_major_scan if scan_engine == "rank" else list_major_scan
+    kw = {} if scan_engine == "rank" else {"engine": scan_engine}
+    best_d, best_i = scan(qf, data, data_norms, indices, probes,
+                          filter_words, k=k, metric=metric, **kw)
     best_d = metric_epilog(qf, best_d, metric)
     if probe_counts is not None:
         return best_d, best_i, probe_histogram(probes, probe_counts, n_valid)

@@ -79,6 +79,7 @@ from raft_tpu_torch.ops.ivf_pq_scan import (
     ivf_pq_scan,
     probe_lut,
     quantize_lut,
+    scale_and_base,
     unpack_codes,
 )
 from raft_tpu_torch.ops.ivf_scan import probe_histogram, ragged_probes
@@ -614,10 +615,9 @@ def _scan_rank(qres, base, probes, codebooks, cb_norms, codes, indices,
         lut, scale = quantize_lut(
             probe_lut(qsub, cb, cbn, ip_metric, per_cluster), lut_dtype)
         dist = score(lut, rows)
-        if scale is not None:
-            dist = dist * scale[:, None]
-        if ip_metric:
-            dist = dist + base[:, r][:, None]
+        dist = scale_and_base(
+            dist, None if scale is None else scale[:, None],
+            base[:, r][:, None] if ip_metric else None)
         ok = row_ids >= 0
         if filter_words is not None:
             ok = ok & test_filter(filter_words, row_ids)

@@ -37,8 +37,10 @@ them (:func:`dedup_slots` makes hand-built slots so).
 Both take every sum in one order, so they agree bit for bit: the LUT's
 ``Σ_l`` terms in ascending ``l`` with separately rounded products and
 sums (``__f*_rn`` in the kernel), ``Σ_s`` in :func:`tree_sum`'s halving
-order over :func:`tree_width` lanes, and the fp8 scale and its division
-correctly rounded. The rotated residuals ``q~ = R(q - c)`` of every
+order over :func:`tree_width` lanes, the fp8 scale one rounded product
+by ``1 / fmax`` in float32, each entry's division by it correctly
+rounded, and an fp8 IP score's ``Σ * scale + q·c`` one fused multiply-add
+(:func:`scale_and_base`). The rotated residuals ``q~ = R(q - c)`` of every
 (query, probe slot) come from one batched product that both share.
 
 ``ivf_pq_scan.launches`` counts the kernel's launches.
@@ -50,7 +52,7 @@ import torch
 
 from raft_tpu_torch.core.validation import expect
 from raft_tpu_torch.neighbors.filters import test_filter
-from raft_tpu_torch.ops.bq_scan import _div, tree_sum
+from raft_tpu_torch.ops.bq_scan import tree_sum
 from raft_tpu_torch.ops.ivf_scan import _merge_smallest_id, unique_lists
 
 #: largest k the kernel takes; past it ``resolve_scan_engine`` sends the
@@ -112,17 +114,53 @@ def quantize_lut(lut: torch.Tensor, lut_dtype):
     fp32/fp16/fp8 LUT ladder (``ivf_pq_compute_similarity-inl.cuh:125-177``)
     — and back to float32 for the sums. fp8's range cannot hold raw
     squared distances, so each query's table is scaled into it by
-    ``max |lut| / fmax`` (at least 1e-30). Returns ``(lut, scale)`` with
-    ``scale`` (q,) to multiply into the summed scores, or None."""
+    ``max |lut| * (1 / fmax)`` (at least 1e-30), the reciprocal rounded to
+    float32: XLA folds the JAX package's ``max / fmax`` into that product,
+    and an ulp of scale moves integer tables onto fp8 rounding ties.
+    Returns ``(lut, scale)`` with ``scale`` (q,) to multiply into the
+    summed scores, or None."""
     expect(lut_dtype in LUT_DTYPES,
            f"lut_dtype must be float32/bfloat16/float8_e4m3fn/float8_e5m2, "
            f"got {lut_dtype}")
     if lut_dtype in _FP8_MAX:
-        scale = _div(lut.abs().amax(dim=(1, 2)), _FP8_MAX[lut_dtype])
+        # a 0-d CPU tensor: a float32 scalar operand on any device
+        inv = torch.tensor(1.0 / _FP8_MAX[lut_dtype], dtype=torch.float32)
+        scale = lut.abs().amax(dim=(1, 2)) * inv
         scale = torch.clamp(scale, min=1e-30)
         return (lut / scale[:, None, None]).to(lut_dtype).to(
             torch.float32), scale
     return lut.to(lut_dtype).to(torch.float32), None
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding, as ``__fmaf_rn`` on the
+    card: the float64 product is exact, the float64 sum is rounded to odd
+    (exact ``TwoSum`` error, the last bit set when it is not zero), and
+    the one rounding to float32 is then correct."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    bump = torch.nextafter(s, torch.where(err > 0, float("inf"),
+                                          float("-inf")).to(s.dtype))
+    s = torch.where((err != 0) & even, bump, s)
+    return s.to(torch.float32)
+
+
+def scale_and_base(dist: torch.Tensor, scale, base) -> torch.Tensor:
+    """A probe's summed codes to its score: ``dist * scale`` (fp8 tables)
+    plus ``base`` (IP's ``q·c``), either one may be None. With both, one
+    rounding (:func:`fma32`), as XLA's CPU backend contracts the JAX
+    package's ``dist * scale + base`` into a fused multiply-add."""
+    if scale is not None and base is not None:
+        return fma32(dist, scale, base)
+    if scale is not None:
+        dist = dist * scale
+    if base is not None:
+        dist = dist + base
+    return dist
 
 
 def _score_gather(lut: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -237,10 +275,11 @@ def _scan_torch(qres, base, codebooks, cb_norms, codes, indices, probes,
         rows = unpack_codes(codes[lid], packed)                 # (m, S)
         dist = score(lut, rows[None].expand(q, -1, -1)
                      if score is not _score_gather else rows)
-        if scale is not None:
-            dist = dist * scale[:, None]
+        dist = scale_and_base(
+            dist, None if scale is None else scale[:, None],
+            base[qidx, slot][:, None] if ip_metric else None)
         if ip_metric:
-            dist = -(dist + base[qidx, slot][:, None])          # min-space
+            dist = -dist                                        # min-space
         ids = indices[lid][None, :].expand(q, -1)
         ok = (ids >= 0) & probed[:, None]
         if filter_words is not None:

@@ -18,6 +18,11 @@ for IP with -inf pads — with ties broken by the smallest dataset id, id
   items write one partial top-k per (query, probe slot, chunk), which a
   ragged merge reduces per query. On the H100 the scan is bound by
   float32 CUDA-core arithmetic at large batches (PERF.md).
+- ``rank``: :func:`rank_major_scan`, the legacy rank-major gather scan
+  of the JAX package's ``scan_engine="rank"`` (``ivf_flat.py:532-562``):
+  for each probe rank, every query's list gathered and scored by one
+  batched product, then merged by ``merge_topk``. Plain PyTorch on every
+  device, kept for parity with the JAX ``rank`` engine.
 - ``torch``: the plain version, the twin of the JAX package's
   ``_scan_xla`` (``ivf_scan.py:298-359``): a loop over the probed-list
   union with one matmul per list and ``_merge_smallest_id``'s
@@ -37,7 +42,7 @@ from raft_tpu_torch.core.validation import expect
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors.filters import test_filter
 
-SCAN_ENGINES = ("auto", "cuda", "torch")
+SCAN_ENGINES = ("auto", "cuda", "torch", "rank")
 
 #: largest k the kernel takes (its per-query lists live in shared memory)
 CUDA_MAX_K = 128
@@ -53,7 +58,7 @@ def resolve_scan_engine(engine: str, *, data=None, filter_words=None,
     ``xla``: per-query (2-D) filter words (the id fold needs one shared
     id plane), k past :data:`CUDA_MAX_K`, and storage other than
     float32/bfloat16. It decides before any launch, never after a
-    failure."""
+    failure. ``rank`` (:func:`rank_major_scan`) passes through."""
     expect(engine in SCAN_ENGINES,
            f"scan_engine must be one of {SCAN_ENGINES}, got {engine!r}")
     if engine == "auto":
@@ -190,6 +195,38 @@ def list_major_scan(qf, data, data_norms, indices, probes, filter_words=None,
                            filter_words, k=k, metric=metric)
     return _scan_cuda(qf, data, data_norms, indices, probes, filter_words,
                       k=k, metric=metric)
+
+
+def rank_major_scan(qf, data, data_norms, indices, probes,
+                    filter_words=None, *, k: int, metric: DistanceType):
+    """The rank-major engine, the twin of the JAX ``rank`` engine: for
+    each probe rank, every query's list gathered ((q, m, d)), scored by one
+    batched product and merged into the running top-k by ``merge_topk``
+    (stable: the running state first on ties). Returns the pre-epilog
+    ``(best_d, best_i)`` of the module docstring, with -1 ids where a
+    slot held padding, and IP pads at -inf."""
+    from raft_tpu_torch.matrix.select_k import merge_topk
+
+    q, p = probes.shape
+    n_lists = data.shape[0]
+    ip_metric = metric == DistanceType.InnerProduct
+    pad_val = float("-inf") if ip_metric else float("inf")
+    qf = qf.to(torch.float32)
+    best_d = qf.new_full((q, k), pad_val)
+    best_i = torch.full((q, k), -1, dtype=torch.int32, device=qf.device)
+    for r in range(p):
+        lists = probes[:, r].to(torch.int64).clamp(0, n_lists - 1)
+        rows = data[lists].to(torch.float32)                # (q, m, d)
+        row_ids = indices[lists]                             # (q, m)
+        ipr = torch.bmm(rows, qf[:, :, None])[:, :, 0]       # (q, m)
+        dist = ipr if ip_metric else data_norms[lists] - 2.0 * ipr
+        ok = row_ids >= 0
+        if filter_words is not None:
+            ok = ok & test_filter(filter_words, row_ids)
+        dist = torch.where(ok, dist, torch.full_like(dist, pad_val))
+        best_d, best_i = merge_topk(best_d, best_i, dist, row_ids, k,
+                                    not ip_metric)
+    return best_d, best_i
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import torch
 
 from raft_tpu_torch import Resources, SearchExecutor
 from raft_tpu_torch.core import executor
+from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
 from raft_tpu_torch.neighbors import tiered
 from raft_tpu_torch.ops.beam_search import beam_search
@@ -159,6 +160,36 @@ def test_zero_and_repeated_pad_rows_agree(res, data, indexes, name,
     zero = SearchExecutor(res)
     for b, w in zip((1, 10, 300), want):
         _equal(w, zero.search(index, qs[:b], K, params=p), f"{name} b={b}")
+
+
+@pytest.mark.parametrize("metric", [m for m in DistanceType
+                                    if m != DistanceType.Precomputed],
+                         ids=lambda m: m.name)
+def test_brute_force_every_metric_captured_equals_direct(res, data, metric):
+    """Brute-force plans of every metric of the pairwise module: the
+    fused route (its metrics, batch <= 512) and the tiled scan, captured,
+    eager and direct equal bit for bit; the rows each metric is defined
+    on (nonnegative sum-1 rows for KL, JensenShannon and Hellinger, 0/1
+    rows for the binary metrics, 2-D (lat, lon) for Haversine)."""
+    x, qs = data
+    if metric in (DistanceType.KLDivergence, DistanceType.JensenShannon,
+                  DistanceType.HellingerExpanded):
+        x, qs = (t.abs() / t.abs().sum(1, keepdim=True) for t in (x, qs))
+    elif metric in (DistanceType.JaccardExpanded, DistanceType.DiceExpanded,
+                    DistanceType.RusselRaoExpanded,
+                    DistanceType.HammingUnexpanded):
+        x, qs = (x > 0).float(), (qs > 0).float()
+    elif metric == DistanceType.Haversine:
+        x, qs = x[:, :2].contiguous() * 0.3, qs[:, :2].contiguous() * 0.3
+    index = brute_force.build(res, x, metric, 3.0)
+    cap = SearchExecutor(res)
+    eager = SearchExecutor(res, capture=False)
+    for b in (10, 500, 600):
+        q = qs[:b]
+        want = brute_force.search(res, index, q, K)
+        _equal(cap.search(index, q, K), want, f"{metric.name} b={b}")
+        _equal(eager.search(index, q, K), want, f"{metric.name} eager b={b}")
+    assert any(c["captured"] for c in cap.executable_costs().values())
 
 
 @pytest.mark.parametrize("name", ["brute_force", "ivf_flat", "ivf_bq"])

@@ -60,7 +60,11 @@ def test_import_leaves_jax_unloaded():
             "raft_tpu_torch.neighbors.tiered, raft_tpu_torch.ops.tier_scan, "
             "raft_tpu_torch.core.memwatch, raft_tpu_torch.serving.placement, "
             "raft_tpu_torch.core.executor, raft_tpu_torch.serving.batcher, "
-            "raft_tpu_torch.serving.harness, raft_tpu_torch.serving.metrics; "
+            "raft_tpu_torch.serving.harness, raft_tpu_torch.serving.metrics, "
+            "raft_tpu_torch.distance, raft_tpu_torch.cluster, "
+            "raft_tpu_torch.neighbors.ball_cover, "
+            "raft_tpu_torch.neighbors.epsilon_neighborhood, "
+            "raft_tpu_torch.spatial, raft_tpu_torch.utils; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'raft_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -200,3 +200,37 @@ def test_filtered_search_and_query_tiles():
                           q, 10, Bitset.from_mask(torch.from_numpy(mask)),
                           query_tile=16)
     assert np.array_equal(gi.numpy(), got[1])
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.L2SqrtExpanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+def test_rank_engine_equals_reference_rank(metric, filtered):
+    """The legacy rank-major engine against the JAX ``rank`` engine:
+    exact ids on integer data (ties to the running state first), and
+    distances within 1e-5 (1 + |d|)."""
+    x, q = _int_data(seed=8, q=30)
+    jidx = j_ivf.build(None, j_ivf.IvfFlatIndexParams(
+        n_lists=N_LISTS, metric=JD(int(metric))), x)
+    tidx = _jax_to_port(jidx)
+    mask = np.random.default_rng(9).random(x.shape[0]) < 0.5
+    jf = JBitset.from_mask(mask) if filtered else None
+    tf = Bitset.from_mask(torch.from_numpy(mask)) if filtered else None
+    for n_probes in (1, 4, N_LISTS):
+        wd, wi = j_ivf.search(None, j_ivf.IvfFlatSearchParams(
+            n_probes=n_probes, scan_engine="rank"), jidx, q, 10, jf)
+        gd, gi = t_ivf.search(RES, t_ivf.IvfFlatSearchParams(
+            n_probes=n_probes, scan_engine="rank"), tidx, q, 10, tf)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        wd = np.asarray(wd)
+        fin = np.isfinite(wd)
+        assert np.array_equal(np.isfinite(gd.numpy()), fin)
+        err = np.abs(gd.numpy()[fin] - wd[fin])
+        assert (err <= 1e-5 * (1 + np.abs(wd[fin]))).all(), err.max()
+    # every list probed: the list-major engine's distances (its ties go
+    # to the smallest id, the rank engine's to the earlier probe)
+    ld, _ = t_ivf.search(RES, t_ivf.IvfFlatSearchParams(
+        n_probes=N_LISTS, scan_engine="torch"), tidx, q, 10, tf)
+    assert torch.equal(gd, ld)

@@ -9,7 +9,8 @@ lists (its list-major work items: ``test_torch_ivf_pq_items.py``).
 Exactness: the carried-across indexes have integer centers and
 codebooks, an identity rotation and integer data and queries, so every
 residual, LUT entry and sum is an exact integer in both packages (fp8
-tables are scaled by the same correctly rounded divisions): ids and
+tables are scaled by the same product by ``1 / fmax`` and divided by it
+correctly rounded): ids and
 codes must be equal and distances equal to float32 rounding (rtol 1e-6).
 Builds draw from different generators, so a port build is held to the
 JAX build's recall, within 0.02.
@@ -149,6 +150,11 @@ SEARCH_CASES = [
     ("L2SqrtExpanded", 0, 4, "e5m2", "gather", "per_query"),
     ("InnerProduct", 1, 8, "bf16", "gather", "shared"),
     ("L2Expanded", 1, 4, "f32", "select", None),
+    # the fp8 scale's rounding: these integer IP tables land on e5m2 ties
+    ("InnerProduct", 0, 4, "e5m2", "gather", None),
+    ("InnerProduct", 0, 8, "e5m2", "gather", None),
+    ("InnerProduct", 1, 4, "e5m2", "gather", None),
+    ("InnerProduct", 1, 8, "e5m2", "gather", "shared"),
 ]
 
 
@@ -389,10 +395,10 @@ def _emulate_blocks(qres, base, codebooks, cb_norms, codes, indices, probes,
             S = rows.shape[1]
             terms = lut[0][torch.arange(S)[None, :], rows]      # (m, S)
             d = _kernel_row_sum(terms, S)
-            if scale is not None:
-                d = d * scale[0]
+            d = t_scan.scale_and_base(d, None if scale is None else scale[0],
+                                        base[r, slot] if ip_metric else None)
             if ip_metric:
-                d = -(d + base[r, slot])
+                d = -d
             ids = indices[lid]
             ok = ids >= 0
             if fw is not None:

@@ -80,10 +80,10 @@ def _emulate_items(qres, base, codebooks, cb_norms, codes, indices, probes,
             terms = lut[0][torch.arange(S)[None, :],
                            codes_r[:, :S].to(torch.int64)]
             d = pq_tests._kernel_row_sum(terms, S, pass_bits)
-            if scale is not None:
-                d = d * scale[0]
+            d = t_scan.scale_and_base(d, None if scale is None else scale[0],
+                                        base[r, slot] if ip_metric else None)
             if ip_metric:
-                d = -(d + base[r, slot])
+                d = -d
             ok = ids >= 0
             if fw is not None:
                 words = fw if fw.dim() == 1 else fw[r]
