@@ -56,7 +56,13 @@ non-zero exit (nothing is caught and passed over):
             data) and the all-device scan kernel on the un-split planes
             bit for bit, and stages each probed cold list once; a
             pageable or device cold plane is refused, by the wrapper and
-            by the C entry. stream_read_sum over float32 and bfloat16,
+            by the C entry. The dual-source ivf_pq_scan (a tiered index's
+            cold code lists staged into a device ring): hot-only,
+            half-cold and all-cold splits x the four LUTs x L2/IP and
+            pq_dim 240 (the per-pair instance), with the default ring and
+            a ring of two lists (waves), equal to the all-device kernel
+            and the plain version bit for bit; a pageable or device cold
+            plane refused. stream_read_sum over float32 and bfloat16,
             n in {1, 1000, 2^22}, d in {100, 128}: on integer data equal
             to its plain version and the float64 sum; on Gaussian data
             both within 1e-6 sum|x| of the float64 sum per column (the
@@ -98,7 +104,13 @@ non-zero exit (nothing is caught and passed over):
             reranked; n_probes=1024 recall
             on 1,000 queries; save -> load -> search bit-identical; and
             matrix.select_k(k=10) over a (64, 1,000,000) slab of squared
-            distances equals brute force's ids, ties aside. The CAGRA
+            distances equals brute force's ids, ties aside. Tiered IVF-BQ
+            on that index: build_tiered_bq(hot_fraction=0.5), the five
+            record planes' cold halves pinned; 3 requests at (n_probes
+            32, batch 10) and (128, 10) and one at (128, 500) (a cut for
+            the time limit: the plain fused engine runs them) each equal
+            to the all-device kernel's search on distances, ids and rows
+            reranked, the plain engine's ms printed. The CAGRA
             path on the same data: cagra.build with the blobs-1M-128
             config's first raft_cagra entry (graph_degree 32,
             intermediate 64, cluster_join) plus bq_bits=1 (build s, -1
@@ -120,7 +132,16 @@ non-zero exit (nothing is caught and passed over):
             captured as CUDA graphs on the ladder 8..512; 200 requests of
             1-500 rows (drawn from --seed) each equal bit for bit to the
             direct search, and no capture after warmup; the tiered index
-            (eager plans) on 50 such requests; a DynamicBatcher over the
+            (eager plans) on 50 such requests; TierManager epochs on a
+            probe-accounting executor over fresh tiered copies of the
+            IVF-Flat index, reactive and then with a TierPrefetcher, from
+            the same placement (3 epochs, traffic of 64 queries at the
+            centers of each of 8 cold lists, n_probes 1, on a
+            ManualClock): each plan equal to plan_epoch on the same
+            window and promoting those lists, every served and checked
+            result bit-identical after each epoch, the epoch ms, prefetch
+            hits > 0 and a lower tier.promote_cold_bytes with the
+            prefetcher; a DynamicBatcher over the
             IVF-Flat executor fed by drive_open_loop from four threads,
             every result equal to its direct search (p50/p99 latency and
             batch occupancy printed); then the direct, eager-executor and
@@ -155,7 +176,8 @@ non-zero exit (nothing is caught and passed over):
             ragged sentinel probe slots; 12 tables past shared
             memory, pq_dim 240 and 196; and 48 cases of the list-major
             work items: a list probed by every query, lists past two
-            chunks, a batch of one, all four LUTs, k 10 and 258);
+            chunks, a batch of one, all four LUTs, k 10 and 258; the
+            dual-source cases are in the kernels phase);
             ivf_pq.build with
             the sift-128-euclidean config's raft_ivf_pq entry (n_lists
             1024, pq_dim 64, 8 bits; build s, index bytes) and a second
@@ -164,6 +186,15 @@ non-zero exit (nothing is caught and passed over):
             plain engine bit for bit; then, counted, those requests
             (recall@10, with refine_ratio 2.0 too, median ms; it fails
             under the refined floor at (128, 500) that PERF.md states);
+            tiered IVF-PQ (build_tiered_pq(hot_fraction=0.5), the cold
+            codes pinned) at the same four requests, each equal to its
+            all-device answer bit for bit, through the dual-source kernel
+            (ivf_pq_scan once a request, the plain engine never), with
+            recall@10, median ms beside the all-device ms, the code bytes
+            staged and the waves, and the staged copies' GB/s
+            (torch.profiler) against the host link's 64 GB/s; the
+            TierManager epochs of the serve phase on fresh tiered IVF-PQ
+            copies (it runs here, where the IVF-PQ index is built);
             executors with captured plans on the ladder 8..512 at
             n_probes 32 and 128 (60 requests of 1-500 rows each equal to
             its direct search, no capture after warmup, graph pools); a
@@ -482,6 +513,7 @@ def phase_kernels(torch, seed: int) -> None:
     kernels_select(torch, seed)
     kernels_beam(torch, seed)
     kernels_tier(torch, seed)
+    kernels_pq_tiered(torch, seed)
     kernels_stream(torch, seed)
 
 
@@ -1596,7 +1628,79 @@ def main_bq(torch, state: dict) -> None:
                                          f"k={K}", slab, K)
     state["select_slab"] = slab
     state["bq_index"] = index
+    main_tiered_bq(torch, state)
     main_cagra(torch, state)
+
+
+#: tiered IVF-BQ requests (n_probes, batch, requests): the plain fused
+#: engine runs them (~4 s at (128, 500)), so three of each small one and
+#: one at 500, a cut for the time limit
+TIERED_BQ_REQUESTS = ((32, 10, 3), (128, 10, 3), (128, 500, 1))
+
+
+def main_tiered_bq(torch, state: dict) -> None:
+    """Tiered IVF-BQ on the IVF-BQ path's index: build_tiered_bq(hot_fraction
+    0.5), the five record planes' cold halves pinned; each request of
+    TIERED_BQ_REQUESTS through the plain fused engine (the card's BQ
+    kernel has no dual-source variant, so tiered BQ resolves to it before
+    any launch) equal to the all-device kernel's search on distances, ids
+    and rows reranked, with the plain engine's time printed."""
+    from raft_tpu_torch.core import memwatch
+    from raft_tpu_torch.neighbors import ivf_bq, tiered
+
+    res, queries, index = state["res"], state["queries"], state["bq_index"]
+    t0 = time.perf_counter()
+    t = tiered.build_tiered_bq(index, hot_fraction=0.5)
+    torch.cuda.synchronize()
+    log(f"[main] tiered.build_tiered_bq hot_fraction=0.5: "
+        f"{time.perf_counter() - t0:.3f} s, {t.n_hot} hot lists "
+        f"({t.hot_bytes} bytes), {t.n_cold} cold ({t.cold_bytes} bytes, "
+        f"the five record planes pinned: "
+        f"{all(p.is_pinned() for p in t.tier_planes()[1])}), block "
+        f"{t.block_bytes} bytes")
+    if not (t.host_resident and all(memwatch.memory_tier(p) == "host"
+                                    for p in t.tier_planes()[1])):
+        fail("the tiered BQ cold planes are not in pinned host memory")
+    rows = {}
+    for n_probes, batch, n_req in TIERED_BQ_REQUESTS:
+        sp = ivf_bq.IvfBqSearchParams(n_probes=n_probes)
+        fn, arrays, static = tiered.serving_plan_bq(sp, t, K)
+        if static["scan_engine"] != "torch":
+            fail("tiered IVF-BQ did not resolve to the plain fused engine")
+        times, reranked = [], 0
+        for j in range(n_req):
+            q = queries[j * batch:(j + 1) * batch]
+            want = bq_scan_run(index, q, n_probes, "cuda")
+            hots, colds, hmap, cmap, _ = t.tier_planes()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = ivf_bq._search_arrays(
+                q, t.centers, t.rotation, *hots[:4], t.indices, hots[4],
+                t.data_norms, None, metric=t.metric, n_probes=n_probes, k=K,
+                coarse_algo="exact", scan_engine="torch",
+                epsilon=sp.epsilon, query_bits=static["query_bits"],
+                cold_planes=colds, hot_slot_map=hmap, cold_slot_map=cmap)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            for a, b, what in zip(got[:3], want, ("distances", "ids",
+                                                 "rows reranked")):
+                if not torch.equal(a, b):
+                    fail(f"tiered IVF-BQ n_probes={n_probes} batch={batch} "
+                         f"request {j}: {what} differ from the all-device "
+                         "search")
+            direct = tiered.search_bq(res, sp, t, q, K)
+            if not (torch.equal(direct[0], got[0])
+                    and torch.equal(direct[1], got[1])):
+                fail("tiered.search_bq differs from its serving body")
+            reranked += int(got[2].sum())
+        rows[n_probes, batch] = float(np.median(times))
+        log(f"[main] tiered.search_bq n_probes={n_probes} batch={batch}: "
+            f"{n_req} requests equal the all-device kernel's search on "
+            f"distances, ids and rows reranked ({reranked} reranked); the "
+            f"plain fused engine {rows[n_probes, batch]:.3f} ms median per "
+            "request")
+    state["tiered_bq_ms"] = rows
+    del t
 
 
 def cagra_walk_args(state, queries, itopk: int, bq: bool):
@@ -1789,7 +1893,7 @@ def phase_serve(torch, state: dict) -> None:
     import collections
 
     from raft_tpu_torch import SearchExecutor
-    from raft_tpu_torch.neighbors import tiered
+    from raft_tpu_torch.neighbors import ivf_flat, tiered
 
     res, queries = state["res"], state["queries"]
     configs = _serve_configs(state)
@@ -1884,6 +1988,18 @@ def phase_serve(torch, state: dict) -> None:
     log("[serve] tiered n_probes=32: 50 requests of 1-500 rows through "
         f"eager plans bit-identical to tiered.search, launching {counts}; "
         "no plan built after warmup")
+    state["flat_epochs"] = tier_manager_run(
+        torch, state, "tiered IVF-Flat",
+        lambda: tiered.build_tiered(state["index"], hot_fraction=0.5),
+        lambda q, p: ivf_flat.search(res, ivf_flat.IvfFlatSearchParams(
+            n_probes=p), state["index"], q, K),
+        lambda t_, q, p: tiered.search(res, tiered.TieredSearchParams(
+            n_probes=p), t_, q, K),
+        tiered.TieredSearchParams, state["index"])
+    counts = _launch_counts()
+    if set(counts) != {"tier_scan"}:
+        fail(f"serve tiered epochs launched {counts}")
+    served.update(counts)
 
     served.update(serve_batcher(torch, state,
                                 executors["ivf_flat n_probes=32"]))
@@ -3122,6 +3238,75 @@ def kernels_pq(torch, seed: int) -> int:
     return n
 
 
+# the dual-source PQ fetch's splits of pq_scan_case's nine lists
+PQ_TIER_SPLITS = {"hot-only": (range(9), ()), "half-cold": ((0, 2, 4, 6, 8),
+                                                           (1, 3, 5, 7)),
+                  "all-cold": ((), range(9))}
+
+
+def kernels_pq_tiered(torch, seed: int) -> None:
+    """The dual-source ivf_pq_scan (a tiered index's cold code lists
+    staged from pinned host memory into a device ring) against the
+    all-device kernel on the whole plane and its plain version on the
+    split planes, bit for bit: hot-only, half-cold and all-cold splits x
+    the four LUT types x L2/IP, with the default ring and a ring of two
+    lists (waves taking turns in its halves); pq_dim 240 (the per-pair
+    instance) likewise; then a pageable cold plane, refused before any
+    launch."""
+    from raft_tpu_torch.core.validation import RaftError
+    from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+    n = waves = 0
+    cases = [(split, lut, ip, {}) for split in PQ_TIER_SPLITS
+             for lut in PQ_LUTS for ip in (False, True)]
+    cases += [(split, lut, ip, dict(pq_dim=240, L=4, m=200))
+              for split in ("half-cold", "all-cold")
+              for lut in ("float32", "float8_e5m2") for ip in (False, True)]
+    for i, (split, lut, ip, shape) in enumerate(cases):
+        args, packed = pq_scan_case(torch, seed + 101 + i, ip, i % 2 == 1,
+                                    4 if i % 4 == 1 else 8, 10, **shape)
+        kw = dict(k=10, ip_metric=ip, per_cluster=i % 2 == 1,
+                  lut_dtype=getattr(torch, lut), packed=packed)
+        want = ops.ivf_pq_scan(**args, **kw, engine="cuda")
+        hot, cold, hmap, cmap = _split_tiers(
+            torch, args["codes"], np.asarray(PQ_TIER_SPLITS[split][0],
+                                             np.int64),
+            np.asarray(PQ_TIER_SPLITS[split][1], np.int64))
+        tiers = dict(args, codes=hot, cold_codes=cold, hot_slot_map=hmap,
+                     cold_slot_map=cmap)
+        name = f"dual-source pq {split} {lut} ip={ip} {shape or ''}"
+        pq_equal(torch, name + " plain", ops.ivf_pq_scan(
+            **tiers, **kw, engine="torch"), want)
+        m, row_bytes = args["codes"].shape[1:]
+        for ring in (None, 2 * m * row_bytes):
+            pq_equal(torch, f"{name} ring={ring}", ops.ivf_pq_scan(
+                **tiers, **kw, engine="cuda", workspace_bytes=ring), want)
+            waves = max(waves, ops._launch_tiered.last_plan.n_waves)
+            n += 1
+    args, packed = pq_scan_case(torch, seed, False, False, 8, 10)
+    hot, cold, hmap, cmap = _split_tiers(torch, args["codes"],
+                                         np.arange(0, 9, 2),
+                                         np.arange(1, 9, 2))
+    before = ops.ivf_pq_scan.launches
+    for bad in (cold.clone(), cold.cuda()):
+        try:
+            ops.ivf_pq_scan(**dict(args, codes=hot, cold_codes=bad,
+                                   hot_slot_map=hmap, cold_slot_map=cmap),
+                            k=10, ip_metric=False, per_cluster=False,
+                            lut_dtype=torch.float32, packed=packed,
+                            engine="cuda")
+        except RaftError:
+            continue
+        fail("ivf_pq_scan took a cold plane that is not pinned host memory")
+    if ops.ivf_pq_scan.launches != before:
+        fail("a refused cold plane launched the PQ kernel")
+    log(f"[kernels] ivf_pq_scan dual-source: {n} cases (splits "
+        f"{list(PQ_TIER_SPLITS)}, the four LUTs, L2/IP, pq_dim 240 in "
+        f"parts; default rings and rings of two lists, up to {waves} "
+        "waves) equal the all-device kernel and the plain version bit for "
+        "bit; pageable and device cold planes refused")
+
+
 def pq_body(index, queries, n_probes: int, engine: str, k: int = K):
     """One request through the IVF-PQ serving body with ``engine``."""
     from raft_tpu_torch.neighbors import ivf_pq
@@ -3213,7 +3398,7 @@ def phase_pq(torch, state: dict) -> None:
     # the requests, counted
     torch.cuda.synchronize()
     reset_launches()
-    pq_recall = {}
+    pq_recall, pq_answers = {}, {}
     for n_probes in PQ_PROBES:
         for batch, n_q in ((10, 1000), (500, N_QUERIES)):
             sp = ivf_pq.IvfPqSearchParams(n_probes=n_probes)
@@ -3232,6 +3417,7 @@ def phase_pq(torch, state: dict) -> None:
             rr = recall(torch.cat(refined), gt_i[:n_q])
             ms = float(np.median(times[1:]))
             pq_recall[n_probes, batch] = (r, rr, ms)
+            pq_answers[n_probes, batch] = outs
             log(f"[pq] ivf_pq.search n_probes={n_probes} batch={batch}: "
                 f"recall@10 {r:.4f}, with refine_ratio {PQ_REFINE_RATIO} "
                 f"{rr:.4f} over {n_q} queries; median {ms:.3f} ms per "
@@ -3242,16 +3428,275 @@ def phase_pq(torch, state: dict) -> None:
         fail(f"IVF-PQ refined recall@10 {floor_r:.4f} at n_probes 128, "
              f"batch 500 is under its floor {PQ_REFINED_RECALL_FLOOR}")
     state.update(pq_index=index, pq_recall=pq_recall)
+    tiered_launches = pq_tiered(torch, state, index, pq_answers)
+    del pq_answers
     served = pq_serve(torch, state, index)
     served += pq_ragged(torch, state, index)
     cagra_launches = pq_cagra(torch, state)
-    state["launches"]["ivf_pq_scan"] = (launches + served
+    state["launches"]["ivf_pq_scan"] = (launches + tiered_launches + served
                                         + cagra_launches["ivf_pq_scan"])
     state["launches"]["beam_search"] = (state["launches"].get(
         "beam_search", 0) + cagra_launches["beam_search"])
-    log(f"[pq] ivf_pq_scan launches: requests {launches}, served and "
-        f"packed {served}, CAGRA graph source {cagra_launches['ivf_pq_scan']}")
+    log(f"[pq] ivf_pq_scan launches: requests {launches}, tiered requests "
+        f"and epochs {tiered_launches}, served and packed {served}, CAGRA "
+        f"graph source {cagra_launches['ivf_pq_scan']}")
     state["pq_record"] = times_pq(torch, state)
+
+
+def pq_tiered(torch, state: dict, index, answers) -> int:
+    """Tiered IVF-PQ on the pq phase's index: build_tiered_pq(hot_fraction
+    0.5), the cold codes pinned; the four requests, each equal to its
+    all-device answer bit for bit with recall@10, median ms beside the
+    all-device ms, the cold code bytes staged and the waves; the staged
+    copies' rate from torch.profiler against the host link's 64 GB/s; the
+    plain PQ engine never runs and ivf_pq_scan launches once a request.
+    Then TierManager epochs on a probe-accounting executor. Returns the
+    launches."""
+    from unittest import mock
+
+    from raft_tpu_torch.core import memwatch, tracing
+    from raft_tpu_torch.neighbors import ivf_pq, tiered
+    from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+    res, queries, gt_i = state["res"], state["queries"], state["gt_i"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    t = tiered.build_tiered_pq(index, hot_fraction=0.5)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[pq] tiered.build_tiered_pq hot_fraction=0.5: {build_s:.3f} s, "
+        f"{t.n_hot} hot lists ({t.hot_bytes} code bytes on the card), "
+        f"{t.n_cold} cold ({t.cold_bytes} bytes, pinned: "
+        f"{t.cold_codes.is_pinned()}), block {t.block_bytes} bytes")
+    if not (t.host_resident and t.cold_codes.is_pinned()
+            and memwatch.memory_tier(t.cold_codes) == "host"):
+        fail("the tiered PQ cold codes are not in pinned host memory")
+    plain_runs = []
+    rows = {}
+    with mock.patch.object(ops, "_scan_torch",
+                           side_effect=lambda *a, **k: plain_runs.append(1)):
+        for n_probes in PQ_PROBES:
+            sp = ivf_pq.IvfPqSearchParams(n_probes=n_probes)
+            for batch, n_q in ((10, 1000), (500, N_QUERIES)):
+                outs, times, staged, waves = [], [], [], []
+                for j, s0 in enumerate(range(0, n_q, batch)):
+                    c0 = tracing.counters("tier.")
+                    t1 = time.perf_counter()
+                    out = tiered.search_pq(res, sp, t,
+                                           queries[s0:s0 + batch], K)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                    c1 = tracing.counters("tier.")
+                    staged.append(c1.get("tier.cold_bytes_staged", 0)
+                                  - c0.get("tier.cold_bytes_staged", 0))
+                    waves.append(c1.get("tier.stage_waves", 0)
+                                 - c0.get("tier.stage_waves", 0))
+                    ref = answers[n_probes, batch][j]
+                    if not (torch.equal(out[0], ref[0])
+                            and torch.equal(out[1], ref[1])):
+                        fail(f"tiered PQ n_probes={n_probes} batch={batch} "
+                             f"request {j} differs from the all-device "
+                             "search")
+                    outs.append(out)
+                r = recall(torch.cat([o[1] for o in outs]), gt_i[:n_q])
+                ms = float(np.median(times[1:]))
+                rows[n_probes, batch] = dict(
+                    recall=r, ms=ms, device_ms=state["pq_recall"][
+                        n_probes, batch][2],
+                    staged_bytes=float(np.mean(staged)),
+                    waves=float(np.mean(waves)))
+                log(f"[pq] tiered.search_pq n_probes={n_probes} "
+                    f"batch={batch}: recall@10 {r:.4f} over {n_q} queries, "
+                    f"median {ms:.3f} ms per request (all-device "
+                    f"{rows[n_probes, batch]['device_ms']:.3f} ms), cold "
+                    f"code bytes staged per request mean "
+                    f"{np.mean(staged):.0f} (min {min(staged):.0f}, max "
+                    f"{max(staged):.0f}) in {min(waves):.0f}-"
+                    f"{max(waves):.0f} waves; ids and distances equal the "
+                    "all-device search")
+    if plain_runs:
+        fail(f"the plain PQ engine ran {len(plain_runs)} times on the "
+             "tiered path")
+    launches = read_launches(("ivf_pq_scan",), "tiered IVF-PQ")[
+        "ivf_pq_scan"]
+    n_req = 2 * (1000 // 10 + N_QUERIES // 500)
+    if launches != n_req:
+        fail(f"ivf_pq_scan launched {launches} times for {n_req} tiered "
+             "requests")
+    rows["stage_gbps"] = pq_stage_rate(torch, state, t,
+                                       answers[128, 500][:3])
+    state["pq_tiered"] = rows
+    state["pq_tiered_index"] = t
+    state["pq_epochs"] = tier_manager_run(
+        torch, state, "tiered IVF-PQ", lambda: tiered.build_tiered_pq(
+            index, hot_fraction=0.5),
+        lambda q, p: ivf_pq.search(res, ivf_pq.IvfPqSearchParams(
+            n_probes=p), index, q, K),
+        lambda t_, q, p: tiered.search_pq(res, ivf_pq.IvfPqSearchParams(
+            n_probes=p), t_, q, K),
+        ivf_pq.IvfPqSearchParams, index)
+    epochs = read_launches(("ivf_pq_scan",), "tiered IVF-PQ epochs")
+    return launches + epochs["ivf_pq_scan"]
+
+
+def pq_stage_rate(torch, state: dict, t, want):
+    """The dual-source PQ kernel's staged copies at (128, 500), from the
+    device's own timeline: torch.profiler over three requests (still equal
+    to the all-device answers); the bytes staged over the summed device
+    time of their host -> device copies, against the link's 64 GB/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.neighbors import ivf_pq, tiered
+
+    sp = ivf_pq.IvfPqSearchParams(n_probes=128)
+    c0 = tracing.get_counter("tier.cold_bytes_staged")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [tiered.search_pq(state["res"], sp, t,
+                                 state["queries"][s:s + 500], K)
+                for s in range(0, 1500, 500)]
+        torch.cuda.synchronize()
+    nbytes = tracing.get_counter("tier.cold_bytes_staged") - c0
+    for j, out in enumerate(outs):
+        if not (torch.equal(out[0], want[j][0])
+                and torch.equal(out[1], want[j][1])):
+            fail(f"profiled tiered PQ request {j} differs from the "
+                 "all-device search")
+    copies = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key.startswith("Memcpy HtoD")]
+    us = sum(e.self_device_time_total for e in copies)
+    if not us:
+        log("[pq] the staged copies' rate: not measured (the profiler "
+            "shows no host -> device copy on the device)")
+        return None
+    gbps = nbytes / us / 1e3
+    log(f"[pq] the staged code copies of three (128, 500) tiered requests "
+        f"(torch.profiler): {nbytes:.0f} bytes in "
+        f"{sum(e.count for e in copies)} host -> device copies, busy "
+        f"{us / 1e3:.3f} ms = {gbps:.2f} GB/s, "
+        f"{100 * gbps * 1e9 / HOST_LINK_BYTES_PER_S:.1f}% of the host "
+        f"link's {HOST_LINK_BYTES_PER_S / 1e9:.0f} GB/s")
+    return gbps
+
+
+#: TierManager runs: epochs, the cold lists each epoch's traffic targets
+#: (queries at their centers, one probe each, so the window holds them
+#: alone), queries per target, and the swap width
+TM_EPOCHS, TM_TARGETS, TM_PER_TARGET = 3, 8, 64
+
+
+def tier_manager_run(torch, state: dict, label: str, build, direct, search,
+                     params_type, index) -> dict:
+    """TierManager epochs on a probe-accounting executor over a fresh
+    tiered copy (``build()``), twice from the same placement with the
+    same traffic: reactive, then with a TierPrefetcher. Each epoch's
+    traffic (queries at the centers of TM_TARGETS cold lists, n_probes 1,
+    through the executor) equals the all-device answers (``direct``);
+    the plan must equal plan_epoch on the same window and promote the
+    targets; after each epoch a batch of real queries (n_probes 32,
+    ``search``) still equals the all-device answer. Pacing on a
+    ManualClock: the prefetch run's lead tick stages the forecast, its
+    epoch tick takes the hits. Prints the epoch ms, hits and
+    tier.promote_cold_bytes of both runs."""
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.core.executor import SearchExecutor
+    from raft_tpu_torch.serving.harness import ManualClock
+    from raft_tpu_torch.serving.placement import (
+        PlacementConfig,
+        TierManager,
+        plan_epoch,
+    )
+
+    res, queries = state["res"], state["queries"]
+    dev = index.centers.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(state["seed"] + 17)
+    t = build()
+    cold0 = np.array(t.cold_lists)
+    traffic, answers = [], []
+    for e in range(TM_EPOCHS):
+        targets = cold0[e * TM_TARGETS:(e + 1) * TM_TARGETS]
+        c = index.centers[torch.from_numpy(targets).to(dev)]
+        q = (c.repeat_interleave(TM_PER_TARGET, dim=0) + 0.01 * torch.randn(
+            len(targets) * TM_PER_TARGET, c.shape[1], generator=g,
+            device=dev))
+        traffic.append((targets, q))
+        answers.append(direct(q, 1))
+    check_q = queries[:500]
+    check_want = direct(check_q, 32)
+    del t
+    torch.cuda.synchronize()
+    # the all-device answers above are not the tiered path's launches
+    reset_launches()
+    out = {}
+    for run in ("reactive", "prefetch"):
+        t = build()
+        ex = SearchExecutor(res, probe_accounting=True)
+        clock = ManualClock()
+        mgr = TierManager(t, ex, config=PlacementConfig(
+            epoch_every_s=60.0, max_swaps_per_epoch=TM_TARGETS,
+            prefetch_lead_s=10.0), clock=clock)
+        pf = mgr.enable_prefetch() if run == "prefetch" else None
+        c0 = tracing.counters("tier.")
+        mgr.tick()
+        epoch_ms = []
+        for e, (targets, q) in enumerate(traffic):
+            hot, cold = t.hot_lists.copy(), t.cold_lists.copy()
+            got = ex.search(t, q, K, params=params_type(n_probes=1))
+            if not (torch.equal(got[0], answers[e][0])
+                    and torch.equal(got[1], answers[e][1])):
+                fail(f"{label} {run} epoch {e}: served traffic differs from "
+                     "the all-device search")
+            window = np.zeros(t.n_lists, np.int64)
+            np.add.at(window, np.repeat(targets, TM_PER_TARGET), 1)
+            clock.advance(51.0)
+            mgr.tick()                      # the lead tick (prefetch run)
+            clock.advance(9.0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plan = mgr.tick()
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t1) * 1e3)
+            want = plan_epoch(window, hot, cold, max_swaps=TM_TARGETS)
+            if plan is None or plan != want:
+                fail(f"{label} {run} epoch {e}: plan {plan} is not "
+                     f"plan_epoch's {want} on the same window")
+            if sorted(plan.promotions) != sorted(int(x) for x in targets):
+                fail(f"{label} {run} epoch {e}: promoted {plan.promotions}, "
+                     f"not the traffic's {list(targets)}")
+            got = search(t, check_q, 32)
+            if not (torch.equal(got[0], check_want[0])
+                    and torch.equal(got[1], check_want[1])):
+                fail(f"{label} {run} after epoch {e}: the search differs "
+                     "from the all-device search")
+        c1 = tracing.counters("tier.")
+        delta = {n: c1.get(n, 0.0) - c0.get(n, 0.0) for n in (
+            "tier.promote_cold_bytes", "tier.swap_bytes",
+            "tier.prefetch.hits", "tier.prefetch.misses",
+            "tier.prefetch.issued")}
+        out[run] = dict(epoch_ms=epoch_ms, **delta)
+        log(f"[tier] {label} TierManager {run}: {TM_EPOCHS} epochs of "
+            f"{TM_TARGETS} promotions (each plan equals plan_epoch on the "
+            f"window and promotes the traffic's cold lists; served traffic "
+            f"and a 500-query check bit-identical after every epoch), "
+            f"epoch ms {[round(x, 3) for x in epoch_ms]}, "
+            f"tier.promote_cold_bytes {delta['tier.promote_cold_bytes']:.0f}"
+            f", tier.swap_bytes {delta['tier.swap_bytes']:.0f}, prefetch "
+            f"issued {delta['tier.prefetch.issued']:.0f} hits "
+            f"{delta['tier.prefetch.hits']:.0f} misses "
+            f"{delta['tier.prefetch.misses']:.0f}; generation "
+            f"{t.generation}" + (f", staged rows {pf.capacity}"
+                                 if pf is not None else ""))
+        del t, ex, mgr, pf
+    if out["prefetch"]["tier.prefetch.hits"] <= 0:
+        fail(f"{label}: the prefetcher had no hit")
+    if not (out["prefetch"]["tier.promote_cold_bytes"]
+            < out["reactive"]["tier.promote_cold_bytes"]):
+        fail(f"{label}: prefetch did not lower tier.promote_cold_bytes")
+    return out
 
 
 def pq_serve(torch, state: dict, index) -> int:
@@ -3495,6 +3940,28 @@ def times_pq(torch, state: dict) -> dict:
                   plain_ms, nbytes, {"smem": lookups,
                                      "f32": lookups + lut_flops}, None,
                   ms_b10_p32=out[10][0], plain_ms_b10_p32=out[10][1])
+    t = state.get("pq_tiered_index")
+    if t is not None:
+        # the dual-source fetch at the same request, on the tiered split
+        from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+        args, kw, _ = args_for(500, 128)
+        hots, colds, hmap, cmap, _ = t.tier_planes()
+        targs = args[:4] + (hots[0],) + args[5:] + (colds[0], hmap, cmap)
+        pq_equal(torch, "times tiered pq (128, 500)",
+                 ivf_pq_scan(*targs, **kw, engine="cuda"),
+                 ivf_pq_scan(*args, **kw, engine="cuda"))
+        staged = ops._launch_tiered.last_plan.staged_bytes
+        t_ms = median_ms(lambda: ivf_pq_scan(*targs, **kw, engine="cuda"),
+                         10)
+        link_ms = staged / HOST_LINK_BYTES_PER_S * 1e3
+        rec.update(tiered_ms=t_ms, tiered_staged_bytes=staged,
+                   tiered_bound_ms=max(rec["bound_ms"], link_ms))
+        log(f"[times] ivf_pq_scan dual-source at (128, 500), half the "
+            f"lists cold: {t_ms:.4f} ms against the all-device {ms:.4f} "
+            f"ms; {staged} code bytes staged ({link_ms:.4f} ms at "
+            f"{HOST_LINK_BYTES_PER_S / 1e9:.0f} GB/s), bound "
+            f"{rec['tiered_bound_ms']:.4f} ms")
     for name, fn in _counted().items():
         fn.launches = saved[name]
     return rec

@@ -74,10 +74,17 @@ seconds, kernel launches per replay and graph-pool bytes (the growth of
 reserved device memory across its capture). XLA's modeled flops and
 bytes have no counterpart yet.
 
-Not ported yet: the mesh plans, mesh tracing, and the IVF-PQ and tiered
-PQ/BQ plans (their indexes are not ported): :meth:`SearchExecutor._plan`
-raises ``TypeError`` for them, as the JAX package does for an unknown
-index.
+Tiered plans (IVF-Flat, IVF-PQ, IVF-BQ) snapshot one placement
+generation under the container's swap lock, which the dispatch holds
+(:meth:`SearchExecutor._dispatch_lock`), and key on shapes and statics
+only, so a placement epoch keeps hitting the same entry. With a memory
+ledger attached (:meth:`SearchExecutor.attach_memwatch`) every dispatch
+samples the device's memory stats on the host, and the ledger's forecast
+reads :meth:`SearchExecutor.memory_reservations`.
+
+Not ported yet: the mesh plans and mesh tracing:
+:meth:`SearchExecutor._plan` raises ``TypeError`` for them, as the JAX
+package does for an unknown index.
 """
 
 from __future__ import annotations
@@ -607,6 +614,8 @@ class SearchExecutor:
         reasons = self._RAGGED_RESIDUE
         families = (
             (tiered.TieredIvf, "tiered_ivf", tiered.TieredSearchParams),
+            (tiered.TieredIvfPq, "tiered_ivf_pq", ivf_pq.IvfPqSearchParams),
+            (tiered.TieredIvfBq, "tiered_ivf_bq", ivf_bq.IvfBqSearchParams),
             (ivf_flat.IvfFlatIndex, "ivf_flat",
              ivf_flat.IvfFlatSearchParams),
             (ivf_bq.IvfBqIndex, "ivf_bq", ivf_bq.IvfBqSearchParams),
@@ -683,6 +692,10 @@ class SearchExecutor:
         "ivf_pq": ("raft_tpu_torch.neighbors.ivf_pq", "_search_ragged_fn"),
         "tiered_ivf": ("raft_tpu_torch.neighbors.tiered",
                        "_tiered_search_ragged_fn"),
+        "tiered_ivf_pq": ("raft_tpu_torch.neighbors.tiered",
+                          "_tiered_pq_search_ragged_fn"),
+        "tiered_ivf_bq": ("raft_tpu_torch.neighbors.tiered",
+                          "_tiered_bq_search_ragged_fn"),
         "cagra": ("raft_tpu_torch.neighbors.cagra", "_search_ragged_fn"),
     }
 
@@ -712,7 +725,7 @@ class SearchExecutor:
         """Resident ragged plan entries (at most one per (index, params
         class) per configured tile); ``family`` filters to one family
         tag (``"ivf_flat"``, ``"ivf_bq"``, ``"ivf_pq"``, ``"cagra"``,
-        ``"tiered_ivf"``)."""
+        ``"tiered_ivf"``, ``"tiered_ivf_pq"``, ``"tiered_ivf_bq"``)."""
         with self._lock:
             return sum(1 for key in self._cache
                        if key[0].endswith("_ragged")
@@ -738,12 +751,13 @@ class SearchExecutor:
 
     @staticmethod
     def _dispatch_lock(index):
-        """The tiered container's swap lock (one placement generation from
-        the plan's snapshot through the dispatch); a no-op otherwise.
-        Taken after the executor lock, the order ``apply_plan`` keeps."""
-        from raft_tpu_torch.neighbors.tiered import TieredIvf
+        """A tiered container's swap lock, of any family (one placement
+        generation from the plan's snapshot through the dispatch); a no-op
+        otherwise. Taken after the executor lock, the order ``apply_plan``
+        keeps."""
+        from raft_tpu_torch.neighbors.tiered import _TieredPlanes
 
-        if isinstance(index, TieredIvf):
+        if isinstance(index, _TieredPlanes):
             return index._swap_lock
         return contextlib.nullcontext()
 
@@ -972,27 +986,44 @@ class SearchExecutor:
         self._memwatch = ledger
 
     def memory_reservations(self) -> dict:
-        """The executor-owned device bytes, per device ordinal: the graph
-        pools of the captured entries (in place of the JAX package's
-        compile-time temp bytes) and the probe planes. Host metadata
-        only."""
+        """The executor-owned terms of the memory ledger's forecast, per
+        device ordinal, in the JAX package's names with the port's
+        meanings: ``donated_state_bytes`` the static input buffers of
+        every captured entry (what a replay reads in place, beside the
+        JAX package's donated state; its outputs live in its graph pool),
+        ``probe_plane_bytes``
+        the probe planes, ``max_temp_bytes`` the largest graph pool (in
+        place of XLA's compile-time temp bytes: any replay may be the one
+        that peaks), and ``graph_pool_bytes`` every captured entry's pool.
+        Host metadata only."""
         from raft_tpu_torch.core.memwatch import _ordinal, array_bytes
 
         pools: dict = {}
+        static: dict = {}
         planes: dict = {}
+
+        def add(into, arr):
+            o = _ordinal(arr)
+            into[o] = into.get(o, 0) + array_bytes(arr)
+
         with self._lock:
             for ent in self._cache.values():
-                if ent.graph is not None:
-                    o = _ordinal(ent.static_q)
-                    pools[o] = pools.get(o, 0) + ent.pool_bytes
+                if ent.graph is None:
+                    continue
+                o = _ordinal(ent.static_q)
+                pools[o] = pools.get(o, 0) + ent.pool_bytes
+                for arr in (ent.static_q, ent.static_fw, ent.static_nv,
+                            ent.static_b):
+                    if arr is not None:
+                        add(static, arr)
             for arr in self._probe_state.values():
-                o = _ordinal(arr)
-                planes[o] = planes.get(o, 0) + array_bytes(arr)
+                add(planes, arr)
             max_pool = max((e.pool_bytes for e in self._cache.values()),
                            default=0)
             n = len(self._cache)
-        return {"graph_pool_bytes": pools, "probe_plane_bytes": planes,
-                "max_pool_bytes": max_pool, "executables": n}
+        return {"donated_state_bytes": static, "probe_plane_bytes": planes,
+                "max_temp_bytes": float(max_pool), "graph_pool_bytes": pools,
+                "executables": n}
 
     # -- probe-frequency accounting -----------------------------------------
 
@@ -1097,12 +1128,20 @@ class SearchExecutor:
         from raft_tpu_torch.neighbors.ivf_bq import IvfBqIndex
         from raft_tpu_torch.neighbors.ivf_flat import IvfFlatIndex
         from raft_tpu_torch.neighbors.ivf_pq import IvfPqIndex
-        from raft_tpu_torch.neighbors.tiered import TieredIvf
+        from raft_tpu_torch.neighbors.tiered import (
+            TieredIvf,
+            TieredIvfBq,
+            TieredIvfPq,
+        )
 
         if isinstance(index, BruteForceIndex):
             plan = self._plan_brute_force(index, k, bucket, fw, kw)
         elif isinstance(index, TieredIvf):
             plan = self._plan_tiered(index, params, k, bucket, fw)
+        elif isinstance(index, TieredIvfPq):
+            plan = self._plan_tiered_pq(index, params, k, bucket, fw)
+        elif isinstance(index, TieredIvfBq):
+            plan = self._plan_tiered_bq(index, params, k, bucket, fw)
         elif isinstance(index, IvfFlatIndex):
             plan = self._plan_ivf_flat(index, params, k, bucket, fw)
         elif isinstance(index, IvfBqIndex):
@@ -1213,6 +1252,41 @@ class SearchExecutor:
         key = ("tiered_ivf", bucket, _sig(*arrays), _statics(static),
                _filter_spec(fw))
         key, probe = self._probe_plumbing(index, "tiered_ivf", key)
+        return _Plan(key=key, fn=fn, static=static, arrays=arrays,
+                     device=index.centers.device, use_filter=True,
+                     qdim=index.dim, capturable=False, probe=probe)
+
+    def _plan_tiered_pq(self, index, params, k, bucket, fw) -> _Plan:
+        """The tiered IVF-PQ plan: ``_plan_ivf_pq``'s statics over one
+        placement generation's codes planes (the caller holds the swap
+        lock), keyed on shapes and statics only, so epochs keep hitting
+        the entry; eager on the card too (the kernel's staging plan is
+        read on the host)."""
+        from raft_tpu_torch.neighbors import ivf_pq
+        from raft_tpu_torch.neighbors import tiered as m
+
+        fn, arrays, static = m.serving_plan_pq(
+            params or ivf_pq.IvfPqSearchParams(), index, k, fw,
+            self.res.workspace_limit_bytes)
+        key = ("tiered_ivf_pq", bucket, _sig(*arrays), _statics(static),
+               _filter_spec(fw))
+        key, probe = self._probe_plumbing(index, "tiered_ivf_pq", key)
+        return _Plan(key=key, fn=fn, static=static, arrays=arrays,
+                     device=index.centers.device, use_filter=True,
+                     qdim=index.dim, capturable=False, probe=probe)
+
+    def _plan_tiered_bq(self, index, params, k, bucket, fw) -> _Plan:
+        """The tiered IVF-BQ plan: ``_plan_ivf_bq``'s statics over one
+        placement generation's five record plane pairs; the plain fused
+        engine, eager."""
+        from raft_tpu_torch.neighbors import ivf_bq
+        from raft_tpu_torch.neighbors import tiered as m
+
+        fn, arrays, static = m.serving_plan_bq(
+            params or ivf_bq.IvfBqSearchParams(), index, k, fw)
+        key = ("tiered_ivf_bq", bucket, _sig(*arrays), _statics(static),
+               _filter_spec(fw))
+        key, probe = self._probe_plumbing(index, "tiered_ivf_bq", key)
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.centers.device, use_filter=True,
                      qdim=index.dim, capturable=False, probe=probe)

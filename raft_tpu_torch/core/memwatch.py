@@ -1,6 +1,6 @@
 """Memory truth: what an index holds, where, and what still fits — the
 port of ``raft_tpu/core/memwatch.py`` (its byte model, live device stats,
-the ledger and the opt-in capacity gate).
+the ledger, its scrape surface and the opt-in capacity gate).
 
 - :func:`index_memory_model`: the bytes of every tensor field of an index
   dataclass, from shape x element size, split by :func:`memory_tier` into
@@ -10,17 +10,22 @@ the ledger and the opt-in capacity gate).
   PyTorch's caching allocator has reserved but not handed out count as
   free: the allocator gives them to the next tensor without a new
   ``cudaMalloc``, so leaving them out would under-size the hot tier.
-- :class:`MemoryLedger`: watched indexes, the resident forecast, headroom
-  (live stats, else a configured ``capacity_bytes`` minus the forecast),
-  the ``fits``/``admit`` verdicts and named byte holds.
+- :class:`MemoryLedger`: watched indexes, the reservation forecast
+  (resident bytes plus an attached executor's
+  :meth:`~raft_tpu_torch.core.executor.SearchExecutor.memory_reservations`),
+  headroom (live stats, else a configured ``capacity_bytes`` minus the
+  forecast), the ``fits``/``admit`` verdicts, named byte holds, the
+  per-dispatch watermark (:meth:`MemoryLedger.sample_dispatch`, a host read
+  of ``torch.cuda.memory_stats``) and the scrape surface
+  (:meth:`MemoryLedger.snapshot`, :meth:`MemoryLedger.publish`,
+  :meth:`MemoryLedger.federation_payload`), in the JAX package's keys and
+  gauge names.
 - :func:`install_gate` / :func:`admit`: the opt-in process-wide gate that
   build paths consult; without a gate every admission passes.
 
-Not ported yet: ``sample_dispatch``, ``publish``, ``snapshot``,
-``federation_payload`` and the memory-profile parsing (they serve the
-exporter, which is not ported), and the executor's reservations
-(:meth:`raft_tpu_torch.core.executor.SearchExecutor.memory_reservations`)
-in :meth:`MemoryLedger.forecast`.
+Not ported yet: the parsing and diffing of device-memory profiles
+(``parse_memory_profile``, ``diff_memory_profiles``), which wait for the
+profile ingestion of ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from raft_tpu_torch.core.validation import expect
 
 GATE_ADMITTED = "memory.gate.admitted"
 GATE_REFUSED = "memory.gate.refused"
+SAMPLES = "memory.samples"
 
 _LABEL_SUB = re.compile(r"[^A-Za-z0-9_:-]").sub
 
@@ -109,7 +115,7 @@ def index_memory_model(index) -> dict:
             continue
         b = array_bytes(v)
         tier = memory_tier(v)
-        components[f.name] = {"bytes": b,
+        components[f.name] = {"bytes": b, "shard_bytes": b,
                               "shape": [int(s) for s in v.shape],
                               "dtype": str(v.dtype), "tier": tier}
         if tier == "host":
@@ -118,10 +124,12 @@ def index_memory_model(index) -> dict:
         total += b
         o = _ordinal(v)
         per_device[o] = per_device.get(o, 0) + b
+    # one device holds the whole index: a shard is all of it
     return {
         "family": type(index).__name__,
         "components": components,
         "resident_bytes": total,
+        "shard_resident_bytes": total,
         "host_resident_bytes": host_total,
         "per_device_bytes": per_device,
     }
@@ -172,19 +180,43 @@ def device_memory_stats(devices=None) -> dict:
 
 class MemoryLedger:
     """The memory truth of one serving process: watched indexes, their
-    forecast, headroom and capacity verdicts, and named byte holds.
+    forecast, headroom and capacity verdicts, named byte holds, the
+    dispatch watermark and the scrape surface.
 
-    ``capacity_bytes`` is a per-device capacity for a process without
-    live stats (the CPU tests, or an operator's budget below the card);
-    live limits win where there are any."""
+    ``executor`` (optional, or later :meth:`attach`) wires the two
+    dispatch-path touchpoints: the executor calls :meth:`sample_dispatch`
+    after every dispatch, and the forecast reads its
+    :meth:`~raft_tpu_torch.core.executor.SearchExecutor
+    .memory_reservations`. ``capacity_bytes`` is a per-device capacity for
+    a process without live stats (the CPU tests, or an operator's budget
+    below the card); live limits win where there are any."""
 
-    def __init__(self, *, capacity_bytes: Optional[float] = None):
+    def __init__(self, executor=None, *,
+                 capacity_bytes: Optional[float] = None):
         self.capacity_bytes = capacity_bytes
         self._lock = threading.Lock()
         # label -> weakref(index): an index dropped by its owner is not
         # kept alive by its accounting
         self._watched: "dict[str, weakref.ref]" = {}  # guarded-by: _lock
         self._reservations: Dict[str, int] = {}       # guarded-by: _lock
+        # live-stats support is probed once: without a card the dispatch
+        # sample is a counter bump and nothing else
+        self._live_supported: Optional[bool] = None
+        self._wm_in_use = 0.0     # guarded-by: _lock
+        self._wm_forecast = 0.0   # guarded-by: _lock
+        # the last snapshot publish() produced (federation_payload reads it)
+        self.last_snapshot: Optional[dict] = None
+        self.executor = None
+        if executor is not None:
+            self.attach(executor)
+
+    def attach(self, executor) -> "MemoryLedger":
+        """Wire ``executor`` both ways: its dispatches sample the
+        watermark, the forecast reads its reservations."""
+        self.executor = executor
+        if hasattr(executor, "attach_memwatch"):
+            executor.attach_memwatch(self)
+        return self
 
     def watch(self, label: str, index) -> str:
         """Register ``index`` under ``label`` (sanitized to one dot-free
@@ -197,29 +229,38 @@ class MemoryLedger:
     def unwatch(self, label: str) -> None:
         with self._lock:
             self._watched.pop(label, None)
+        tracing.reset_gauges(f"memory.index.{label}.")
+
+    def _watched_models_locked(self) -> dict:
+        out, dead = {}, []
+        for label, ref in self._watched.items():
+            index = ref()
+            if index is None:
+                dead.append(label)
+            else:
+                out[label] = index_memory_model(index)
+        for label in dead:
+            self._watched.pop(label, None)
+        return out
 
     def resident(self) -> dict:
         """``{label: index_memory_model(index)}`` for every watched index
         still alive."""
         with self._lock:
-            out, dead = {}, []
-            for label, ref in self._watched.items():
-                index = ref()
-                if index is None:
-                    dead.append(label)
-                else:
-                    out[label] = index_memory_model(index)
-            for label in dead:
-                self._watched.pop(label, None)
-        return out
+            return self._watched_models_locked()
 
     def live(self) -> dict:
         """:func:`device_memory_stats` of every visible CUDA device."""
-        return device_memory_stats()
+        stats = device_memory_stats()
+        self._live_supported = stats["supported"]
+        return stats
 
     def forecast(self, models: Optional[dict] = None) -> dict:
-        """Watched resident bytes folded per device; ``peak_bytes`` is
-        the worst device's."""
+        """The reservation forecast: watched resident bytes plus the
+        attached executor's static buffers and probe planes, and its
+        largest graph pool on every device holding state (any replay may
+        be the one that peaks), folded per device; ``peak_bytes`` is the
+        worst device's."""
         if models is None:
             models = self.resident()
         per_device: Dict[int, float] = {}
@@ -228,19 +269,31 @@ class MemoryLedger:
             resident_total += model["resident_bytes"]
             for o, b in model["per_device_bytes"].items():
                 per_device[o] = per_device.get(o, 0.0) + b
+        donated = probe = temp = 0.0
+        if self.executor is not None and hasattr(self.executor,
+                                                 "memory_reservations"):
+            res = self.executor.memory_reservations()
+            donated = float(sum(res["donated_state_bytes"].values()))
+            probe = float(sum(res["probe_plane_bytes"].values()))
+            temp = float(res["max_temp_bytes"])
+            for part in ("donated_state_bytes", "probe_plane_bytes"):
+                for o, b in res[part].items():
+                    per_device[o] = per_device.get(o, 0.0) + b
+            for o in list(per_device) or [0]:
+                per_device[o] = per_device.get(o, 0.0) + temp
         return {
             "resident_bytes": float(resident_total),
+            "donated_state_bytes": donated,
+            "probe_plane_bytes": probe,
+            "max_temp_bytes": temp,
             "per_device_bytes": {int(o): float(b)
                                  for o, b in per_device.items()},
             "peak_bytes": float(max(per_device.values(), default=0.0)),
         }
 
-    def headroom_bytes(self) -> Optional[float]:
-        """Remaining per-device headroom: the least ``limit − in_use``
-        over the live devices; without live stats ``capacity_bytes −
-        forecast peak`` when a capacity was set; ``None`` when unknowable.
-        Named holds (:meth:`reserve`) are subtracted last."""
-        stats = self.live()
+    def _headroom_from(self, stats: dict, fc: Optional[dict]):
+        """Headroom from inputs already read (``fc`` computed only when
+        live stats cannot decide); named holds subtract last."""
         base: Optional[float] = None
         if stats["supported"] and stats["devices"]:
             rooms = [d["limit_bytes"] - d["in_use_bytes"]
@@ -249,11 +302,19 @@ class MemoryLedger:
             if rooms:
                 base = float(min(rooms))
         if base is None and self.capacity_bytes is not None:
-            base = float(self.capacity_bytes
-                         - self.forecast()["peak_bytes"])
+            if fc is None:
+                fc = self.forecast()
+            base = float(self.capacity_bytes - fc["peak_bytes"])
         if base is None:
             return None
         return base - self.reserved_bytes()
+
+    def headroom_bytes(self) -> Optional[float]:
+        """Remaining per-device headroom: the least ``limit − in_use``
+        over the live devices; without live stats ``capacity_bytes −
+        forecast peak`` when a capacity was set; ``None`` when unknowable.
+        Named holds (:meth:`reserve`) are subtracted last."""
+        return self._headroom_from(self.live(), None)
 
     def fits(self, what, *, safety_fraction: float = 0.0) -> dict:
         """Would ``what`` (a byte count, a model dict or an index) fit?
@@ -264,9 +325,10 @@ class MemoryLedger:
         if isinstance(what, (int, float)):
             required = int(what)
         elif isinstance(what, dict):
-            required = int(what.get("resident_bytes", 0))
+            required = int(what.get("shard_resident_bytes",
+                                    what.get("resident_bytes", 0)))
         else:
-            required = int(index_memory_model(what)["resident_bytes"])
+            required = int(index_memory_model(what)["shard_resident_bytes"])
         headroom = self.headroom_bytes()
         if headroom is None:
             return {"fits": True, "unknown": True,
@@ -318,6 +380,127 @@ class MemoryLedger:
         """Total bytes across all named holds."""
         with self._lock:
             return float(sum(self._reservations.values()))
+
+    # -- the dispatch watermark ---------------------------------------------
+
+    def sample_dispatch(self) -> None:
+        """One watermark sample, which the executor takes after each
+        dispatch: a host read of PyTorch's allocator statistics
+        (``torch.cuda.memory_stats``: the bytes this process has
+        allocated on each card), never a device sync and never
+        ``cudaMemGetInfo``. Without a card it is the ``memory.samples``
+        counter alone."""
+        tracing.inc_counter(SAMPLES)
+        if self._live_supported is None:
+            self._live_supported = torch.cuda.is_available()
+        if not self._live_supported:
+            return
+        in_use = float(sum(
+            torch.cuda.memory_stats(d).get("allocated_bytes.all.current", 0)
+            for d in range(torch.cuda.device_count())))
+        with self._lock:
+            self._wm_in_use = max(self._wm_in_use, in_use)
+
+    # -- the scrape surface -------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The ``/memory.json`` body: model, live truth, forecast,
+        headroom, divergence (live in-use bytes less the modeled ones) and
+        watermarks, each input read once."""
+        models = self.resident()
+        live = self.live()
+        fc = self.forecast(models)
+        headroom = self._headroom_from(live, fc)
+        divergence = None
+        if live["supported"] and live["devices"]:
+            in_use = sum(d["in_use_bytes"] for d in live["devices"].values())
+            modeled = (fc["resident_bytes"] + fc["donated_state_bytes"]
+                       + fc["probe_plane_bytes"])
+            divergence = float(in_use - modeled)
+        with self._lock:
+            self._wm_forecast = max(self._wm_forecast, fc["peak_bytes"])
+            wm_in_use, wm_forecast = self._wm_in_use, self._wm_forecast
+        host_total = sum(m.get("host_resident_bytes", 0)
+                         for m in models.values())
+        return {
+            "supported": live["supported"],
+            "devices": live["devices"],
+            "indexes": models,
+            "resident_total_bytes": fc["resident_bytes"],
+            "host_resident_total_bytes": float(host_total),
+            "forecast": fc,
+            "reserved_held_bytes": self.reserved_bytes(),
+            "headroom_bytes": headroom,
+            "divergence_bytes": divergence,
+            "watermark": {"in_use_peak_bytes": wm_in_use,
+                          "forecast_peak_bytes": wm_forecast},
+            "capacity_bytes": self.capacity_bytes,
+        }
+
+    def publish(self) -> dict:
+        """Publish the ``memory.*`` gauges from one :meth:`snapshot` and
+        return it; stale per-index and per-device gauges retire first."""
+        snap = self.snapshot()
+        tracing.reset_gauges("memory.index.")
+        tracing.reset_gauges("memory.device.")
+        fc = snap["forecast"]
+        vals: Dict[str, float] = {
+            "memory.live.supported": 1.0 if snap["supported"] else 0.0,
+            "memory.resident.total_bytes": snap["resident_total_bytes"],
+            "memory.host.resident_bytes": snap["host_resident_total_bytes"],
+            "memory.reserved.donated_state_bytes":
+                fc["donated_state_bytes"],
+            "memory.reserved.probe_planes_bytes": fc["probe_plane_bytes"],
+            "memory.reserved.max_temp_bytes": fc["max_temp_bytes"],
+            "memory.reserved.held_bytes": snap["reserved_held_bytes"],
+            "memory.forecast.peak_bytes": fc["peak_bytes"],
+            "memory.hbm.headroom_bytes":
+                -1.0 if snap["headroom_bytes"] is None
+                else float(snap["headroom_bytes"]),
+            "memory.watermark.in_use_peak_bytes":
+                snap["watermark"]["in_use_peak_bytes"],
+            "memory.watermark.forecast_peak_bytes":
+                snap["watermark"]["forecast_peak_bytes"],
+        }
+        if snap["divergence_bytes"] is not None:
+            vals["memory.divergence_bytes"] = snap["divergence_bytes"]
+        for label, model in snap["indexes"].items():
+            base = f"memory.index.{label}."
+            vals[base + "resident_bytes"] = float(model["resident_bytes"])
+            vals[base + "shard_bytes"] = float(
+                model["shard_resident_bytes"])
+            if model.get("host_resident_bytes"):
+                vals[base + "host_bytes"] = float(
+                    model["host_resident_bytes"])
+        for o, d in snap["devices"].items():
+            base = f"memory.device.{o}."
+            vals[base + "in_use_bytes"] = d["in_use_bytes"]
+            vals[base + "peak_bytes"] = d["peak_bytes"]
+            vals[base + "limit_bytes"] = d["limit_bytes"]
+        tracing.set_gauges(vals)
+        self.last_snapshot = snap
+        return snap
+
+    def federation_payload(self) -> dict:
+        """The fleet-merge inputs (the ``memory`` block of
+        ``/snapshot.json``): per-index resident bytes (summed fleet-side),
+        headroom (the fleet takes the least; null without live stats),
+        device truth per replica. Reuses the snapshot :meth:`publish`
+        made last, else takes one."""
+        snap = (self.last_snapshot if self.last_snapshot is not None
+                else self.snapshot())
+        return {
+            "supported": snap["supported"],
+            "resident": {label: int(m["resident_bytes"])
+                         for label, m in snap["indexes"].items()},
+            "resident_total_bytes": int(snap["resident_total_bytes"]),
+            "host_resident_total_bytes":
+                int(snap["host_resident_total_bytes"]),
+            "forecast_peak_bytes": snap["forecast"]["peak_bytes"],
+            "headroom_bytes": snap["headroom_bytes"],
+            "divergence_bytes": snap["divergence_bytes"],
+            "devices": snap["devices"],
+        }
 
 
 _GATE: Optional[MemoryLedger] = None  # guarded-by: _GATE_LOCK

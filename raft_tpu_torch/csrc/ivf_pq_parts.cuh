@@ -36,6 +36,12 @@ struct PqArgs {
   const float* codebooks;      // (pq_dim or n_lists, book, pq_len)
   const float* cb_norms;       // (pq_dim or n_lists, book), L2
   const unsigned char* codes;  // (n_lists, m, row_bytes)
+  // a tiered index (ivf_pq_scan.cu): each list's first code row, in its
+  // tier's plane (the hot plane or the staging ring), and the launch
+  // (list_wave) that scans it; null: `codes`, one launch
+  const long long* list_codes;
+  const long long* list_wave;
+  int wave;                    // the launch: -1 the hot lists, else a wave
   const int* indices;          // (n_lists, m)
   const int* live;             // (n_lists,) rows up to the last live id
   const int* probes;           // (q, p)
@@ -204,12 +210,15 @@ __global__ void __launch_bounds__(pq_threads(S))
   const size_t part = pair * a.k;
   const int lid = a.probes[pair];
   if (lid < 0 || lid >= a.n_lists) {  // sentinel slot: an empty partial
+    if (a.list_wave && a.wave != -1) return;  // the hot launch writes it
     for (int j = tid; j < a.k; j += kPqThreads) {
       a.pd[part + j] = CUDART_INF_F;
       a.pi[part + j] = kEmptyId;
     }
     return;
   }
+  // a tiered launch scans only its own lists' pairs
+  if (a.list_wave && a.list_wave[lid] != a.wave) return;
   const int L = a.pq_len, J = a.book;
   const int dim_ext = a.pq_dim * L;
   float* lut = reinterpret_cast<float*>(smem_raw);
@@ -262,7 +271,10 @@ __global__ void __launch_bounds__(pq_threads(S))
   u64 thr = kNoBound;
   const float base = a.ip_metric ? a.base[pair] : 0.f;
   const int n_rows = a.live[lid];
-  const unsigned char* lcodes = a.codes + (size_t)lid * a.m * a.row_bytes;
+  const unsigned char* lcodes =
+      a.list_codes
+          ? reinterpret_cast<const unsigned char*>(a.list_codes[lid])
+          : a.codes + (size_t)lid * a.m * a.row_bytes;
   const int* lids = a.indices + (size_t)lid * a.m;
   const int* fw = a.filter ? a.filter + (size_t)row * a.filter_stride
                            : nullptr;
@@ -271,7 +283,7 @@ __global__ void __launch_bounds__(pq_threads(S))
   const bool words = (a.row_bytes & 3) == 0;
   const int rw = a.row_bytes >> 2;
   const bool quads = (a.row_bytes & 15) == 0 && kPqThreads % (rw >> 2) == 0 &&
-                     ((uintptr_t)a.codes & 15) == 0;
+                     ((uintptr_t)lcodes & 15) == 0;
   for (int r0 = 0; r0 < n_rows; r0 += a.row_tile) {
     const int nt = min(a.row_tile, n_rows - r0);
     __syncthreads();  // the LUT is written; the last tile is consumed

@@ -57,8 +57,25 @@
 // chunk, at slot_off[query * p + slot] + chunk; merge_partials_kernel
 // then merges each query's ragged run of partials in (distance, smallest
 // id) order, and negates IP back.
+//
+// A tiered index (neighbors/tiered.TieredIvfPq: the codes plane split into
+// a hot plane on the card and a cold plane in pinned host memory) takes
+// the design of tier_scan.cu (#6): raft_ivf_pq_scan_tiered copies each
+// probed cold list's live rows, rounded up to 64, once per request into a
+// device ring (cudaMemcpyAsync on a copy stream, an event a wave; the plan
+// is ops/tier_scan.tier_stage_plan), and each block takes its list's code
+// rows from a per-list table (the hot slot's row or the ring offset's) in
+// place of codes + lid * m * row_bytes; no kernel reads host memory. The
+// hot lists launch first, then each wave of cold lists after its copies
+// (waves take turns in the ring's halves when it cannot hold them all),
+// the per-pair instance the same way, and the one merge after the last.
+// Same items, partials and merge: the results equal the all-device
+// kernel's by construction. The extra bound is the staged bytes over the
+// host link (64 GB/s a direction on PCIe Gen5 x16).
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
+
+#include <vector>
 
 #include "ivf_pq_parts.cuh"
 #include "topk_common.cuh"
@@ -180,6 +197,12 @@ struct PqArgs {
   const float* codebooks;      // (pq_dim or n_lists, book, pq_len)
   const float* cb_norms;       // (pq_dim or n_lists, book), L2
   const unsigned char* codes;  // (n_lists, m, row_bytes)
+  // a tiered index: each list's first code row in its tier's plane (the
+  // hot plane or the staging ring) and the launch that scans it
+  // (list_wave, -1 the hot lists); null: `codes`, one launch
+  const long long* list_codes;
+  const long long* list_wave;
+  int wave;                    // this launch's wave (-1: the hot lists)
   const int* indices;          // (n_lists, m)
   const int* filter;           // words, or null
   long long filter_stride;     // words a query (0: one shared bitset)
@@ -557,7 +580,10 @@ __device__ __forceinline__ void queue_op(int S, float* area, int* qcnt,
 template <typename T>
 constexpr bool kFp8 = sizeof(T) == 1;
 
-template <typename T, int kCodes>
+// kTiered: a tiered index's instance (its list's code rows through
+// a.list_codes, its launch's lists only); the all-device instance keeps
+// the plain addressing, so the extra pointer costs it no register
+template <typename T, int kCodes, bool kTiered>
 __global__ void __launch_bounds__(kPqThreads, 1)
     pq_items_kernel(const PqArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -589,6 +615,10 @@ __global__ void __launch_bounds__(kPqThreads, 1)
         hi = mid - 1;
     }
     const int lid = lo, t = (int)(it - a.item_off[lid]);
+    // a tiered launch scans only its own lists (block-uniform)
+    if constexpr (kTiered) {
+      if (a.list_wave[lid] != a.wave) continue;
+    }
     const int cnt_all = a.offs[lid + 1] - a.offs[lid];
     const int ngr = (cnt_all + a.group - 1) / a.group;
     const int chunk = t / ngr, grp = t - chunk * ngr;
@@ -650,12 +680,18 @@ __global__ void __launch_bounds__(kPqThreads, 1)
     const int tile = kPqThreads >> lg_gp, dstride = tile + 1;
     const int g = tid & (gp - 1), rl = tid >> lg_gp;
     const size_t row0 = (size_t)lid * a.m + r0;
+    const unsigned char* lcodes = nullptr;
+    if constexpr (kTiered)
+      lcodes = reinterpret_cast<const unsigned char*>(a.list_codes[lid]) +
+               (size_t)r0 * a.row_bytes;
     for (int t0 = 0, buf = 0; t0 < nrows; t0 += tile, buf ^= 1) {
       float* Dt = D + buf * (kPqThreads + kMaxG);
       int* It = ids_t + buf * kPqThreads;
       const int row = t0 + rl;
       if (row < nrows && g < cnt) {
-        const unsigned char* src = a.codes + (row0 + row) * a.row_bytes;
+        const unsigned char* src =
+            kTiered ? lcodes + (size_t)row * a.row_bytes
+                    : a.codes + (row0 + row) * a.row_bytes;
         float v;
         if constexpr (kCodes == kCodesW64)
           v = score_row_w64<T, false>(tab, src, a.lg_book, lg_gp, g);
@@ -800,10 +836,17 @@ __global__ void __launch_bounds__(kPlanThreads)
 template <typename T>
 cudaError_t launch_items(const PqArgs& a, size_t smem, long long max_items,
                          cudaStream_t stream) {
-  auto kernel = a.codes_mode == kCodesW64 ? pq_items_kernel<T, kCodesW64>
-                 : a.codes_mode == kCodesW64Packed
-                     ? pq_items_kernel<T, kCodesW64Packed>
-                     : pq_items_kernel<T, kCodesAny>;
+  void (*kernel)(const PqArgs);
+  if (a.list_codes)
+    kernel = a.codes_mode == kCodesW64 ? pq_items_kernel<T, kCodesW64, true>
+             : a.codes_mode == kCodesW64Packed
+                 ? pq_items_kernel<T, kCodesW64Packed, true>
+                 : pq_items_kernel<T, kCodesAny, true>;
+  else
+    kernel = a.codes_mode == kCodesW64 ? pq_items_kernel<T, kCodesW64, false>
+             : a.codes_mode == kCodesW64Packed
+                 ? pq_items_kernel<T, kCodesW64Packed, false>
+                 : pq_items_kernel<T, kCodesAny, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -889,52 +932,245 @@ extern "C" int raft_ivf_pq_plan(int pq_dim, int pq_len, int book, int k,
   return (int)cudaSuccess;
 }
 
+// One search's arguments, as the C entries take them.
+struct PqCall {
+  const void *qres, *base, *codebooks, *cb_norms, *codes, *indices, *probes,
+      *filter;
+  long long filter_stride;
+  const void *offs, *pair_q, *pair_slot, *live, *item_off, *slot_off;
+  int q, p, n_lists, m, row_bytes, pq_dim, pq_len, book, k, ip_metric,
+      per_cluster, packed, lut_type;
+  long long max_items;
+  int rows, group;
+  void *pd, *pi, *outd, *outi;
+};
+
+// A tiered search's staging: list_tab (2 * n_lists,) int64 on the device,
+// each list's first code row (its hot slot's row in `codes`, the hot plane,
+// or its ring offset's row in `ring`), then the launch that scans it (-1
+// the hot lists, w a staged wave, -2 an unprobed cold list); `cold` the
+// (n_cold, m, row_bytes) codes in pinned host memory (null without cold
+// lists to stage); the waves as tier_scan.cu plans them: wave_end (end of
+// each wave in the copies), reuse (wave w + 2 overwrites wave w's half of
+// the ring), and per copy the cold slot, rows and ring row offset (host
+// arrays); copy_stream a side stream for the copies.
+struct PqTier {
+  const long long* list_tab;
+  const unsigned char* cold;
+  unsigned char* ring;
+  int n_waves, reuse;
+  const int *wave_end, *copy_slot, *copy_rows;
+  const long long* copy_off;
+  cudaStream_t copy_stream;
+};
+
+// Events of one call: created here, destroyed on every return (a pending
+// event is released once it completes).
+struct PqEvents {
+  std::vector<cudaEvent_t> ev;
+  ~PqEvents() {
+    for (cudaEvent_t e : ev) cudaEventDestroy(e);
+  }
+  cudaError_t make(int count) {
+    for (int i = 0; i < count; ++i) {
+      cudaEvent_t e;
+      cudaError_t err = cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+      if (err != cudaSuccess) return err;
+      ev.push_back(e);
+    }
+    return cudaSuccess;
+  }
+};
+
+#define RAFT_PQ_TRY(x)                       \
+  do {                                       \
+    cudaError_t e_ = (x);                    \
+    if (e_ != cudaSuccess) return (int)e_;   \
+  } while (0)
+
+// The launches of one search: one `launch(wave)` without a tier; with
+// one, the hot lists' launch, then the cold lists wave by wave, each after
+// its copies (cudaMemcpyAsync, pinned host -> ring, on the copy stream, an
+// event a wave), all on the compute stream; the merge follows. No kernel
+// reads host memory.
+template <typename Launch>
+static int run_tiered(const PqCall& c, const PqTier* t, cudaStream_t s,
+                      Launch launch) {
+  if (!t) return (int)launch(0);
+  PqEvents ev;
+  RAFT_PQ_TRY(ev.make(1 + 2 * t->n_waves));
+  auto copied = [&](int w) { return ev.ev[1 + 2 * w]; };
+  auto scanned = [&](int w) { return ev.ev[2 + 2 * w]; };
+  const size_t rb = (size_t)c.row_bytes;
+  auto issue_copies = [&](int w) -> cudaError_t {
+    if (t->reuse && w >= 2) {  // the same half: after wave w - 2's scan
+      cudaError_t err = cudaStreamWaitEvent(t->copy_stream, scanned(w - 2), 0);
+      if (err != cudaSuccess) return err;
+    }
+    for (int i = w ? t->wave_end[w - 1] : 0; i < t->wave_end[w]; ++i) {
+      if (t->copy_rows[i] <= 0) continue;
+      cudaError_t err = cudaMemcpyAsync(
+          t->ring + (size_t)t->copy_off[i] * rb,
+          t->cold + (size_t)t->copy_slot[i] * c.m * rb,
+          (size_t)t->copy_rows[i] * rb, cudaMemcpyHostToDevice,
+          t->copy_stream);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaEventRecord(copied(w), t->copy_stream);
+  };
+  if (t->n_waves > 0) {
+    // the ring and the cold plane (which placement writes on the compute
+    // stream) may still be in use by work queued before this call
+    RAFT_PQ_TRY(cudaEventRecord(ev.ev[0], s));
+    RAFT_PQ_TRY(cudaStreamWaitEvent(t->copy_stream, ev.ev[0], 0));
+    const int ahead = t->reuse ? 2 : t->n_waves;
+    for (int w = 0; w < t->n_waves && w < ahead; ++w)
+      RAFT_PQ_TRY(issue_copies(w));
+  }
+  RAFT_PQ_TRY(launch(-1));  // the hot lists need no copy
+  for (int w = 0; w < t->n_waves; ++w) {
+    RAFT_PQ_TRY(cudaStreamWaitEvent(s, copied(w), 0));
+    RAFT_PQ_TRY(launch(w));
+    RAFT_PQ_TRY(cudaEventRecord(scanned(w), s));
+    if (t->reuse && w + 2 < t->n_waves) RAFT_PQ_TRY(issue_copies(w + 2));
+  }
+  return (int)cudaSuccess;
+}
+
 // The per-pair instance (ivf_pq_parts.cuh) on (q, p) probes.
-static int scan_parts(const void* qres, const void* base,
-                      const void* codebooks, const void* cb_norms,
-                      const void* codes, const void* indices,
-                      const void* live, const void* probes,
-                      const void* filter, long long filter_stride, int q,
-                      int p, int n_lists, int m, int row_bytes, int pq_dim,
-                      int pq_len, int book, int k, int ip_metric,
-                      int per_cluster, int packed, int lut_type, int limit,
-                      void* pd, void* pi, void* outd, void* outi,
+static int scan_parts(const PqCall& c, const PqTier* t, int limit,
                       cudaStream_t s) {
   pq_parts::PqArgs a;
-  a.qres = (const float*)qres;
-  a.base = (const float*)base;
-  a.codebooks = (const float*)codebooks;
-  a.cb_norms = (const float*)cb_norms;
-  a.codes = (const unsigned char*)codes;
-  a.indices = (const int*)indices;
-  a.live = (const int*)live;
-  a.probes = (const int*)probes;
-  a.filter = (const int*)filter;
-  a.filter_stride = filter_stride;
-  a.p = p;
-  a.n_lists = n_lists;
-  a.m = m;
-  a.row_bytes = row_bytes;
-  a.pq_dim = pq_dim;
-  a.pq_len = pq_len;
-  a.book = book;
-  a.k = k;
-  a.ip_metric = ip_metric;
-  a.per_cluster = per_cluster;
-  a.packed = packed;
-  a.lut_type = lut_type;
-  a.inv_fmax = lut_type == kLutE5m2 ? (float)(1.0 / 57344.0)
-                                     : (float)(1.0 / 448.0);
-  a.pd = (float*)pd;
-  a.pi = (int*)pi;
-  const size_t smem =
-      pq_parts::plan(a, pq_dim, pq_len, book, row_bytes, k, limit);
-  if (!smem || q > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = pq_parts::launch_pq(a, q, smem, s);
-  if (err != cudaSuccess) return (int)err;
+  a.qres = (const float*)c.qres;
+  a.base = (const float*)c.base;
+  a.codebooks = (const float*)c.codebooks;
+  a.cb_norms = (const float*)c.cb_norms;
+  a.codes = (const unsigned char*)c.codes;
+  a.list_codes = t ? t->list_tab : nullptr;
+  a.list_wave = t ? t->list_tab + c.n_lists : nullptr;
+  a.wave = 0;
+  a.indices = (const int*)c.indices;
+  a.live = (const int*)c.live;
+  a.probes = (const int*)c.probes;
+  a.filter = (const int*)c.filter;
+  a.filter_stride = c.filter_stride;
+  a.p = c.p;
+  a.n_lists = c.n_lists;
+  a.m = c.m;
+  a.row_bytes = c.row_bytes;
+  a.pq_dim = c.pq_dim;
+  a.pq_len = c.pq_len;
+  a.book = c.book;
+  a.k = c.k;
+  a.ip_metric = c.ip_metric;
+  a.per_cluster = c.per_cluster;
+  a.packed = c.packed;
+  a.lut_type = c.lut_type;
+  a.inv_fmax = c.lut_type == kLutE5m2 ? (float)(1.0 / 57344.0)
+                                       : (float)(1.0 / 448.0);
+  a.pd = (float*)c.pd;
+  a.pi = (int*)c.pi;
+  const size_t smem = pq_parts::plan(a, c.pq_dim, c.pq_len, c.book,
+                                     c.row_bytes, c.k, limit);
+  if (!smem || c.q > 65535) return (int)cudaErrorInvalidValue;
+  const int err = run_tiered(c, t, s, [&](int wave) {
+    a.wave = wave;
+    return pq_parts::launch_pq(a, c.q, smem, s);
+  });
+  if (err != (int)cudaSuccess) return err;
   return (int)pq_parts::launch_pq_merge(
-      a.pd, a.pi, q, p * k, k, ip_metric ? kEpilogNegate : kEpilogNone,
-      (float*)outd, (int*)outi, s);
+      a.pd, a.pi, c.q, c.p * c.k, c.k,
+      c.ip_metric ? kEpilogNegate : kEpilogNone, (float*)c.outd,
+      (int*)c.outi, s);
+}
+
+static int pq_scan_impl(const PqCall& c, const PqTier* t, cudaStream_t s) {
+  if (c.q < 0 || c.p < 1 || c.n_lists < 1 || c.m < 0 ||
+      !pq_shape_ok(c.pq_dim, c.pq_len, c.book, c.k, c.lut_type) ||
+      c.row_bytes != (c.packed ? (c.pq_dim + 1) / 2 : c.pq_dim) ||
+      (c.ip_metric && !c.base) || (!c.ip_metric && !c.cb_norms))
+    return (int)cudaErrorInvalidValue;
+  if (c.q == 0) return (int)cudaSuccess;
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  PqPlan plan;
+  const bool items =
+      pq_plan(c.pq_dim, c.pq_len, c.book, c.k, c.lut_type,
+              (long long)c.q * c.p, (size_t)limit, &plan);
+  if (!items && c.group == 0) return scan_parts(c, t, limit, s);
+  if (!items || plan.rows != c.rows || plan.group != c.group)
+    return (int)cudaErrorInvalidValue;
+  PqArgs a;
+  a.qres = (const float*)c.qres;
+  a.base = (const float*)c.base;
+  a.codebooks = (const float*)c.codebooks;
+  a.cb_norms = (const float*)c.cb_norms;
+  a.codes = (const unsigned char*)c.codes;
+  a.list_codes = t ? t->list_tab : nullptr;
+  a.list_wave = t ? t->list_tab + c.n_lists : nullptr;
+  a.wave = 0;
+  a.indices = (const int*)c.indices;
+  a.filter = (const int*)c.filter;
+  a.filter_stride = c.filter_stride;
+  a.offs = (const int*)c.offs;
+  a.pair_q = (const int*)c.pair_q;
+  a.pair_slot = (const int*)c.pair_slot;
+  a.live = (const int*)c.live;
+  a.item_off = (const long long*)c.item_off;
+  a.slot_off = (const int*)c.slot_off;
+  a.n_lists = c.n_lists;
+  a.p = c.p;
+  a.m = c.m;
+  a.row_bytes = c.row_bytes;
+  a.pq_dim = c.pq_dim;
+  a.pq_len = c.pq_len;
+  a.book = c.book;
+  a.k = c.k;
+  a.dim_ext = c.pq_dim * c.pq_len;
+  a.ip_metric = c.ip_metric;
+  a.per_cluster = c.per_cluster;
+  a.packed = c.packed;
+  a.lut_type = c.lut_type;
+  a.cb_vec4 =
+      (c.book * c.pq_len) % 4 == 0 && ((uintptr_t)c.codebooks & 15) == 0;
+  a.nrm_vec4 =
+      a.cb_vec4 && c.book % 4 == 0 && ((uintptr_t)c.cb_norms & 15) == 0;
+  a.groups = tree_width(c.pq_dim) / 8;
+  a.levels = ilog2(a.groups);
+  a.rows = c.rows;
+  a.group = c.group;
+  a.lg_book = ilog2(c.book);
+  a.S = pq_slots(c.k);
+  a.lay = pq_layout(c.pq_dim, c.pq_len, c.book, c.k, c.lut_type, c.group,
+                    plan.stage);
+  // 16-byte row loads need 16-byte aligned planes: pq_dim 64 rows are 64
+  // or 32 bytes, and ring offsets are whole staging tiles of rows
+  const uintptr_t planes =
+      (uintptr_t)c.codes | (uintptr_t)(t ? t->ring : nullptr);
+  a.codes_mode = c.pq_dim != 64 || (planes & 15) != 0 ? kCodesAny
+                 : c.packed                           ? kCodesW64Packed
+                                                      : kCodesW64;
+  a.inv_fmax = c.lut_type == kLutE5m2 ? (float)(1.0 / 57344.0)
+                                       : (float)(1.0 / 448.0);
+  a.pd = (float*)c.pd;
+  a.pi = (int*)c.pi;
+  const int rc = run_tiered(c, t, s, [&](int wave) {
+    a.wave = wave;
+    switch (c.lut_type) {
+      case kLutF32: return launch_items<float>(a, plan.smem, c.max_items, s);
+      case kLutBf16:
+        return launch_items<__nv_bfloat16>(a, plan.smem, c.max_items, s);
+      case kLutE4m3:
+        return launch_items<__nv_fp8_e4m3>(a, plan.smem, c.max_items, s);
+      default:
+        return launch_items<__nv_fp8_e5m2>(a, plan.smem, c.max_items, s);
+    }
+  });
+  if (rc != (int)cudaSuccess) return rc;
+  return (int)launch_pq_merge(a, c.q,
+                              c.ip_metric ? kEpilogNegate : kEpilogNone,
+                              (float*)c.outd, (int*)c.outi, s);
 }
 
 // The work items of one search on the device (pq_plan_kernel): probes
@@ -986,84 +1222,65 @@ extern "C" int raft_ivf_pq_scan(
     int ip_metric, int per_cluster, int packed, int lut_type,
     long long max_items, int rows, int group, void* pd, void* pi,
     void* outd, void* outi, void* stream) {
-  if (q < 0 || p < 1 || n_lists < 1 || m < 0 ||
-      !pq_shape_ok(pq_dim, pq_len, book, k, lut_type) ||
-      row_bytes != (packed ? (pq_dim + 1) / 2 : pq_dim) ||
-      (ip_metric && !base) || (!ip_metric && !cb_norms))
+  const PqCall c{qres,    base,     codebooks, cb_norms,  codes,    indices,
+                 probes,  filter,   filter_stride,        offs,     pair_q,
+                 pair_slot, live,   item_off,  slot_off,  q,        p,
+                 n_lists, m,        row_bytes, pq_dim,    pq_len,   book,
+                 k,       ip_metric, per_cluster, packed, lut_type, max_items,
+                 rows,    group,    pd,        pi,        outd,     outi};
+  return pq_scan_impl(c, nullptr, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The dual-source search of a tiered index: raft_ivf_pq_scan's arguments,
+// with `codes` the hot plane (n_hot, m, row_bytes) and n_lists the index's
+// list count, then the staging (struct PqTier): list_tab (2 * n_lists,)
+// int64 on the device; cold (n_cold, m, row_bytes) u8 in pinned host
+// memory, or null when no list is staged; ring the device staging ring;
+// n_waves, reuse and the host arrays wave_end (n_waves,), copy_slot,
+// copy_rows (n_copies,) int32 and copy_off (n_copies,) int64 of
+// ops/tier_scan.tier_stage_plan; copy_stream the copies' side stream.
+// A cold pointer that is not page-locked host memory is refused
+// (cudaErrorInvalidValue): cudaMemcpyAsync from pageable memory would
+// copy synchronously. Returns cudaError_t.
+extern "C" int raft_ivf_pq_scan_tiered(
+    const void* qres, const void* base, const void* codebooks,
+    const void* cb_norms, const void* hot, const void* indices,
+    const void* probes, const void* filter, long long filter_stride,
+    const void* offs, const void* pair_q, const void* pair_slot,
+    const void* live, const void* item_off, const void* slot_off, int q,
+    int p, int n_lists, int m, int row_bytes, int pq_dim, int pq_len,
+    int book, int k, int ip_metric, int per_cluster, int packed,
+    int lut_type, long long max_items, int rows, int group, void* pd,
+    void* pi, void* outd, void* outi, const void* list_tab,
+    const void* cold, void* ring, int n_waves, int reuse,
+    const int* wave_end, const int* copy_slot, const long long* copy_off,
+    const int* copy_rows, void* stream, void* copy_stream) {
+  if (!list_tab || n_waves < 0 || (n_waves > 0 && (!cold || !ring)))
     return (int)cudaErrorInvalidValue;
-  if (q == 0) return (int)cudaSuccess;
-  int limit = 0;
-  cudaError_t err = smem_limit(&limit);
-  if (err != cudaSuccess) return (int)err;
-  PqPlan plan;
-  const bool items =
-      pq_plan(pq_dim, pq_len, book, k, lut_type, (long long)q * p,
-              (size_t)limit, &plan);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!items && group == 0)
-    return scan_parts(qres, base, codebooks, cb_norms, codes, indices, live,
-                      probes, filter, filter_stride, q, p, n_lists, m,
-                      row_bytes, pq_dim, pq_len, book, k, ip_metric,
-                      per_cluster, packed, lut_type, limit, pd, pi, outd,
-                      outi, s);
-  if (!items || plan.rows != rows || plan.group != group)
-    return (int)cudaErrorInvalidValue;
-  PqArgs a;
-  a.qres = (const float*)qres;
-  a.base = (const float*)base;
-  a.codebooks = (const float*)codebooks;
-  a.cb_norms = (const float*)cb_norms;
-  a.codes = (const unsigned char*)codes;
-  a.indices = (const int*)indices;
-  a.filter = (const int*)filter;
-  a.filter_stride = filter_stride;
-  a.offs = (const int*)offs;
-  a.pair_q = (const int*)pair_q;
-  a.pair_slot = (const int*)pair_slot;
-  a.live = (const int*)live;
-  a.item_off = (const long long*)item_off;
-  a.slot_off = (const int*)slot_off;
-  a.n_lists = n_lists;
-  a.p = p;
-  a.m = m;
-  a.row_bytes = row_bytes;
-  a.pq_dim = pq_dim;
-  a.pq_len = pq_len;
-  a.book = book;
-  a.k = k;
-  a.dim_ext = pq_dim * pq_len;
-  a.ip_metric = ip_metric;
-  a.per_cluster = per_cluster;
-  a.packed = packed;
-  a.lut_type = lut_type;
-  a.cb_vec4 = (book * pq_len) % 4 == 0 && ((uintptr_t)codebooks & 15) == 0;
-  a.nrm_vec4 = a.cb_vec4 && book % 4 == 0 && ((uintptr_t)cb_norms & 15) == 0;
-  a.groups = tree_width(pq_dim) / 8;
-  a.levels = ilog2(a.groups);
-  a.rows = rows;
-  a.group = group;
-  a.lg_book = ilog2(book);
-  a.S = pq_slots(k);
-  a.lay = pq_layout(pq_dim, pq_len, book, k, lut_type, group, plan.stage);
-  a.codes_mode =
-      pq_dim != 64 || ((uintptr_t)codes & 15) != 0 ? kCodesAny
-      : packed                                     ? kCodesW64Packed
-                                                   : kCodesW64;
-  a.inv_fmax = lut_type == kLutE5m2 ? (float)(1.0 / 57344.0)
-                                     : (float)(1.0 / 448.0);
-  a.pd = (float*)pd;
-  a.pi = (int*)pi;
-  switch (lut_type) {
-    case kLutF32: err = launch_items<float>(a, plan.smem, max_items, s); break;
-    case kLutBf16:
-      err = launch_items<__nv_bfloat16>(a, plan.smem, max_items, s);
-      break;
-    case kLutE4m3:
-      err = launch_items<__nv_fp8_e4m3>(a, plan.smem, max_items, s);
-      break;
-    default: err = launch_items<__nv_fp8_e5m2>(a, plan.smem, max_items, s);
+  if (cold != nullptr) {
+    cudaPointerAttributes attr;
+    cudaError_t err = cudaPointerGetAttributes(&attr, cold);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reset it, so later error checks do not see it
+      return (int)err;
+    }
+    if (attr.type != cudaMemoryTypeHost) return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_pq_merge(a, q, ip_metric ? kEpilogNegate : kEpilogNone,
-                              (float*)outd, (int*)outi, s);
+  const PqCall c{qres,    base,     codebooks, cb_norms,  hot,      indices,
+                 probes,  filter,   filter_stride,        offs,     pair_q,
+                 pair_slot, live,   item_off,  slot_off,  q,        p,
+                 n_lists, m,        row_bytes, pq_dim,    pq_len,   book,
+                 k,       ip_metric, per_cluster, packed, lut_type, max_items,
+                 rows,    group,    pd,        pi,        outd,     outi};
+  const PqTier t{(const long long*)list_tab,
+                 (const unsigned char*)cold,
+                 (unsigned char*)ring,
+                 n_waves,
+                 reuse,
+                 wave_end,
+                 copy_slot,
+                 copy_rows,
+                 copy_off,
+                 reinterpret_cast<cudaStream_t>(copy_stream)};
+  return pq_scan_impl(c, &t, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 """Nearest-neighbor indexes: brute force, IVF-Flat, IVF-BQ, IVF-PQ,
-CAGRA, tiered IVF-Flat and int8 quantized kNN, with the graph builders
-(cluster-join, NN-descent), refine and the index helpers.
+CAGRA, tiered IVF-Flat, IVF-PQ and IVF-BQ, and int8 quantized kNN, with
+the graph builders (cluster-join, NN-descent), refine and the index
+helpers.
 
 The modules load on first access (``raft_tpu_torch.neighbors.ivf_pq``),
 as the JAX package's ``neighbors`` names them; importing them all here

@@ -26,10 +26,12 @@ Supported metrics: L2Expanded / L2SqrtExpanded / InnerProduct.
 The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
 both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up; the
 executor's ragged plans run :func:`_search_ragged_fn`, the same body
-with a per-row probe budget. Not ported yet: ``build_streaming`` (with
-``neighbors/_streaming.py`` and ``io/``), the distributed bodies, the
-tiered ``cold_planes``, and the opt-in ``memwatch.admit`` capacity gate
-of ``extend`` (with the tiered slice).
+with a per-row probe budget. The same body serves the tiered family
+(:mod:`raft_tpu_torch.neighbors.tiered`, ``TieredIvfBq``: the five record
+planes split between a hot tier and pinned host memory, ``cold_planes``).
+Not ported yet: ``build_streaming`` (with ``neighbors/_streaming.py`` and
+``io/``, ROADMAP Queue 1 item 3), the distributed bodies, and the opt-in
+``memwatch.admit`` capacity gate of ``extend``.
 """
 
 from __future__ import annotations
@@ -462,14 +464,21 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
                    indices, data, data_norms, filter_words, *,
                    metric: DistanceType, n_probes: int, k: int,
                    coarse_algo: str, scan_engine: str, epsilon: float,
-                   query_bits: int, row_probes=None):
+                   query_bits: int, row_probes=None, cold_planes=None,
+                   hot_slot_map=None, cold_slot_map=None):
     """Coarse select, then the fused estimate-then-rerank scan (``cuda``
     or ``torch``: exact distances) or the rank-major estimate-only scan
     (``rank``), over the index's arrays. ``row_probes`` (the ragged
     front) masks each row's probe slots past its own budget to the
-    sentinel id, which the fused engines skip. Returns ``(best_d,
-    best_i, survivors, probes)``: survivors is the fused scan's (q,)
-    count of reranked rows, None for ``rank``."""
+    sentinel id, which the fused engines skip. ``cold_planes`` (a tiered
+    index) holds the cold halves of the five record planes, whose hot
+    halves are then ``codes``/``rnorm``/``cfac``/``errw``/``data``, and
+    each probed list reads all five from its tier (the plain fused engine
+    only). Returns ``(best_d, best_i, survivors, probes)``: survivors is
+    the fused scan's (q,) count of reranked rows, None for ``rank``."""
+    expect(cold_planes is None or scan_engine == "torch",
+           "tiered BQ record planes need the plain fused engine, got "
+           f"{scan_engine!r}")
     q = queries.shape[0]
     select_min = is_min_close(metric)
     ip_metric = metric == DistanceType.InnerProduct
@@ -489,8 +498,9 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
         qb = query_bits if query_bits else auto_query_bits(cfac.shape[2])
         best_d, best_i, survivors = bq_list_major_scan(
             qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices, data,
-            data_norms, probes, filter_words, k=k, metric=metric,
-            epsilon=epsilon, engine=scan_engine, query_bits=qb)
+            data_norms, probes, filter_words, cold_planes, hot_slot_map,
+            cold_slot_map, k=k, metric=metric, epsilon=epsilon,
+            engine=scan_engine, query_bits=qb)
     else:
         best_d = qf.new_full((q, k), pad_val)
         best_i = torch.full((q, k), -1, dtype=torch.int32, device=qf.device)
@@ -512,8 +522,9 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
 
 def _search_impl_fn(queries, centers, rotation, codes, rnorm, cfac, errw,
                     indices, data, data_norms, filter_words,
-                    probe_counts=None, n_valid=None, row_probes=None, *,
-                    n_probes: int, k: int, metric: DistanceType,
+                    probe_counts=None, n_valid=None, row_probes=None,
+                    cold_planes=None, hot_slot_map=None, cold_slot_map=None,
+                    *, n_probes: int, k: int, metric: DistanceType,
                     coarse_algo: str = "exact", scan_engine: str = "rank",
                     epsilon: float = 3.0, query_bits: int = 0):
     """The serving body: :func:`_search_arrays` in the order
@@ -525,12 +536,16 @@ def _search_impl_fn(queries, centers, rotation, codes, rnorm, cfac, errw,
     :func:`_search_ragged_fn`); masked slots count nothing, so
     ``n_valid`` is not needed with it. The CUDA and ``rank`` engines
     have no host sync on a CUDA index, so the executor captures the body
-    in a CUDA graph."""
+    in a CUDA graph. ``cold_planes`` / ``hot_slot_map`` /
+    ``cold_slot_map`` are the tiered family's split record planes
+    (:func:`_search_arrays`)."""
     best_d, best_i, _, probes = _search_arrays(
         queries, centers, rotation, codes, rnorm, cfac, errw, indices, data,
         data_norms, filter_words, metric=metric, n_probes=n_probes, k=k,
         coarse_algo=coarse_algo, scan_engine=scan_engine, epsilon=epsilon,
-        query_bits=query_bits, row_probes=row_probes)
+        query_bits=query_bits, row_probes=row_probes,
+        cold_planes=cold_planes, hot_slot_map=hot_slot_map,
+        cold_slot_map=cold_slot_map)
     if probe_counts is not None:
         if row_probes is not None:
             n_valid = None

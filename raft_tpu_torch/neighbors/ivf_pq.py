@@ -29,8 +29,10 @@ The JAX package's per-probe LUT build ``_probe_lut`` is
 :func:`raft_tpu_torch.ops.ivf_pq_scan.probe_lut`, shared by every engine.
 The executor and :func:`search` both run :func:`_search_impl_fn` as
 :func:`serving_plan` sets it up; the executor's ragged plans run
-:func:`_search_ragged_fn`. Not ported yet: the tiered codes arguments
-(ROADMAP Queue 1 item 4) and ``build_streaming`` (item 5); both raise.
+:func:`_search_ragged_fn`. The same body serves the tiered family
+(:mod:`raft_tpu_torch.neighbors.tiered`, ``TieredIvfPq``) with its codes
+split between a hot plane and pinned host memory. Not ported yet:
+``build_streaming`` (ROADMAP Queue 1 item 3), which raises.
 """
 
 from __future__ import annotations
@@ -422,7 +424,7 @@ def build_streaming(res, params, source, chunk_rows: int = 1 << 20,
     """The streamed build over a ``BinDataset``: not ported yet."""
     raise NotImplementedError(
         "ivf_pq.build_streaming waits for the streaming I/O port "
-        "(ROADMAP.md Queue 1 item 5)")
+        "(ROADMAP.md Queue 1 item 3)")
 
 
 def extend(res: Optional[Resources], index: IvfPqIndex, new_vectors,
@@ -634,7 +636,8 @@ def _search_impl_fn(queries, centers, rotation, codebooks, codes, indices,
                     metric: DistanceType, codebook_kind: CodebookKind,
                     lut_dtype=torch.float32, score_mode: str = "gather",
                     packed: bool = False, coarse_algo: str = "exact",
-                    scan_engine: str = "rank"):
+                    scan_engine: str = "rank",
+                    workspace_bytes: Optional[int] = None):
     """The ADC serving body: coarse select, the rotated residuals of every
     (query, probe slot) in one product (the rotated query for IP, with
     ``q·c`` of each slot from the coarse products), then the resolved
@@ -644,11 +647,23 @@ def _search_impl_fn(queries, centers, rotation, codebooks, codes, indices,
     ragged front's per-row budget (:func:`_search_ragged_fn`): slots past
     it become the sentinel id, which the list-major engines skip. The
     ``cuda`` engine has no host sync, so the executor captures the body
-    in a CUDA graph."""
-    expect(cold_codes is None and hot_slot_map is None
-           and cold_slot_map is None,
-           "tiered IVF-PQ codes are not ported yet (ROADMAP.md Queue 1 "
-           "item 4)")
+    in a CUDA graph.
+
+    ``cold_codes`` / ``hot_slot_map`` / ``cold_slot_map`` (the tiered
+    family, :class:`~raft_tpu_torch.neighbors.tiered.TieredIvfPq`) split
+    the codes plane: ``codes`` is then the hot plane (n_hot, m, .) and each
+    probed list's codes come from its tier, in the plain engine and in the
+    kernel (staged through a ring of ``workspace_bytes``; one host sync,
+    so the executor runs the tiered body eagerly). Everything else is this
+    body, so the results equal the all-device index's bit for bit. The
+    rank-major engine has no per-list fetch step and raises."""
+    tiered = cold_codes is not None
+    expect(not tiered or (hot_slot_map is not None
+                          and cold_slot_map is not None),
+           "tiered IVF-PQ codes need both slot maps")
+    expect(not (tiered and scan_engine == "rank"),
+           "tiered IVF-PQ codes need a list-major engine (cuda or torch): "
+           "the rank-major scan has no per-list fetch step")
     n_lists = centers.shape[0]
     ip_metric = metric == DistanceType.InnerProduct
     per_cluster = codebook_kind == CodebookKind.PER_CLUSTER
@@ -673,11 +688,14 @@ def _search_impl_fn(queries, centers, rotation, codebooks, codes, indices,
             filter_words, k=k, metric=metric, per_cluster=per_cluster,
             lut_dtype=lut_dtype, packed=packed, score=score)
     else:
+        tier_kw = {} if not tiered else dict(
+            cold_codes=cold_codes, hot_slot_map=hot_slot_map,
+            cold_slot_map=cold_slot_map, workspace_bytes=workspace_bytes)
         best_d, best_i = ivf_pq_scan(
             qres, base, codebooks, cb_norms, codes, indices, probes,
             filter_words, k=k, ip_metric=ip_metric, per_cluster=per_cluster,
             lut_dtype=lut_dtype, packed=packed, engine=scan_engine,
-            score=None if scan_engine == "cuda" else score)
+            score=None if scan_engine == "cuda" else score, **tier_kw)
     if metric == DistanceType.L2SqrtExpanded:
         best_d = torch.where(torch.isfinite(best_d),
                              torch.sqrt(torch.clamp(best_d, min=0.0)), best_d)

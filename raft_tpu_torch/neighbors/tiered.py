@@ -1,6 +1,6 @@
-"""Tiered IVF-Flat storage — the flat family of
-``raft_tpu/neighbors/tiered.py``: an index whose corpus need not fit in
-device memory.
+"""Tiered IVF storage — the port of ``raft_tpu/neighbors/tiered.py``: an
+index whose corpus need not fit in device memory, for the flat, PQ and
+BQ families.
 
 :class:`TieredIvf` splits an :class:`~raft_tpu_torch.neighbors.ivf_flat
 .IvfFlatIndex`'s padded vector plane by list into a **hot tier** in device
@@ -15,25 +15,37 @@ for bit. On the card the probe scan is the staged dual-source kernel
 cold lists once over the host link into a device ring sized from
 ``Resources.workspace_limit_bytes``, and scores them there.
 
+:class:`TieredIvfPq` tiers an IVF-PQ index's codes plane the same way:
+:func:`search_pq` equals ``ivf_pq.search`` bit for bit, on the card
+through the LUT scan kernel's dual-source fetch
+(:mod:`raft_tpu_torch.ops.ivf_pq_scan`, the same staging ring).
+:class:`TieredIvfBq` tiers an IVF-BQ index's five record planes as one
+unit a list: :func:`search_bq` equals ``ivf_bq.search`` through the plain
+fused engine (the card's BQ kernel has no dual-source variant).
+:func:`from_numpy`, :func:`from_numpy_pq` and :func:`from_numpy_bq` carry
+a JAX-built index across with a given split.
+
 A placement epoch (:mod:`raft_tpu_torch.serving.placement`) only permutes
 which lists occupy the fixed hot slots: :func:`apply_plan` swaps blocks
-between the tiers, updating the hot plane and the cold plane **in place**
-(``index_copy_`` and per-block copies on the current stream; the JAX
-package donates its buffers for the same effect), replaces the slot maps
-and bumps ``generation`` under the container's swap lock. The container
-is mutable for that reason, unlike the frozen index dataclasses.
+between the tiers for every plane pair of the family, updating the hot
+planes and the cold planes **in place** (``index_copy_`` and per-block
+copies on the current stream; the JAX package donates its buffers for the
+same effect), replaces the slot maps and bumps ``generation`` under the
+container's swap lock, after the serving executor's lock when it is
+given one. The containers are mutable for that reason, unlike the frozen
+index dataclasses.
 
-The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
-both run :func:`_tiered_search_fn` as :func:`serving_plan` sets it up,
-one placement generation a dispatch, and its ragged plans
-:func:`_tiered_search_ragged_fn`, the same body with a per-row probe
-budget; the executor runs both eagerly on the card (the staging plan is
-read on the host). Not ported yet: the PQ and BQ tiered families and the
-executor hook of ``apply_plan`` (they wait for IVF-PQ).
+The executor (:mod:`raft_tpu_torch.core.executor`) and the searches run
+each family's body as its serving plan sets it up (:func:`serving_plan`,
+:func:`serving_plan_pq`, :func:`serving_plan_bq`), one placement
+generation a dispatch, and its ragged plans the same body with a per-row
+probe budget; the executor runs them eagerly on the card (the staging
+plan is read on the host).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Callable, Optional, Tuple
@@ -184,6 +196,106 @@ class TieredIvf(_TieredPlanes):
                     self.cold_slot_map)
 
 
+@dataclasses.dataclass
+class TieredIvfPq(_TieredPlanes):
+    """Hot/cold tiered IVF-PQ container: the codes plane, the only plane
+    of a PQ index that grows with the corpus, splits by list under
+    :class:`TieredIvf`'s fixed-slot contract. Centers, rotation,
+    codebooks, ids and list sizes stay resident, so coarse selection, the
+    LUT builds, membership masks and probe accounting are the all-device
+    index's and :func:`search_pq` returns ``ivf_pq.search``'s results bit
+    for bit."""
+
+    centers: torch.Tensor        # (n_lists, dim) f32, device
+    rotation: torch.Tensor       # (dim_ext, dim) f32
+    codebooks: torch.Tensor      # PQ codebooks, resident
+    indices: torch.Tensor        # (n_lists, max_list_size) int32, every list
+    list_sizes: torch.Tensor     # (n_lists,) int32
+    hot_codes: torch.Tensor      # (n_hot, max_list_size, row_bytes) u8, device
+    cold_codes: torch.Tensor     # (n_cold, max_list_size, row_bytes) u8, pinned
+    hot_slot_map: torch.Tensor   # guarded-by: _swap_lock
+    cold_slot_map: torch.Tensor  # guarded-by: _swap_lock
+    hot_lists: np.ndarray        # guarded-by: _swap_lock
+    cold_lists: np.ndarray       # guarded-by: _swap_lock
+    metric: DistanceType
+    codebook_kind: object        # ivf_pq.CodebookKind
+    pq_bits: int
+    packed: bool
+    host_resident: bool
+    generation: int = 0          # guarded-by: _swap_lock
+    # re-entrant, held by a search from its snapshot through its staged
+    # copies and launches (see TieredIvf)
+    _swap_lock: threading.RLock = dataclasses.field(
+        default_factory=threading.RLock, repr=False, compare=False)
+
+    _PLANE_PAIRS = (("hot_codes", "cold_codes"),)
+
+    @property
+    def pq_book_size(self) -> int:
+        return 1 << self.pq_bits
+
+    @property
+    def pq_len(self) -> int:
+        return self.codebooks.shape[2]
+
+    @property
+    def pq_dim(self) -> int:
+        d = self.hot_codes.shape[2]
+        return d * 2 if self.packed else d
+
+
+@dataclasses.dataclass
+class TieredIvfBq(_TieredPlanes):
+    """Hot/cold tiered IVF-BQ (RaBitQ) container: the five per-row record
+    planes (sign codes, residual norm, per-level scales, error weight and
+    the raw rerank vectors) tier as one unit per list, one slot decision
+    for all five, so an estimate and its rerank rows never come from
+    different tiers. Centers, rotation, ids and the norm plane stay
+    resident. Needs the rerank plane (``store_vectors=True``) and float32
+    vectors, as the JAX package does."""
+
+    centers: torch.Tensor        # (n_lists, dim) f32, device
+    rotation: torch.Tensor       # (dim_ext, dim) f32
+    indices: torch.Tensor        # (n_lists, max) int32, every list
+    list_sizes: torch.Tensor     # (n_lists,) int32
+    data_norms: torch.Tensor     # (n_lists, max) f32, resident
+    hot_codes: torch.Tensor      # (n_hot, max, bits * dim_ext / 32) int32
+    cold_codes: torch.Tensor
+    hot_rnorm: torch.Tensor      # (n_hot, max) f32
+    cold_rnorm: torch.Tensor
+    hot_cfac: torch.Tensor       # (n_hot, max, bits) f32
+    cold_cfac: torch.Tensor
+    hot_errw: torch.Tensor       # (n_hot, max) f32
+    cold_errw: torch.Tensor
+    hot_data: torch.Tensor       # (n_hot, max, dim) f32, the rerank rows
+    cold_data: torch.Tensor
+    hot_slot_map: torch.Tensor   # guarded-by: _swap_lock
+    cold_slot_map: torch.Tensor  # guarded-by: _swap_lock
+    hot_lists: np.ndarray        # guarded-by: _swap_lock
+    cold_lists: np.ndarray       # guarded-by: _swap_lock
+    metric: DistanceType
+    host_resident: bool
+    generation: int = 0          # guarded-by: _swap_lock
+    _swap_lock: threading.RLock = dataclasses.field(
+        default_factory=threading.RLock, repr=False, compare=False)
+
+    _PLANE_PAIRS = (
+        ("hot_codes", "cold_codes"),
+        ("hot_rnorm", "cold_rnorm"),
+        ("hot_cfac", "cold_cfac"),
+        ("hot_errw", "cold_errw"),
+        ("hot_data", "cold_data"),
+    )
+
+    @property
+    def dim_ext(self) -> int:
+        return self.rotation.shape[0]
+
+    @property
+    def bits(self) -> int:
+        return self.hot_cfac.shape[2]
+
+
 def host_put(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """Commit ``x`` to pinned host memory; returns ``(tensor,
     host_resident)``. A CUDA tensor is copied into page-locked memory
@@ -245,26 +357,47 @@ def _split_lists(n_lists: int, h: int, probe_counts):
     return np.sort(order[:h]), np.sort(order[h:])
 
 
-def _place(index: IvfFlatIndex, hot_lists, cold_lists) -> TieredIvf:
-    """Split ``index``'s vector plane: the hot lists' blocks stay on the
-    index's device, the cold lists' blocks go to pinned host memory (their
-    device copy is freed once pinned)."""
-    expect(index.data.dtype == torch.float32,
-           "tiered storage supports f32 list data only")
-    n_lists = index.n_lists
+def _block_bytes(planes) -> int:
+    """Bytes of one list's block across ``planes`` (each (n_lists, ...))."""
+    return sum(int(np.prod(p.shape[1:])) * p.element_size() for p in planes)
+
+
+def _tier_place(planes, hot_lists, cold_lists, what: str):
+    """Split each full ``(n_lists, ...)`` plane by list: the hot lists'
+    blocks stay on the plane's device, the cold lists' blocks go to pinned
+    host memory (:func:`host_put`; their device copy is freed once
+    pinned). Returns ``(hot_lists, cold_lists, hot_planes, cold_planes,
+    hot_slot_map, cold_slot_map, host_resident)``; the hot bytes pass the
+    capacity gate first."""
+    n_lists = planes[0].shape[0]
     hot_lists = np.asarray(hot_lists, np.int32)
     cold_lists = np.asarray(cold_lists, np.int32)
     expect(np.array_equal(np.sort(np.concatenate([hot_lists, cold_lists])),
                           np.arange(n_lists)),
            "every list must be in exactly one tier")
-    dev = index.data.device
-    block = index.max_list_size * index.dim * index.data.element_size()
-    memwatch.admit(len(hot_lists) * block, "tiered.build_tiered")
-    hot_data = index.data.index_select(
-        0, torch.from_numpy(hot_lists.astype(np.int64)).to(dev))
-    cold_data, host_resident = host_put(index.data.index_select(
-        0, torch.from_numpy(cold_lists.astype(np.int64)).to(dev)))
+    dev = planes[0].device
+    memwatch.admit(len(hot_lists) * _block_bytes(planes), what)
+    hl = torch.from_numpy(hot_lists.astype(np.int64)).to(dev)
+    cl = torch.from_numpy(cold_lists.astype(np.int64)).to(dev)
+    hots = tuple(p.index_select(0, hl) for p in planes)
+    colds, resident = [], True
+    for p in planes:
+        cold, hr = host_put(p.index_select(0, cl))
+        colds.append(cold)
+        resident = resident and hr
     hot_map, cold_map = _slot_maps(hot_lists, cold_lists, n_lists)
+    return (hot_lists, cold_lists, hots, tuple(colds),
+            torch.from_numpy(hot_map).to(dev),
+            torch.from_numpy(cold_map).to(dev), resident)
+
+
+def _place(index: IvfFlatIndex, hot_lists, cold_lists) -> TieredIvf:
+    """Split ``index``'s vector plane into the two tiers."""
+    expect(index.data.dtype == torch.float32,
+           "tiered storage supports f32 list data only")
+    hot_lists, cold_lists, (hot_data,), (cold_data,), hot_map, cold_map, \
+        host_resident = _tier_place((index.data,), hot_lists, cold_lists,
+                                    "tiered.build_tiered")
     return TieredIvf(
         centers=index.centers,
         center_norms=index.center_norms,
@@ -273,13 +406,57 @@ def _place(index: IvfFlatIndex, hot_lists, cold_lists) -> TieredIvf:
         list_sizes=index.list_sizes,
         hot_data=hot_data,
         cold_data=cold_data,
-        hot_slot_map=torch.from_numpy(hot_map).to(dev),
-        cold_slot_map=torch.from_numpy(cold_map).to(dev),
+        hot_slot_map=hot_map,
+        cold_slot_map=cold_map,
         hot_lists=hot_lists,
         cold_lists=cold_lists,
         metric=index.metric,
         host_resident=host_resident,
     )
+
+
+def _place_pq(index, hot_lists, cold_lists) -> TieredIvfPq:
+    """Split an IVF-PQ index's codes plane into the two tiers."""
+    hot_lists, cold_lists, (hot_codes,), (cold_codes,), hot_map, cold_map, \
+        host_resident = _tier_place((index.codes,), hot_lists, cold_lists,
+                                    "tiered.build_tiered_pq")
+    return TieredIvfPq(
+        centers=index.centers, rotation=index.rotation,
+        codebooks=index.codebooks, indices=index.indices,
+        list_sizes=index.list_sizes, hot_codes=hot_codes,
+        cold_codes=cold_codes, hot_slot_map=hot_map, cold_slot_map=cold_map,
+        hot_lists=hot_lists, cold_lists=cold_lists, metric=index.metric,
+        codebook_kind=index.codebook_kind, pq_bits=index.pq_bits,
+        packed=index.packed, host_resident=host_resident)
+
+
+def _bq_planes(index) -> tuple:
+    expect(index.data is not None and index.data_norms is not None,
+           "tiered BQ needs the re-rank plane (build with "
+           "store_vectors=True)")
+    expect(index.data.dtype == torch.float32,
+           "tiered storage supports f32 list data only")
+    return (index.codes, index.rnorm, index.cfac, index.errw, index.data)
+
+
+def _place_bq(index, hot_lists, cold_lists) -> TieredIvfBq:
+    """Split an IVF-BQ index's five record planes into the two tiers, one
+    slot decision a list for all five."""
+    hot_lists, cold_lists, hots, colds, hot_map, cold_map, host_resident = \
+        _tier_place(_bq_planes(index), hot_lists, cold_lists,
+                    "tiered.build_tiered_bq")
+    return TieredIvfBq(
+        centers=index.centers, rotation=index.rotation,
+        indices=index.indices, list_sizes=index.list_sizes,
+        data_norms=index.data_norms,
+        hot_codes=hots[0], cold_codes=colds[0],
+        hot_rnorm=hots[1], cold_rnorm=colds[1],
+        hot_cfac=hots[2], cold_cfac=colds[2],
+        hot_errw=hots[3], cold_errw=colds[3],
+        hot_data=hots[4], cold_data=colds[4],
+        hot_slot_map=hot_map, cold_slot_map=cold_map,
+        hot_lists=hot_lists, cold_lists=cold_lists, metric=index.metric,
+        host_resident=host_resident)
 
 
 def build_tiered(index: IvfFlatIndex, *, hot_slots=None,
@@ -312,6 +489,63 @@ def from_numpy(index_fields: dict, hot_lists, cold_lists,
                   cold_lists)
 
 
+def build_tiered_pq(index, *, hot_slots=None, hot_fraction: float = 0.5,
+                    ledger=None, safety_fraction: float = 0.1,
+                    probe_counts=None) -> TieredIvfPq:
+    """Split a built :class:`~raft_tpu_torch.neighbors.ivf_pq.IvfPqIndex`
+    into the tiered layout (:func:`build_tiered`'s contract), tiering the
+    codes plane. The hot-slot budget prices a list block at its codes
+    bytes, so a ledger-sized hot tier holds the compression ratio more
+    lists than the flat family's at the same headroom."""
+    expect(index.max_list_size > 0, "index is empty — extend() it first")
+    h = resolve_hot_slots(index, hot_slots=hot_slots,
+                          hot_fraction=hot_fraction, ledger=ledger,
+                          safety_fraction=safety_fraction,
+                          block_bytes=_block_bytes((index.codes,)))
+    hot_lists, cold_lists = _split_lists(index.n_lists, h, probe_counts)
+    return _place_pq(index, hot_lists, cold_lists)
+
+
+def build_tiered_bq(index, *, hot_slots=None, hot_fraction: float = 0.5,
+                    ledger=None, safety_fraction: float = 0.1,
+                    probe_counts=None) -> TieredIvfBq:
+    """Split a built :class:`~raft_tpu_torch.neighbors.ivf_bq.IvfBqIndex`
+    into the tiered layout: the five record planes move as one unit per
+    list (:class:`TieredIvfBq`), priced at their summed bytes. Needs the
+    rerank plane and float32 vectors."""
+    expect(index.max_list_size > 0, "index is empty — extend() it first")
+    h = resolve_hot_slots(index, hot_slots=hot_slots,
+                          hot_fraction=hot_fraction, ledger=ledger,
+                          safety_fraction=safety_fraction,
+                          block_bytes=_block_bytes(_bq_planes(index)))
+    hot_lists, cold_lists = _split_lists(index.n_lists, h, probe_counts)
+    return _place_bq(index, hot_lists, cold_lists)
+
+
+def from_numpy_pq(index_fields: dict, hot_lists, cold_lists,
+                  res: Optional[Resources] = None) -> TieredIvfPq:
+    """:func:`from_numpy` for IVF-PQ: ``index_fields`` are
+    :func:`raft_tpu_torch.neighbors.ivf_pq.from_numpy`'s arguments (a
+    JAX-built index's ``centers``, ``rotation``, ``codebooks``, ``codes``,
+    ``indices``, ``list_sizes`` and its metric, codebook kind, bits and
+    packing), split by ``hot_lists`` / ``cold_lists`` in slot order."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    return _place_pq(ivf_pq.from_numpy(**index_fields, res=res), hot_lists,
+                     cold_lists)
+
+
+def from_numpy_bq(index_fields: dict, hot_lists, cold_lists,
+                  res: Optional[Resources] = None) -> TieredIvfBq:
+    """:func:`from_numpy` for IVF-BQ: ``index_fields`` are
+    :func:`raft_tpu_torch.neighbors.ivf_bq.from_numpy`'s arguments, the
+    ``data`` plane among them."""
+    from raft_tpu_torch.neighbors import ivf_bq
+
+    return _place_bq(ivf_bq.from_numpy(**index_fields, res=res), hot_lists,
+                     cold_lists)
+
+
 # ---------------------------------------------------------------------------
 # placement execution
 # ---------------------------------------------------------------------------
@@ -337,7 +571,7 @@ def _promote_blocks(cold_plane, cold_slots, device, staged=None,
     return out, sum(r < 0 for r in rows)
 
 
-def apply_plan(tiered, promotions, demotions, width: int,
+def apply_plan(tiered, promotions, demotions, width: int, executor=None,
                staged=None) -> int:
     """Execute a placement plan in place: ``promotions[i]`` (a cold list)
     takes the hot slot ``demotions[i]`` (a hot list) frees, which takes
@@ -355,7 +589,15 @@ def apply_plan(tiered, promotions, demotions, width: int,
     promotion blocks already in device memory: ``rows`` (a staged row per
     promotion, -1 for a miss) and ``planes`` (hot plane name -> staged
     (K, ...) storage); only misses count into
-    ``tier.promote_cold_bytes``."""
+    ``tier.promote_cold_bytes``.
+
+    Any tiered family: the plane pairs come from ``_PLANE_PAIRS`` (flat:
+    the vectors; PQ: the codes; BQ: all five record planes under one slot
+    decision). With the serving ``executor`` (the ``TierManager`` passes
+    it) the swap runs under the executor's lock, then the swap lock, the
+    order its dispatches take them in (``SearchExecutor._dispatch_lock``):
+    no dispatch interleaves with a swap, and each serves one placement
+    generation."""
     n = len(promotions)
     expect(n == len(demotions), "promotions/demotions must pair up")
     expect(n <= width, f"plan has {n} swaps, width is {width}")
@@ -364,7 +606,9 @@ def apply_plan(tiered, promotions, demotions, width: int,
     promo = np.asarray(promotions, np.int32)
     demo = np.asarray(demotions, np.int32)
     misses = 0
-    with tiered._swap_lock:
+    ex_lock = (getattr(executor, "_lock", None) if executor is not None
+               else None)
+    with ex_lock or contextlib.nullcontext(), tiered._swap_lock:
         hot_map, cold_map = _slot_maps(tiered.hot_lists, tiered.cold_lists,
                                        tiered.n_lists)
         hot_slots = hot_map[demo]
@@ -502,6 +746,198 @@ def search(res: Optional[Resources], params: TieredSearchParams,
     and its results bit for bit on the same lists: (distances, indices)
     of shape (q, k), index -1 where no probed candidate filled a slot.
     One placement generation serves the whole call."""
+    return _search_family(
+        res, tiered, queries, k, sample_filter, query_tile,
+        lambda r, fw: serving_plan(params, tiered, k, fw,
+                                   r.workspace_limit_bytes),
+        "raft_tpu.tiered.search")
+
+
+# ---------------------------------------------------------------------------
+# the compressed families
+# ---------------------------------------------------------------------------
+
+
+def _tiered_pq_search_fn(queries, centers, rotation, codebooks, hot_codes,
+                         cold_codes, hot_slot_map, cold_slot_map, indices,
+                         filter_words, probe_counts=None, n_valid=None,
+                         row_probes=None, *, n_probes: int, k: int,
+                         metric: DistanceType, codebook_kind, lut_dtype,
+                         score_mode: str = "gather", packed: bool = False,
+                         coarse_algo: str = "exact",
+                         scan_engine: str = "torch",
+                         workspace_bytes: Optional[int] = None):
+    """The tiered IVF-PQ serving body, over one placement generation's
+    arrays: :func:`raft_tpu_torch.neighbors.ivf_pq._search_impl_fn` with
+    the codes plane split, so coarse select, residuals, LUTs, sums and
+    merge are the all-device body's and only the per-list code fetch
+    steers through the slot maps (the plain engine's
+    ``tier_block_select``, the kernel's staged dual-source fetch). The
+    results equal the all-device index's bit for bit. The caller holds
+    the container's swap lock through the call; the kernel's staging
+    plan is read on the host, so the executor runs it eagerly."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    return ivf_pq._search_impl_fn(
+        queries, centers, rotation, codebooks, hot_codes, indices,
+        filter_words, probe_counts, n_valid, row_probes, cold_codes,
+        hot_slot_map, cold_slot_map, n_probes=n_probes, k=k, metric=metric,
+        codebook_kind=codebook_kind, lut_dtype=lut_dtype,
+        score_mode=score_mode, packed=packed, coarse_algo=coarse_algo,
+        scan_engine=scan_engine, workspace_bytes=workspace_bytes)
+
+
+def _tiered_pq_search_ragged_fn(queries, row_probes, centers, rotation,
+                                codebooks, hot_codes, cold_codes,
+                                hot_slot_map, cold_slot_map, indices,
+                                filter_words, probe_counts=None,
+                                n_valid=None, *, n_probes: int, k: int,
+                                metric: DistanceType, codebook_kind,
+                                lut_dtype, score_mode: str = "gather",
+                                packed: bool = False,
+                                scan_engine: str = "torch",
+                                workspace_bytes: Optional[int] = None):
+    """The ragged tiered IVF-PQ body (:func:`_tiered_search_ragged_fn`'s
+    contract): :func:`_tiered_pq_search_fn` with each packed row's probe
+    budget, list-major engines only."""
+    del n_valid
+    expect(scan_engine in ("cuda", "torch"),
+           "ragged tiered PQ serving needs a list-major engine, got "
+           f"{scan_engine!r}")
+    return _tiered_pq_search_fn(
+        queries, centers, rotation, codebooks, hot_codes, cold_codes,
+        hot_slot_map, cold_slot_map, indices, filter_words, probe_counts,
+        None, row_probes, n_probes=n_probes, k=k, metric=metric,
+        codebook_kind=codebook_kind, lut_dtype=lut_dtype,
+        score_mode=score_mode, packed=packed, coarse_algo="exact",
+        scan_engine=scan_engine, workspace_bytes=workspace_bytes)
+
+
+def _tiered_bq_search_fn(queries, centers, rotation, hot_codes, hot_rnorm,
+                         hot_cfac, hot_errw, hot_data, cold_codes,
+                         cold_rnorm, cold_cfac, cold_errw, cold_data,
+                         hot_slot_map, cold_slot_map, indices, data_norms,
+                         filter_words, probe_counts=None, n_valid=None,
+                         row_probes=None, *, n_probes: int, k: int,
+                         metric: DistanceType, coarse_algo: str = "exact",
+                         scan_engine: str = "torch", epsilon: float = 3.0,
+                         query_bits: int = 0):
+    """The tiered IVF-BQ serving body:
+    :func:`raft_tpu_torch.neighbors.ivf_bq._search_impl_fn` with the five
+    cold record planes live (one slot decision a list covers the
+    estimate planes and the rerank rows): the same estimates, prune
+    decisions and exact reranks, so the results equal the all-device
+    index's bit for bit. The plain fused engine only
+    (:func:`~raft_tpu_torch.ops.tier_scan.resolve_tier_bq_engine`)."""
+    from raft_tpu_torch.neighbors import ivf_bq
+
+    return ivf_bq._search_impl_fn(
+        queries, centers, rotation, hot_codes, hot_rnorm, hot_cfac,
+        hot_errw, indices, hot_data, data_norms, filter_words, probe_counts,
+        n_valid, row_probes,
+        (cold_codes, cold_rnorm, cold_cfac, cold_errw, cold_data),
+        hot_slot_map, cold_slot_map, n_probes=n_probes, k=k, metric=metric,
+        coarse_algo=coarse_algo, scan_engine=scan_engine, epsilon=epsilon,
+        query_bits=query_bits)
+
+
+def _tiered_bq_search_ragged_fn(queries, row_probes, centers, rotation,
+                                hot_codes, hot_rnorm, hot_cfac, hot_errw,
+                                hot_data, cold_codes, cold_rnorm, cold_cfac,
+                                cold_errw, cold_data, hot_slot_map,
+                                cold_slot_map, indices, data_norms,
+                                filter_words, probe_counts=None,
+                                n_valid=None, *, n_probes: int, k: int,
+                                metric: DistanceType,
+                                scan_engine: str = "torch",
+                                epsilon: float = 3.0, query_bits: int = 0):
+    """The ragged tiered IVF-BQ body (:func:`_tiered_search_ragged_fn`'s
+    contract; the prune compares each row with its own k-th distance)."""
+    del n_valid
+    expect(scan_engine == "torch",
+           "ragged tiered BQ serving rides the plain fused engine, got "
+           f"{scan_engine!r}")
+    return _tiered_bq_search_fn(
+        queries, centers, rotation, hot_codes, hot_rnorm, hot_cfac,
+        hot_errw, hot_data, cold_codes, cold_rnorm, cold_cfac, cold_errw,
+        cold_data, hot_slot_map, cold_slot_map, indices, data_norms,
+        filter_words, probe_counts, None, row_probes, n_probes=n_probes,
+        k=k, metric=metric, coarse_algo="exact", scan_engine=scan_engine,
+        epsilon=epsilon, query_bits=query_bits)
+
+
+def serving_plan_pq(params, tiered: TieredIvfPq, k: int, filter_words=None,
+                    workspace_bytes: Optional[int] = None
+                    ) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)`` of a tiered IVF-PQ search (the contract of
+    :func:`serving_plan`) with
+    :class:`~raft_tpu_torch.neighbors.ivf_pq.IvfPqSearchParams`. The engine
+    is :func:`~raft_tpu_torch.ops.tier_scan.resolve_tier_pq_engine`'s: the
+    dual-source kernel for a hot tier on the card."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops.ivf_pq_scan import LUT_DTYPES
+    from raft_tpu_torch.ops.tier_scan import resolve_tier_pq_engine
+
+    del filter_words      # the kernel takes shared and per-query filters
+    expect(tiered.max_list_size > 0, "tiered index is empty")
+    expect(params.coarse_algo in ("exact", "approx"),
+           f"coarse_algo must be 'exact' or 'approx', got "
+           f"{params.coarse_algo!r}")
+    expect(params.lut_dtype in LUT_DTYPES,
+           f"lut_dtype must be float32/bfloat16/float8_e4m3fn/float8_e5m2, "
+           f"got {params.lut_dtype}")
+    score_mode = ivf_pq.resolve_score_mode(params.score_mode,
+                                           tiered.pq_book_size)
+    (hot_codes,), (cold_codes,), hot_map, cold_map, _ = tiered.tier_planes()
+    engine = resolve_tier_pq_engine(params.scan_engine, hot_codes=hot_codes,
+                                    k=k)
+    expect(engine != "cuda" or score_mode == "gather",
+           f"scan_engine='cuda' scores by gather; score_mode "
+           f"{params.score_mode!r} is a plain formulation (use 'torch')")
+    static = {"n_probes": min(params.n_probes, tiered.n_lists), "k": k,
+              "metric": tiered.metric,
+              "codebook_kind": tiered.codebook_kind,
+              "lut_dtype": params.lut_dtype, "score_mode": score_mode,
+              "packed": tiered.packed, "coarse_algo": params.coarse_algo,
+              "scan_engine": engine, "workspace_bytes": workspace_bytes}
+    arrays = (tiered.centers, tiered.rotation, tiered.codebooks, hot_codes,
+              cold_codes, hot_map, cold_map, tiered.indices)
+    return _tiered_pq_search_fn, arrays, static
+
+
+def serving_plan_bq(params, tiered: TieredIvfBq, k: int, filter_words=None
+                    ) -> Tuple[Callable, tuple, dict]:
+    """``(fn, arrays, static)`` of a tiered IVF-BQ search with
+    :class:`~raft_tpu_torch.neighbors.ivf_bq.IvfBqSearchParams`: the
+    plain fused engine (:func:`~raft_tpu_torch.ops.tier_scan
+    .resolve_tier_bq_engine`), exact distances."""
+    from raft_tpu_torch.ops.bq_scan import auto_query_bits
+    from raft_tpu_torch.ops.tier_scan import resolve_tier_bq_engine
+
+    del filter_words       # the plain engine takes both filter kinds
+    expect(tiered.max_list_size > 0, "tiered index is empty")
+    expect(params.coarse_algo in ("exact", "approx"),
+           f"coarse_algo must be 'exact' or 'approx', got "
+           f"{params.coarse_algo!r}")
+    expect(params.query_bits == 0 or 1 <= params.query_bits <= 8,
+           f"query_bits must be 0 (auto) or 1..8, got {params.query_bits}")
+    engine = resolve_tier_bq_engine(params.scan_engine)
+    hots, colds, hot_map, cold_map, _ = tiered.tier_planes()
+    static = {"n_probes": min(params.n_probes, tiered.n_lists), "k": k,
+              "metric": tiered.metric, "coarse_algo": params.coarse_algo,
+              "scan_engine": engine, "epsilon": params.epsilon,
+              "query_bits": params.query_bits or auto_query_bits(
+                  tiered.bits)}
+    arrays = ((tiered.centers, tiered.rotation) + hots + colds
+              + (hot_map, cold_map, tiered.indices, tiered.data_norms))
+    return _tiered_bq_search_fn, arrays, static
+
+
+def _search_family(res, tiered, queries, k, sample_filter, query_tile,
+                   plan, what: str):
+    """One search of any tiered family: ``plan(res, filter_words)`` gives
+    the family's ``(fn, arrays, static)`` under the swap lock, which the
+    whole call holds (one placement generation)."""
     res = ensure_resources(res)
     queries = res.put(queries)
     expect(queries.ndim == 2 and queries.shape[1] == tiered.dim,
@@ -510,9 +946,38 @@ def search(res: Optional[Resources], params: TieredSearchParams,
     if filter_words is not None:
         filter_words = filter_words.to(res.device)
     with tiered._swap_lock:
-        fn, arrays, static = serving_plan(params, tiered, k, filter_words,
-                                          res.workspace_limit_bytes)
-        with tracing.range("raft_tpu.tiered.search"):
+        fn, arrays, static = plan(res, filter_words)
+        with tracing.range(what):
             return tile_queries(
                 lambda qt, fw: fn(qt, *arrays, fw, **static), queries,
                 filter_words, query_tile)
+
+
+def search_pq(res: Optional[Resources], params, tiered: TieredIvfPq,
+              queries, k: int, sample_filter=None, query_tile: int = 4096
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ANN search over the tiered IVF-PQ index — ``ivf_pq.search``'s
+    contract with :class:`~raft_tpu_torch.neighbors.ivf_pq
+    .IvfPqSearchParams`, and its results bit for bit on the same lists.
+    ``scan_engine``: ``auto`` (the dual-source kernel on the card, the
+    plain engine on the CPU), ``cuda`` or ``torch``; ``rank`` raises.
+    One placement generation serves the whole call."""
+    return _search_family(
+        res, tiered, queries, k, sample_filter, query_tile,
+        lambda r, fw: serving_plan_pq(params, tiered, k, fw,
+                                      r.workspace_limit_bytes),
+        "raft_tpu.tiered.search_pq")
+
+
+def search_bq(res: Optional[Resources], params, tiered: TieredIvfBq,
+              queries, k: int, sample_filter=None, query_tile: int = 4096
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ANN search over the tiered IVF-BQ index — ``ivf_bq.search``'s
+    contract with :class:`~raft_tpu_torch.neighbors.ivf_bq
+    .IvfBqSearchParams` on a store-vectors index, and its results bit for
+    bit: exact distances from the plain fused engine, each probed list's
+    five record planes taken from its tier."""
+    return _search_family(
+        res, tiered, queries, k, sample_filter, query_tile,
+        lambda r, fw: serving_plan_bq(params, tiered, k, fw),
+        "raft_tpu.tiered.search_bq")

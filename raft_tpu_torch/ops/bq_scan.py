@@ -310,8 +310,10 @@ def unpack_bq_records(records: torch.Tensor, n: int, words: int, bits: int):
 
 def bq_list_major_scan(qf, qrot, centers_rot, codes, rnorm, cfac, errw,
                        indices, data, data_norms, probes, filter_words=None,
-                       *, k: int, metric: DistanceType, epsilon: float,
-                       engine: str = "torch", query_bits: int = _QUERY_BITS):
+                       cold_planes=None, hot_slot_map=None,
+                       cold_slot_map=None, *, k: int, metric: DistanceType,
+                       epsilon: float, engine: str = "torch",
+                       query_bits: int = _QUERY_BITS):
     """Run the fused estimate-then-rerank scan. Returns ``(best_d,
     best_i, survivors)``: the (q, k) top-k with **exact** distances
     (full squared L2 with +inf pads, or raw inner products with -inf
@@ -319,7 +321,17 @@ def bq_list_major_scan(qf, qrot, centers_rot, codes, rnorm, cfac, errw,
     rows each query reranked. Probe slots holding the sentinel
     ``n_lists`` are ignored, and a repeated probe counts once.
     ``engine`` is resolved (``cuda`` or ``torch``); CPU tensors always
-    take the plain engine."""
+    take the plain engine.
+
+    ``cold_planes`` (a tiered index, :class:`~raft_tpu_torch.neighbors
+    .tiered.TieredIvfBq`) holds the cold halves ``(codes, rnorm, cfac,
+    errw, data)`` of the five record planes, whose hot halves are then
+    the arguments of the same names; each step takes all five planes of
+    its list from one tier through one ``(hot_slot_map, cold_slot_map)``
+    pair, so an estimate and its rerank rows never split across tiers.
+    The plain engine only: the kernel has no dual-source variant
+    (``resolve_tier_bq_engine`` resolves tiered searches to ``torch``
+    before any launch), and the wrapper refuses ``cuda`` with them."""
     expect(engine in ("cuda", "torch"),
            f"bq_list_major_scan engine must be cuda|torch, got {engine!r}")
     expect(data is not None and data_norms is not None,
@@ -328,6 +340,15 @@ def bq_list_major_scan(qf, qrot, centers_rot, codes, rnorm, cfac, errw,
     args = (qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices, data,
             data_norms, probes, filter_words)
     kw = dict(k=k, metric=metric, epsilon=epsilon, query_bits=query_bits)
+    if cold_planes is not None:
+        expect(engine == "torch",
+               "tiered BQ record planes need the plain fused engine "
+               "(resolve_tier_bq_engine): the kernel has no dual-source "
+               "variant")
+        expect(hot_slot_map is not None and cold_slot_map is not None,
+               "tiered BQ record planes need both slot maps")
+        return _bq_scan_torch(*args, **kw, tier=(cold_planes, hot_slot_map,
+                                                  cold_slot_map))
     if engine == "torch" or data.device.type == "cpu":
         return _bq_scan_torch(*args, **kw)
     return _bq_scan_cuda(*args, **kw)
@@ -341,10 +362,13 @@ def bq_list_major_scan(qf, qrot, centers_rot, codes, rnorm, cfac, errw,
 def _bq_scan_torch(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
                    data, data_norms, probes, filter_words, *, k: int,
                    metric: DistanceType, epsilon: float, query_bits: int,
-                   rows_read=None):
+                   rows_read=None, tier=None):
     """The plain engine. ``rows_read``, an optional (n_lists, m) bool
     tensor, gets every slot that some query reranked set: the rows of
-    the vector plane the scan must read."""
+    the vector plane the scan must read. With ``tier`` (the cold record
+    planes, the hot and cold slot maps) each list's five record planes
+    come from its tier, one block of each per probed list and request,
+    copied to the queries' device when cold."""
     q = qf.shape[0]
     n_lists = indices.shape[0]
     dim_ext = centers_rot.shape[1]
@@ -362,12 +386,28 @@ def _bq_scan_torch(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
     best_d = qf.new_full((q, k), float("inf"))
     best_i = torch.full((q, k), -1, dtype=torch.int32, device=qf.device)
     survivors = torch.zeros((q,), dtype=torch.int64, device=qf.device)
+    hot = (codes, rnorm, cfac, errw, data)
+    if tier is not None:
+        from raft_tpu_torch.ops.tier_scan import (
+            tier_block_select,
+            tier_slot_pair,
+        )
+
+        cold = tier[0]
+        hot_map, cold_map = tier[1].tolist(), tier[2].tolist()
     for j, lid in enumerate(uniq.tolist()):
         if lid >= n_lists:          # sentinel steps match no query
             continue
+        if tier is None:
+            l_codes, l_rnorm, l_cfac, l_errw, l_data = (p[lid] for p in hot)
+        else:
+            # one slot decision for all five planes of the list
+            hs, cs = tier_slot_pair(hot_map, cold_map, lid)
+            l_codes, l_rnorm, l_cfac, l_errw, l_data = (
+                tier_block_select(h, c, hs, cs) for h, c in zip(hot, cold))
         est, margin = _block_estimate(
             qrot, centers_rot[lid:lid + 1].to(torch.float32),
-            rnorm[lid][None, :], errw[lid][None, :], cfac[lid].T, codes[lid],
+            l_rnorm[None, :], l_errw[None, :], l_cfac.T, l_codes,
             dim_ext=dim_ext, bits=bits, query_bits=query_bits,
             epsilon=epsilon, ip_metric=ip_metric)
         ids_b = ids_g[j][None, :].expand(q, -1)
@@ -386,7 +426,7 @@ def _bq_scan_torch(qf, qrot, centers_rot, codes, rnorm, cfac, errw, indices,
         # exact distances of the survivors only, each dot product a
         # tree_sum of rounded products (no matmul: its order is its own)
         qi, ri = torch.nonzero(cand, as_tuple=True)
-        dot = tree_sum(qf[qi] * data[lid][ri].to(torch.float32))
+        dot = tree_sum(qf[qi] * l_data[ri].to(torch.float32))
         if ip_metric:
             pair = -dot
         else:

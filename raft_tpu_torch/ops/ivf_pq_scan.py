@@ -28,7 +28,13 @@ them (:func:`dedup_slots` makes hand-built slots so).
   last launch merges each query's partial lists. A table too large for
   the block (gist-960's pq_dim 240 in fp32) takes a per-pair instance
   that builds it in parts keeping the order of the sum. The C entry alone
-  decides whether a shape fits, and a shape that does not raises.
+  decides whether a shape fits, and a shape that does not raises. A
+  tiered index's cold code lists (pinned host memory) are staged first:
+  ``_launch_tiered`` plans a device ring with the tiered IVF-Flat scan's
+  ``tier_stage_plan`` and the library's tiered entry copies each probed
+  cold list once, then launches the hot lists and each wave after its
+  copies, every block reading its list's rows through a per-list table
+  (counters ``tier.{cold_bytes_staged,cold_lists_staged,stage_waves}``).
 - ``torch``: the plain version, the twin of the JAX ``xla`` engine: a
   loop over the probed-list union that builds every query's LUT for the
   list, gathers, sums and merges by ``_merge_smallest_id``. CPU tensors
@@ -48,6 +54,9 @@ rounded, and an fp8 IP score's ``Σ * scale + q·c`` one fused multiply-add
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from raft_tpu_torch.core.validation import expect
@@ -215,9 +224,11 @@ def unpack_codes(rows: torch.Tensor, packed: bool) -> torch.Tensor:
 
 
 def ivf_pq_scan(qres, base, codebooks, cb_norms, codes, indices, probes,
-                filter_words=None, *, k: int, ip_metric: bool,
+                filter_words=None, cold_codes=None, hot_slot_map=None,
+                cold_slot_map=None, *, k: int, ip_metric: bool,
                 per_cluster: bool, lut_dtype, packed: bool,
-                engine: str = "torch", score=None):
+                engine: str = "torch", score=None,
+                workspace_bytes: Optional[int] = None):
     """The LUT scan of every query's probed lists. Returns ``(best_d,
     best_i)`` (q, k) float32 and int32 (see the module docstring).
 
@@ -230,30 +241,58 @@ def ivf_pq_scan(qres, base, codebooks, cb_norms, codes, indices, probes,
     n_lists]``, no list twice in a row (the module docstring). ``engine`` is
     resolved (``cuda`` or ``torch``); CPU tensors take the plain version.
     ``score`` is the plain engine's scoring formulation (the gather by
-    default; the kernel computes the gather)."""
+    default; the kernel computes the gather).
+
+    A tiered index passes ``cold_codes`` (n_cold, m, row_bytes), with
+    ``codes`` its hot plane (n_hot, m, row_bytes) and the (n_lists,)
+    ``hot_slot_map`` / ``cold_slot_map`` (each list's slot in its tier, -1
+    in the other): each probed list's code rows come from its tier
+    (:func:`~raft_tpu_torch.ops.tier_scan.tier_block_select` in the plain
+    version; in the kernel's, a per-list table into the hot plane or a
+    staging ring of ``workspace_bytes``, ``Resources.workspace_limit_bytes``
+    by default, that each probed cold list is copied into once, from
+    pinned host memory). The results equal the all-device scan's."""
     expect(engine in ("cuda", "torch"),
            f"ivf_pq_scan engine must be cuda|torch, got {engine!r}")
+    tier = None
+    if cold_codes is not None:
+        expect(hot_slot_map is not None and cold_slot_map is not None,
+               "ivf_pq_scan: tiered codes need both slot maps")
+        tier = (cold_codes, hot_slot_map, cold_slot_map)
     if engine == "torch" or codes.device.type == "cpu":
         return _scan_torch(qres, base, codebooks, cb_norms, codes, indices,
                            probes, filter_words, k=k, ip_metric=ip_metric,
                            per_cluster=per_cluster, lut_dtype=lut_dtype,
-                           packed=packed, score=score or _score_gather)
+                           packed=packed, score=score or _score_gather,
+                           tier=tier)
     expect(score is None or score is _score_gather,
            "ivf_pq_scan: the kernel computes the gather formulation")
     return _scan_cuda(qres, base, codebooks, cb_norms, codes, indices,
                       probes, filter_words, k=k, ip_metric=ip_metric,
                       per_cluster=per_cluster, lut_dtype=lut_dtype,
-                      packed=packed)
+                      packed=packed, tier=tier,
+                      workspace_bytes=workspace_bytes)
 
 
 def _scan_torch(qres, base, codebooks, cb_norms, codes, indices, probes,
                 filter_words, *, k: int, ip_metric: bool, per_cluster: bool,
-                lut_dtype, packed: bool, score):
-    """The plain list-major twin: one step a list of the probed union."""
+                lut_dtype, packed: bool, score, tier=None):
+    """The plain list-major twin: one step a list of the probed union.
+    With ``tier`` (cold codes, hot and cold slot maps) each list's code
+    rows come from its tier, the one divergence from the all-device
+    twin."""
     q, p = probes.shape
     n_lists = indices.shape[0]
     L = codebooks.shape[2]
     dev = codes.device
+    if tier is not None:
+        from raft_tpu_torch.ops.tier_scan import (
+            tier_block_select,
+            tier_slot_pair,
+        )
+
+        cold_codes = tier[0]
+        hot_map, cold_map = tier[1].tolist(), tier[2].tolist()
     qidx = torch.arange(q, device=dev)
     best_d = torch.full((q, k), float("inf"), dtype=torch.float32, device=dev)
     best_i = torch.full((q, k), -1, dtype=torch.int32, device=dev)
@@ -272,7 +311,12 @@ def _scan_torch(qres, base, codebooks, cb_norms, codes, indices, probes,
             cb, cbn = codebooks, cb_norms
         lut = probe_lut(qsub, cb, cbn, ip_metric, per_query=per_cluster)
         lut, scale = quantize_lut(lut, lut_dtype)
-        rows = unpack_codes(codes[lid], packed)                 # (m, S)
+        if tier is None:
+            block = codes[lid]
+        else:
+            block = tier_block_select(
+                codes, cold_codes, *tier_slot_pair(hot_map, cold_map, lid))
+        rows = unpack_codes(block, packed)                      # (m, S)
         dist = score(lut, rows[None].expand(q, -1, -1)
                      if score is not _score_gather else rows)
         dist = scale_and_base(
@@ -411,15 +455,20 @@ def _pq_items_cuda(probes, indices, k: int, rows: int, group: int):
 
 def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
                filter_words, *, k: int, ip_metric: bool, per_cluster: bool,
-               lut_dtype, packed: bool):
+               lut_dtype, packed: bool, tier=None,
+               workspace_bytes: Optional[int] = None):
     dev = codes.device
     q, p = probes.shape
-    n_lists, m, row_bytes = codes.shape
+    n_lists, m = indices.shape
+    row_bytes = codes.shape[2]
     book, L = codebooks.shape[1], codebooks.shape[2]
     pq_dim = row_bytes * 2 if packed else row_bytes
     expect(lut_dtype in LUT_DTYPES, f"ivf_pq_scan: bad lut_dtype {lut_dtype}")
     expect(codes.dtype == torch.uint8 and indices.dtype == torch.int32,
            "ivf_pq_scan: codes must be uint8 and indices int32")
+    expect(codes.shape[1] == m and (tier is not None
+                                    or codes.shape[0] == n_lists),
+           "ivf_pq_scan: codes and indices do not match")
     expect(qres.dtype == torch.float32 and codebooks.dtype == torch.float32,
            "ivf_pq_scan: residuals and codebooks must be float32")
     expect(0 < k <= CUDA_MAX_K,
@@ -436,8 +485,11 @@ def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
         tensors.append(cb_norms)
     if filter_words is not None:
         tensors.append(filter_words)
+    if tier is not None:
+        tensors += [tier[1], tier[2]]
     expect(all(t.device == dev for t in tensors),
-           "ivf_pq_scan: all inputs must be on the codes' device")
+           "ivf_pq_scan: all inputs but the cold tier must be on the codes' "
+           "device")
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops.ivf_scan import live_rows
 
@@ -475,20 +527,107 @@ def _scan_cuda(qres, base, codebooks, cb_norms, codes, indices, probes,
         return None if t is None else t.data_ptr()
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = launch(qres.data_ptr(), ptr(base_t), codebooks.data_ptr(),
-                 ptr(cbn), codes.data_ptr(), indices.data_ptr(),
-                 probes.data_ptr(), ptr(fw), fw_stride,
-                 *(ptr(g.get(n)) for n in (
-                     "offs", "pair_q", "pair_slot", "live", "item_off",
-                     "slot_off")),
-                 q, p, n_lists, m, row_bytes, pq_dim, L, book, k,
-                 int(ip_metric), int(per_cluster), int(packed), lut,
-                 max_items, rows, group, g["pd"].data_ptr(),
-                 g["pi"].data_ptr(), outd.data_ptr(), outi.data_ptr(),
-                 stream)
+    args = (qres.data_ptr(), ptr(base_t), codebooks.data_ptr(), ptr(cbn),
+            codes.data_ptr(), indices.data_ptr(), probes.data_ptr(), ptr(fw),
+            fw_stride,
+            *(ptr(g.get(n)) for n in (
+                "offs", "pair_q", "pair_slot", "live", "item_off",
+                "slot_off")),
+            q, p, n_lists, m, row_bytes, pq_dim, L, book, k,
+            int(ip_metric), int(per_cluster), int(packed), lut,
+            max_items, rows, group, g["pd"].data_ptr(),
+            g["pi"].data_ptr(), outd.data_ptr(), outi.data_ptr())
+    if tier is None:
+        err = launch(*args, stream)
+    else:
+        err = _launch_tiered(args, tier, codes, probes, g["live"], m,
+                             row_bytes, workspace_bytes, stream)
     _build.check(err, "ivf_pq_scan")
     ivf_pq_scan.launches += 1
     return outd, outi
+
+
+def _launch_tiered(args, tier, hot_codes, probes, live, m: int,
+                   row_bytes: int, workspace_bytes, stream) -> int:
+    """The dual-source launch: stage the probed cold lists' code rows
+    into a device ring (:func:`~raft_tpu_torch.ops.tier_scan
+    .tier_stage_plan`, the plan of the tiered IVF-Flat scan), build the
+    per-list table (each list's first code row in the hot plane or the
+    ring, and the launch that scans it), and call the library's tiered
+    entry, which copies, launches and merges. The request's one host
+    sync reads the slot maps, the live rows and the probed lists."""
+    import ctypes
+
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops.tier_scan import (
+        _side_stream_handles,
+        count_staging,
+        tier_stage_plan,
+    )
+
+    cold_codes, hot_slot_map, cold_slot_map = tier
+    dev = hot_codes.device
+    n_lists = live.shape[0]
+    expect(cold_codes.dtype == torch.uint8
+           and cold_codes.shape[1:] == hot_codes.shape[1:],
+           "ivf_pq_scan: the cold codes must match the hot plane's rows")
+    expect(cold_codes.numel() == 0 or (cold_codes.device.type == "cpu"
+                                       and cold_codes.is_pinned()),
+           "ivf_pq_scan: the cold codes must be pinned host memory "
+           "(torch.Tensor.pin_memory()); the kernel stages them with "
+           "asynchronous copies, which a pageable plane would serialize")
+    expect(cold_codes.is_contiguous()
+           and hot_slot_map.shape == (n_lists,)
+           and cold_slot_map.shape == (n_lists,),
+           "ivf_pq_scan: tier shape mismatch")
+    pr = probes.to(torch.int64)
+    pr = torch.where((pr < 0) | (pr >= n_lists), n_lists, pr)
+    probed = torch.zeros(n_lists + 1, dtype=torch.int64, device=dev)
+    probed.index_fill_(0, pr.reshape(-1), 1)
+    hot_h, cold_h, live_h, probed_h = torch.stack(
+        [hot_slot_map.to(torch.int64), cold_slot_map.to(torch.int64),
+         live.to(torch.int64), probed[:n_lists]]).cpu().numpy()
+    cold_fetch = np.where(probed_h > 0, cold_h, -1)
+    if workspace_bytes is None:
+        workspace_bytes = Resources.workspace_limit_bytes
+    plan = tier_stage_plan(cold_fetch, live_h, m, workspace_bytes,
+                           row_bytes=row_bytes)
+    ring = (torch.empty((plan.ring_rows * row_bytes,), dtype=torch.uint8,
+                        device=dev) if plan.ring_rows else None)
+    # each list's first code row and its launch: hot lists -1, staged
+    # cold lists their wave, unprobed cold lists -2 (never scanned)
+    addr = np.zeros(n_lists, np.int64)
+    wave = np.full(n_lists, -2, np.int64)
+    hot = hot_h >= 0
+    addr[hot] = hot_codes.data_ptr() + hot_h[hot] * (m * row_bytes)
+    wave[hot] = -1
+    if len(plan.steps):
+        addr[plan.steps] = ring.data_ptr() + plan.offsets * row_bytes
+        wave[plan.steps] = np.searchsorted(plan.wave_end,
+                                           np.arange(len(plan.steps)),
+                                           side="right")
+    table = torch.from_numpy(np.concatenate([addr, wave])).to(dev)
+    fn = _PLANS.get("tiered")
+    if fn is None:
+        fn = _PLANS["tiered"] = _build.function(
+            "ivf_pq_scan", "raft_ivf_pq_scan_tiered",
+            _build.SIGNATURES["ivf_pq_scan"][1][:-1]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 6)
+    staged = plan.n_waves > 0
+    err = fn(*args, table.data_ptr(),
+             cold_codes.data_ptr() if staged else None,
+             ring.data_ptr() if staged else None, plan.n_waves,
+             int(plan.reuse), plan.wave_end.ctypes.data,
+             plan.slots.ctypes.data, plan.offsets.ctypes.data,
+             plan.rows.ctypes.data, stream, _side_stream_handles(dev)[0])
+    count_staging(plan)
+    _launch_tiered.last_plan = plan
+    return err
+
+
+_launch_tiered.last_plan = None
 
 
 ivf_pq_scan.launches = 0

@@ -93,6 +93,51 @@ def resolve_tier_engine(engine: str, *, hot_data=None, filter_words=None,
     return engine
 
 
+def resolve_tier_pq_engine(engine: str, *, hot_codes=None, k=None) -> str:
+    """Resolve a tiered IVF-PQ ``scan_engine`` to ``cuda`` or ``torch``,
+    before any launch. The tiered engines are list-major: ``auto`` is the
+    dual-source LUT scan kernel (``ops/ivf_pq_scan``) when the hot codes
+    lie on a CUDA device and the plain engine otherwise; ``cuda`` and
+    ``torch`` force one. ``cuda`` goes to ``torch`` only where the
+    all-device resolver does too: k past the kernel's 512 (the kernel
+    takes shared and per-query filters alike). ``rank`` is refused, as
+    the JAX package refuses it: the rank-major scan gathers per (query,
+    rank) and has no per-list fetch step to steer through the slot
+    maps."""
+    expect(engine in TIER_ENGINES,
+           "tiered PQ scan_engine must be 'auto', 'cuda' or 'torch' — the "
+           "rank-major scan has no per-list fetch step to steer through "
+           f"the tier slot maps, got {engine!r}")
+    on_cuda = hot_codes is not None and hot_codes.device.type == "cuda"
+    if engine == "auto":
+        engine = "cuda" if on_cuda else "torch"
+    if engine != "cuda":
+        return engine
+    expect(hot_codes is None or on_cuda,
+           "tiered PQ scan_engine='cuda' needs the hot codes on a CUDA "
+           "device")
+    from raft_tpu_torch.ops.ivf_pq_scan import CUDA_MAX_K as PQ_MAX_K
+
+    if k is not None and k > PQ_MAX_K:
+        return "torch"
+    return engine
+
+
+def resolve_tier_bq_engine(engine: str) -> str:
+    """Resolve a tiered IVF-BQ ``scan_engine``: ``auto``, ``cuda`` and
+    ``torch`` all resolve to the plain fused engine ``torch``, decided
+    here before any launch, never after a failure. The JAX package sends
+    ``auto``/``pallas`` to ``xla`` the same way: it has no dual-source
+    fused BQ kernel, and neither has the port (the card's ``bq_scan``
+    reads every list from one device plane; a dual-source variant is
+    later work, ROADMAP Queue 2). ``rank`` is refused: the estimate-only
+    scan has no per-list fetch step."""
+    expect(engine in TIER_ENGINES,
+           "tiered BQ scan_engine must be 'auto', 'cuda' or 'torch', got "
+           f"{engine!r}")
+    return "torch"
+
+
 def tier_slot_pair(hot_slot_map, cold_slot_map, lidc):
     """One list's (hot_slot, cold_slot) pair: read once per list and
     shared by every plane's :func:`tier_block_select`, so two planes of
@@ -154,20 +199,31 @@ class StagePlan:
     wave_end: np.ndarray     # (n_waves,) int32
     ring_rows: int
     reuse: bool              # do waves take turns in two halves?
+    row_bytes: int = 0       # bytes of one staged row (0: not given)
 
     @property
     def n_waves(self) -> int:
         return len(self.wave_end)
 
+    @property
+    def staged_bytes(self) -> int:
+        """Bytes the plan copies over the host link."""
+        return int(self.rows.sum()) * self.row_bytes
 
-def tier_stage_plan(cold_fetch, step_rows, m: int,
-                    capacity_rows: int) -> StagePlan:
-    """The staging plan of one request (host side). ``cold_fetch`` is the
-    union's per-step cold slot (-1 on hot and sentinel steps), as
-    :func:`tier_fetch_plan` gives it; ``step_rows`` each step's rows up to
-    its last live one (:func:`~raft_tpu_torch.ops.ivf_scan.live_rows`). A
-    cold list stages those rows rounded up to :data:`STAGE_TILE`, never
-    past ``m``; the scan body reads a list only up to its last live row.
+
+def tier_stage_plan(cold_fetch, step_rows, m: int, capacity: int, *,
+                    row_bytes: Optional[int] = None) -> StagePlan:
+    """The staging plan of one request (host side), for any tiered plane:
+    the flat family's float32 rows of width d, the PQ codes' ``pq_dim``
+    (or nibble-packed ``pq_dim / 2``) bytes. ``cold_fetch`` is the
+    per-step cold slot (-1 on hot and sentinel steps), as
+    :func:`tier_fetch_plan` gives it for the probed-list union, or one
+    entry a list; ``step_rows`` each step's rows up to its last live one
+    (:func:`~raft_tpu_torch.ops.ivf_scan.live_rows`). A cold list stages
+    those rows rounded up to :data:`STAGE_TILE`, never past ``m``; the
+    scans read a list only up to its last live row. ``capacity`` is the
+    ring's budget: in rows, or in bytes when ``row_bytes`` (the plane's
+    bytes a row) is given.
 
     The lists fill waves greedily, longest first (ties in union order):
     the last wave, whose scan nothing overlaps, gets the shortest. When they fit in
@@ -177,6 +233,8 @@ def tier_stage_plan(cold_fetch, step_rows, m: int,
     ``max(capacity_rows // 2, largest list)`` rows (at least two lists,
     the TPU kernel's double buffer), a wave fills a half, and wave w
     reuses half ``w % 2`` (``reuse``)."""
+    capacity_rows = (int(capacity) if row_bytes is None
+                     else int(capacity) // max(int(row_bytes), 1))
     cold_fetch = np.asarray(cold_fetch, np.int64)
     steps = np.nonzero(cold_fetch >= 0)[0]
     live = np.asarray(step_rows, np.int64)[steps]
@@ -208,7 +266,18 @@ def tier_stage_plan(cold_fetch, step_rows, m: int,
                      slots=cold_fetch[steps].astype(np.int32),
                      rows=rows.astype(np.int32), offsets=offsets,
                      wave_end=np.asarray(wave_end, np.int32),
-                     ring_rows=int(ring_rows), reuse=bool(reuse))
+                     ring_rows=int(ring_rows), reuse=bool(reuse),
+                     row_bytes=int(row_bytes or 0))
+
+
+def count_staging(plan: StagePlan) -> None:
+    """Count one request's staging: ``tier.cold_bytes_staged``,
+    ``tier.cold_lists_staged`` and ``tier.stage_waves``."""
+    tracing.inc_counters({
+        "tier.cold_bytes_staged": float(plan.staged_bytes),
+        "tier.cold_lists_staged": float(len(plan.steps)),
+        "tier.stage_waves": float(plan.n_waves),
+    })
 
 
 def tiered_list_major_scan(qf, hot_data, cold_data, hot_slot_map,
@@ -347,7 +416,8 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
          g["live"].to(torch.int64), g["items"]]).cpu().numpy()
     if workspace_bytes is None:
         workspace_bytes = Resources.workspace_limit_bytes
-    plan = tier_stage_plan(cold_h, rows_h, m, workspace_bytes // (4 * d))
+    plan = tier_stage_plan(cold_h, rows_h, m, workspace_bytes,
+                           row_bytes=4 * d)
     # the hot steps longest first, as the plan orders the cold ones
     hot_steps = np.nonzero((uniq_h < n_lists) & (cold_h < 0))[0]
     hot_steps = hot_steps[np.argsort(-rows_h[hot_steps], kind="stable")]
@@ -386,11 +456,7 @@ def _tier_scan_cuda(qf, hot_data, cold_data, hot_slot_map, cold_slot_map,
                  stream, *_side_stream_handles(dev))
     _build.check(err, "tiered_list_major_scan")
     tiered_list_major_scan.launches += 1
-    tracing.inc_counters({
-        "tier.cold_bytes_staged": float(int(plan.rows.sum()) * d * 4),
-        "tier.cold_lists_staged": float(len(plan.steps)),
-        "tier.stage_waves": float(plan.n_waves),
-    })
+    count_staging(plan)
     return g["outd"], g["outi"]
 
 

@@ -19,10 +19,14 @@ placement policy — the port of ``raft_tpu/serving``'s request layer.
 - :mod:`~raft_tpu_torch.serving.harness`: the manual clock, executor
   shims and open-loop load the deterministic tests drive.
 - :mod:`~raft_tpu_torch.serving.placement`: the tiered index's epoch
-  planner.
+  planner and :class:`~raft_tpu_torch.serving.placement.TierManager`,
+  which runs its epochs on live traffic.
+- :mod:`~raft_tpu_torch.serving.prefetch`: the forecast and the staged
+  promotions ahead of an epoch (:class:`~raft_tpu_torch.serving.prefetch
+  .TierPrefetcher`).
 
-Not ported yet: ``continuous``, ``exporter``, ``flight``, ``gauge``,
-``federation`` and ``prefetch`` (ROADMAP Queue 1).
+Not ported yet: ``continuous``, ``exporter``, ``flight``, ``gauge`` and
+``federation`` (ROADMAP Queue 1).
 """
 
 from raft_tpu_torch.serving.admission import AdmissionQueue, LoadShed

@@ -1012,6 +1012,156 @@ def test_ivf_pq_scan_kernel_builds_large_luts_in_parts(dev, shape, ip_metric,
         assert (got[1] >= 0).any()
 
 
+# the dual-source fetch of a tiered index: the codes plane split into a
+# hot plane on the card and a cold plane in pinned host memory
+PQ_TIER_SPLITS = {"hot-only": (list(range(9)), []),
+                  "half-cold": ([0, 2, 4, 6, 8], [1, 3, 5, 7]),
+                  "all-cold": ([], list(range(9)))}
+
+
+def _pq_tiers(args, split):
+    """``args``' codes split by ``PQ_TIER_SPLITS[split]``: the tiered
+    keywords of ``ivf_pq_scan`` (hot codes, cold codes, slot maps)."""
+    hot_lists, cold_lists = PQ_TIER_SPLITS[split]
+    hot, cold, hmap, cmap = _tiers(args["codes"], hot_lists, cold_lists)
+    return dict(args, codes=hot, cold_codes=cold, hot_slot_map=hmap,
+                cold_slot_map=cmap)
+
+
+@pytest.mark.parametrize("split", list(PQ_TIER_SPLITS))
+@pytest.mark.parametrize("lut", PQ_LUTS, ids=str)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("ip_metric", [False, True])
+def test_ivf_pq_scan_dual_source_equals_plain_and_all_device(
+        dev, ip_metric, bits, lut, split):
+    """The tiered kernel (cold lists staged into a device ring) against
+    its plain version on the same split planes and the all-device kernel
+    on the whole plane, bit for bit; then with a ring of two lists'
+    bytes, so the waves take turns in its halves."""
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+    for case in range(3 + len(PQ_ITEM_SHAPES)):
+        shape = PQ_ITEM_SHAPES[case - 3] if case >= 3 else {}
+        args, packed = _pq_scan_case(dev, ip_metric, case % 2 == 1, bits,
+                                     10, case + 11, **shape)
+        kw = dict(k=10, ip_metric=ip_metric, per_cluster=case % 2 == 1,
+                  lut_dtype=lut, packed=packed)
+        want = ops.ivf_pq_scan(**args, **kw, engine="cuda")
+        tiers = _pq_tiers(args, split)
+        plain = ops.ivf_pq_scan(**tiers, **kw, engine="torch")
+        m, row_bytes = args["codes"].shape[1:]
+        for ring in (None, 2 * m * row_bytes):
+            before = ops.ivf_pq_scan.launches
+            staged0 = tracing.get_counter("tier.cold_bytes_staged")
+            got = ops.ivf_pq_scan(**tiers, **kw, engine="cuda",
+                                  workspace_bytes=ring)
+            torch.cuda.synchronize()
+            assert ops.ivf_pq_scan.launches == before + 1
+            for other in (want, plain):
+                assert torch.equal(got[1], other[1])
+                assert torch.equal(got[0], other[0])
+            plan = ops._launch_tiered.last_plan
+            staged = tracing.get_counter("tier.cold_bytes_staged") - staged0
+            assert staged == plan.staged_bytes
+            if split == "hot-only":
+                assert plan.n_waves == 0
+            elif ring is not None and plan.n_waves > 2:
+                assert plan.reuse
+
+
+@pytest.mark.parametrize("lut", PQ_LUTS, ids=str)
+def test_ivf_pq_scan_dual_source_builds_large_luts_in_parts(dev, lut):
+    """pq_dim 240 (a table past shared memory: the per-pair instance)
+    over half-cold and all-cold splits, with a small ring too."""
+    from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+    for ip_metric in (False, True):
+        args, packed = _pq_scan_case(dev, ip_metric, False, 8, 10, 240,
+                                     pq_dim=240, L=4, m=200)
+        kw = dict(k=10, ip_metric=ip_metric, per_cluster=False,
+                  lut_dtype=lut, packed=packed)
+        want = ops.ivf_pq_scan(**args, **kw, engine="cuda")
+        for split in ("half-cold", "all-cold"):
+            tiers = _pq_tiers(args, split)
+            for ring in (None, 2 * 200 * 240):
+                got = ops.ivf_pq_scan(**tiers, **kw, engine="cuda",
+                                      workspace_bytes=ring)
+                torch.cuda.synchronize()
+                assert torch.equal(got[1], want[1])
+                assert torch.equal(got[0], want[0])
+
+
+def test_ivf_pq_scan_dual_source_refuses_a_pageable_cold_plane(dev):
+    """A pageable or device cold plane raises at the wrapper, before any
+    launch, and the C entry refuses a cold pointer that is not page-locked
+    host memory."""
+    import ctypes
+
+    from raft_tpu_torch.core.validation import RaftError
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops import ivf_pq_scan as ops
+
+    args, packed = _pq_scan_case(dev, False, False, 8, 10, 3)
+    tiers = _pq_tiers(args, "half-cold")
+    kw = dict(k=10, ip_metric=False, per_cluster=False,
+              lut_dtype=torch.float32, packed=packed, engine="cuda")
+    before = ops.ivf_pq_scan.launches
+    for bad in (tiers["cold_codes"].clone(), tiers["cold_codes"].to(dev)):
+        with pytest.raises(RaftError, match="pinned"):
+            ops.ivf_pq_scan(**dict(tiers, cold_codes=bad), **kw)
+    assert ops.ivf_pq_scan.launches == before
+    entry = _build.function(
+        "ivf_pq_scan", "raft_ivf_pq_scan_tiered",
+        _build.SIGNATURES["ivf_pq_scan"][1][:-1]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 6)
+    z = torch.zeros(64, dtype=torch.int32, device=dev)
+    zi = np.zeros(4, np.int64)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (tiers["cold_codes"].clone(), tiers["cold_codes"].to(dev)):
+        err = entry(*[z.data_ptr()] * 8, 0, *[z.data_ptr()] * 6,
+                    *[1] * 13, 1, 1, 1, *[z.data_ptr()] * 4, z.data_ptr(),
+                    bad.data_ptr(), z.data_ptr(), 1, 0,
+                    *[zi.ctypes.data] * 4, stream, stream)
+        assert err != 0
+
+
+def test_tiered_pq_search_on_the_card(dev):
+    """``build_tiered_pq`` on a card index: the cold codes pinned, every
+    search through the dual-source kernel equal to ``ivf_pq.search`` bit
+    for bit before and after a placement epoch, at two ring sizes."""
+    from raft_tpu_torch.neighbors import ivf_pq, tiered
+    from raft_tpu_torch.ops.ivf_pq_scan import ivf_pq_scan
+
+    res = Resources(device="cuda", seed=3)
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((24, 32)) * 3
+    x = (centers[rng.integers(0, 24, 6000)]
+         + rng.standard_normal((6000, 32))).astype(np.float32)
+    q = torch.from_numpy((centers[rng.integers(0, 24, 90)]
+                          + rng.standard_normal((90, 32))).astype(
+        np.float32)).to(dev)
+    index = ivf_pq.build(res, ivf_pq.IvfPqIndexParams(n_lists=24, pq_dim=16),
+                         x)
+    t = tiered.build_tiered_pq(index, hot_fraction=0.5)
+    assert t.host_resident and t.cold_codes.is_pinned()
+    sp = ivf_pq.IvfPqSearchParams(n_probes=8)
+    want = ivf_pq.search(res, sp, index, q, 10)
+    small = Resources(device="cuda", seed=3,
+                      workspace_limit_bytes=2 * t.block_bytes)
+    for epoch in range(2):
+        for r in (res, small):
+            before = ivf_pq_scan.launches
+            got = tiered.search_pq(r, sp, t, q, 10)
+            torch.cuda.synchronize()
+            assert ivf_pq_scan.launches == before + 1
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
+        tiered.apply_plan(t, list(t.cold_lists[:3]), list(t.hot_lists[:3]),
+                          width=3)
+
+
 @pytest.mark.parametrize("dim", [128, 20])
 @pytest.mark.parametrize("metric", ["L2Expanded", "L2SqrtExpanded",
                                     "InnerProduct"])

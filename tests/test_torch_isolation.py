@@ -59,6 +59,7 @@ def test_import_leaves_jax_unloaded():
             "raft_tpu_torch.neighbors._exact, raft_tpu_torch.ops.beam_search, "
             "raft_tpu_torch.neighbors.tiered, raft_tpu_torch.ops.tier_scan, "
             "raft_tpu_torch.core.memwatch, raft_tpu_torch.serving.placement, "
+            "raft_tpu_torch.serving.prefetch, raft_tpu_torch.neighbors.ivf_pq, "
             "raft_tpu_torch.core.executor, raft_tpu_torch.serving.batcher, "
             "raft_tpu_torch.serving.harness, raft_tpu_torch.serving.metrics, "
             "raft_tpu_torch.distance, raft_tpu_torch.cluster, "

@@ -286,12 +286,15 @@ def test_engine_resolution_and_errors():
     with pytest.raises(RaftError, match="lut_dtype"):
         t_pq.search(CPU, t_pq.IvfPqSearchParams(lut_dtype=torch.float16),
                     ti, _int_data(0, 2), 5)
-    with pytest.raises(RaftError, match="Queue 1 item 4"):
+    # tiered codes: the rank-major engine has no per-list fetch step
+    maps = torch.arange(N_LISTS, dtype=torch.int32)
+    with pytest.raises(RaftError, match="list-major engine"):
         t_pq._search_impl_fn(torch.zeros(2, DIM), *t_pq.serving_plan(
             t_pq.IvfPqSearchParams(), ti, 5)[1], None,
-            cold_codes=ti.codes, n_probes=2, k=5, metric=ti.metric,
+            cold_codes=ti.codes[:0], hot_slot_map=maps,
+            cold_slot_map=-1 - 0 * maps, n_probes=2, k=5, metric=ti.metric,
             codebook_kind=ti.codebook_kind)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         t_pq.build_streaming(CPU, t_pq.IvfPqIndexParams(), None)
     with pytest.raises(RaftError, match="pq_bits"):
         t_pq.build(CPU, t_pq.IvfPqIndexParams(pq_bits=3), _int_data(0, 64))
