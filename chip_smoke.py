@@ -2,7 +2,8 @@
 """Drive raft_tpu_torch's main path once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases env,build,kernels,main,serve,ragged,distance,pq,times]
+        [--phases env,build,kernels,main,serve,ragged,distance,pq,stream,
+                  dist,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -229,7 +230,46 @@ non-zero exit (nothing is caught and passed over):
             the default handle get one. Query counts are cut for the time
             limit, never widths. Its launches add to the kernels line's;
             its numbers go to chiprun_out/distance.json.
-9. times    per kernel at the main path's shapes: kernel ms (CUDA
+9. stream   the streaming builds on main's data (alone with --phases
+            env,build,stream,dist, which makes main's data, truth and
+            in-memory indexes): the 1M rows written as .fbin (512 MB) to
+            a temporary directory by the native writer and read back by
+            the native reader, equal (write, read and iter_chunks GB/s
+            printed; the page cache is warm: the file was just
+            written); build_streaming of IVF-Flat (n_lists 1024),
+            IVF-PQ (the sift raft_ivf_pq entry) and IVF-BQ (bits 1), each
+            at chunk_rows 2^18 and 100,000 (not a divisor): the two
+            builds torch.equal (the train sample keeps its stride's phase
+            across chunks), build s printed; searches at n_probes {32,
+            128} x batch {10, 500} (1,000 and all 10,000 queries) with
+            recall@10 and median ms; over the 10,000 queries each
+            recall within 0.01 of the in-memory build of the same family
+            (the two train on other samples: at 100 queries one draw
+            moved IVF-PQ's by 0.015).
+            Its launches add to the kernels line's.
+10. dist    the mesh layer on 4 shard slots of the card: brute_force_knn and
+            its ring form (100 queries) equal single-device brute force, ties
+            aside; distributed.kmeans_fit (1,024 clusters, 20 iterations)
+            twice, torch.equal, inertia within 1e-4 of single-device Lloyd
+            (kmeans.fit) from the same seeds (k-means++ on a 4,096-row
+            subsample) and the centers' median relative move from its centers
+            within 1e-5 (the gap to the distance phase's fit, seeded on all
+            rows, is printed); IVF-Flat by distributed.ivf.build, its
+            global-probe searches at (32, 128) x (10, 500) (1,000 and all
+            10,000 queries: 100 and 20 timed requests) equal to main's IVF-Flat
+            bit for bit, local probes at 0.9 of the global recall at (128,
+            500), the bf16 and int8 probe wires at 0.99 and 0.95 of the f32
+            wire's ids (these on the first 1,000 queries), save -> load ->
+            search bit-identical; distributed.ivf.build_streaming from stream's
+            .fbin (recall within 0.01 of the single-device streamed build,
+            dealt); the same checks for IVF-PQ and IVF-BQ, dealt from the pq
+            and main phases' indexes (their single-device builds are not
+            repeated: a cut for the time limit); a ShardedIndex of 4 CAGRA
+            sub-indexes on the first 200,000 rows (recall@10 >= 0.90 at itopk
+            64, batch 500). The IVF scan, the BQ scan, ivf_pq_scan and the beam
+            search must launch in the phase; its launches add to the kernels
+            line's. Its numbers go to chiprun_out/dist.json.
+11. times   per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -248,7 +288,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-10. profile (not in the default run) torch.profiler over five requests
+12. profile (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -266,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -2794,7 +2835,10 @@ def phase_times(torch, state: dict) -> list:
     records.append(times_tier(torch, state))
     records.append(times_stream(torch, state))
     if "pq_record" in state:
-        records.append(state["pq_record"])
+        # the pq phase timed the kernel; later phases (stream, dist) add
+        # their launches
+        records.append(dict(state["pq_record"],
+                            launches=state["launches"]["ivf_pq_scan"]))
     for name, fn in _counted().items():
         fn.launches = saved[name]
     return records
@@ -4451,6 +4495,7 @@ def phase_distance(torch, state: dict) -> None:
            "ball_cover": distance_ball_cover(torch, state, data),
            "masked_l2_nn": distance_masked_nn(torch, state),
            "gram": distance_gram(torch, state)}
+    state["kmeans_inertia"] = out["kmeans"]["inertia"]
     counts = read_launches(("fused_knn", "list_major_scan"), "distance")
     launches = state.setdefault("launches", {})
     for name, n in counts.items():
@@ -4461,6 +4506,424 @@ def phase_distance(torch, state: dict) -> None:
     with open(path, "w") as f:
         json.dump({"card": state.get("card"), **out}, f, indent=1)
     log(f"[distance] {state.get('card')}: results in {path}")
+
+
+# stream / dist: the streaming builds from a .fbin and the mesh layer on
+# R shard slots of the one card
+STREAM_CHUNKS = (1 << 18, 100_000)      # the second divides nothing
+STREAM_RECALL_GAP = 0.01
+DIST_SLOTS = 4
+# queries per batch size: 100 requests at batch 10, 20 at 500
+STREAM_QUERIES = DIST_QUERIES = {10: 1000, 500: N_QUERIES}
+DIST_KNN_QUERIES = 100
+# the local probes and the probe wires are read on the first 1,000
+DIST_CHECK_QUERIES = 1000
+DIST_WIRE_FLOORS = {"bf16": 0.99, "int8": 0.95}
+# local probes' recall@10 at n_probes 128, batch 500, as a share of the
+# global probes'
+DIST_LOCAL_FLOOR = 0.90
+# the distributed fit is held to single-device Lloyd from its own seeds
+# (k-means++ on a 4,096-row strided subsample, the JAX package's and the
+# reference MNMG k-means' design): the all-reduces only reorder float
+# sums, and a sound run reads an inertia gap of ~1e-5 of the limit's
+# 1e-4. The distance phase's fit seeds on all 1M rows; the gap to it is
+# printed (+1.24% at 20 iterations, PERF.md). A few near-tie rows flip
+# label between the two sum orders and move some centers (max ~5e-2
+# relative), so the centers are held by their median relative move
+# (sound: ~3e-7); an EM that lost a slot's sums moves every center
+DIST_KMEANS_GAP = 1e-4
+DIST_KMEANS_CENTER_MEDIAN = 1e-5
+DIST_CAGRA_ROWS = 200_000
+
+
+def _stream_params(ivf_flat, ivf_pq, ivf_bq):
+    """The three families' build params: the sift config's n_lists, its
+    raft_ivf_pq entry, IVF-BQ at bits 1."""
+    return {"flat": (ivf_flat, ivf_flat.IvfFlatIndexParams(n_lists=N_LISTS),
+                     ivf_flat.IvfFlatSearchParams),
+            "pq": (ivf_pq, ivf_pq.IvfPqIndexParams(**PQ_BUILD),
+                   ivf_pq.IvfPqSearchParams),
+            "bq": (ivf_bq, ivf_bq.IvfBqIndexParams(n_lists=N_LISTS, bits=1),
+                   ivf_bq.IvfBqSearchParams)}
+
+
+def _searched(torch, search, queries, batch: int, n_q: int):
+    """(ids, median ms per request) of ``search`` over ``n_q`` queries in
+    requests of ``batch``; the first request is left out of the median."""
+    outs, times = [], []
+    for s in range(0, n_q, batch):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs.append(search(queries[s:s + batch]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return outs, float(np.median(times[1:] or times))
+
+
+def stream_alone(torch, seed: int, state: dict) -> None:
+    """Main's data and truth, and the in-memory IVF-Flat, IVF-PQ and
+    IVF-BQ indexes, for a run of stream/dist without the earlier phases
+    (``--phases env,build,stream,dist``)."""
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+
+    if "gt_i" not in state:
+        pq_data(torch, seed, state)
+    res, x = state["res"], state["x"]
+    fams = _stream_params(ivf_flat, ivf_pq, ivf_bq)
+    for key, fam in (("index", "flat"), ("pq_index", "pq"),
+                     ("bq_index", "bq")):
+        if key not in state:
+            mod, params, _ = fams[fam]
+            state[key] = mod.build(res, params, x)
+
+
+def phase_stream(torch, state: dict) -> None:
+    """The streaming builds from a .fbin (the module docstring)."""
+    import tempfile
+
+    from raft_tpu_torch.io import BinDataset, read_bin, write_bin
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+
+    res, x, queries, gt_i = (state["res"], state["x"], state["queries"],
+                             state["gt_i"])
+    tmp = tempfile.mkdtemp(prefix="raft_stream_")
+    path = os.path.join(tmp, "sift_shape.fbin")
+    host = x.cpu().numpy()
+    t0 = time.perf_counter()
+    if not write_bin(path, host, use_native=True):
+        fail("write_bin did not take the native writer")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = read_bin(path, use_native=True)
+    read_s = time.perf_counter() - t0
+    if not np.array_equal(back, host):
+        fail("read_bin does not return the rows write_bin wrote")
+    del back
+    nbytes = os.path.getsize(path)
+    with BinDataset(path, use_native=True) as ds:
+        t0 = time.perf_counter()
+        n = sum(c.shape[0] for _, c in ds.iter_chunks(STREAM_CHUNKS[0],
+                                                      copy=False))
+        chunk_s = time.perf_counter() - t0
+    if n != N_ROWS:
+        fail(f"iter_chunks gave {n} rows")
+    log(f"[stream] native write_bin {nbytes} bytes in {write_s:.3f} s "
+        f"({nbytes / write_s / 1e9:.3f} GB/s), read_bin {read_s:.3f} s "
+        f"({nbytes / read_s / 1e9:.3f} GB/s), rows equal; iter_chunks of "
+        f"{STREAM_CHUNKS[0]} rows {chunk_s:.3f} s "
+        f"({nbytes / chunk_s / 1e9:.3f} GB/s; page cache warm: the file "
+        "was just written)")
+    state.update(stream_dir=tmp, stream_path=path)
+    in_memory = {"flat": state["index"], "pq": state["pq_index"],
+                 "bq": state["bq_index"]}
+    reset_launches()
+    out = {"write_gbps": nbytes / write_s / 1e9,
+           "read_gbps": nbytes / read_s / 1e9,
+           "chunk_gbps": nbytes / chunk_s / 1e9}
+    for fam, (mod, params, SP) in _stream_params(ivf_flat, ivf_pq,
+                                                 ivf_bq).items():
+        builds = []
+        for chunk in STREAM_CHUNKS:
+            with BinDataset(path, use_native=True) as ds:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                builds.append(mod.build_streaming(res, params, ds,
+                                                  chunk_rows=chunk))
+                torch.cuda.synchronize()
+                log(f"[stream] {fam} build_streaming chunk_rows={chunk}: "
+                    f"{time.perf_counter() - t0:.2f} s, size "
+                    f"{builds[-1].size}")
+        a, b = builds
+        for f in dataclasses.fields(a):
+            u, v = getattr(a, f.name), getattr(b, f.name)
+            same = (torch.equal(u, v) if isinstance(u, torch.Tensor)
+                    else u == v)
+            if not same:
+                fail(f"{fam} build_streaming differs between chunk_rows "
+                     f"{STREAM_CHUNKS}: {f.name}")
+        if a.size != N_ROWS:
+            fail(f"{fam} build_streaming indexed {a.size} rows")
+        rows = {}
+        for n_probes in (32, 128):
+            sp = SP(n_probes=n_probes)
+            for batch, n_q in STREAM_QUERIES.items():
+                outs, ms = _searched(
+                    torch, lambda q: mod.search(res, sp, a, q, K), queries,
+                    batch, n_q)
+                mem, _ = _searched(
+                    torch, lambda q: mod.search(res, sp, in_memory[fam], q,
+                                                K), queries, batch, n_q)
+                r = recall(torch.cat([o[1] for o in outs]), gt_i[:n_q])
+                rm = recall(torch.cat([o[1] for o in mem]), gt_i[:n_q])
+                log(f"[stream] {fam} n_probes={n_probes} batch={batch}: "
+                    f"recall@10 {r:.4f} (in-memory build {rm:.4f}) over "
+                    f"{n_q} queries, median {ms:.3f} ms")
+                # the builds train on other samples, so their recall is
+                # held on all the queries, where a draw moves it least
+                if n_q == N_QUERIES and abs(r - rm) > STREAM_RECALL_GAP:
+                    fail(f"streamed {fam} recall {r:.4f} is more than "
+                         f"{STREAM_RECALL_GAP} from the in-memory {rm:.4f}")
+                rows[f"{n_probes}x{batch}"] = dict(recall=r, in_memory=rm,
+                                                   ms=ms)
+        out[fam] = rows
+        del builds, a, b
+    counts = read_launches(("list_major_scan", "bq_scan", "ivf_pq_scan"),
+                           "stream")
+    launches = state.setdefault("launches", {})
+    for name, c in counts.items():
+        launches[name] = launches.get(name, 0) + c
+    state["stream"] = out
+    torch.cuda.empty_cache()
+
+
+def _same(torch, name, got, want) -> None:
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = int((got[1] != want[1]).sum())
+        fail(f"{name}: distributed search differs from the single-device "
+             f"one ({bad} ids)")
+
+
+def _agree(got, ref) -> float:
+    return float((got[:, :, None] == ref[:, None, :]).any(dim=2)
+                 .float().mean())
+
+
+def dist_family(torch, state, fam, di, single, SP, search, single_search):
+    """One list-sharded family at the four requests: global bit-identical
+    to the single-device search, local at its floor, the probe wires at
+    theirs; save -> load -> search bit-identical."""
+    from raft_tpu_torch.distributed import checkpoint
+
+    res, queries, gt_i = state["res"], state["queries"], state["gt_i"]
+    out = {}
+    for n_probes in (32, 128):
+        sp = SP(n_probes=n_probes)
+        for batch, n_q in DIST_QUERIES.items():
+            outs, ms = _searched(
+                torch, lambda q: search(res, sp, di, q, K), queries, batch,
+                n_q)
+            want, ms1 = _searched(
+                torch, lambda q: single_search(res, sp, single, q, K),
+                queries, batch, n_q)
+            for i, (g, w) in enumerate(zip(outs, want)):
+                _same(torch, f"{fam} ({n_probes}, {batch}) request {i}", g, w)
+            ids = torch.cat([o[1] for o in outs])
+            r = recall(ids, gt_i[:n_q])
+            row = dict(recall=r, ms=ms, single_ms=ms1)
+            if batch == 500:
+                nc = DIST_CHECK_QUERIES
+                q = queries[:nc]
+                _, loc = search(res, sp, di, q, K, probe_mode="local")
+                row["local_recall"] = recall(loc, gt_i[:nc])
+                row["global_recall"] = recall(ids[:nc], gt_i[:nc])
+                for wire, floor in DIST_WIRE_FLOORS.items():
+                    _, w = search(res, sp, di, q, K, probe_wire_dtype=wire)
+                    row[f"{wire}_agree"] = _agree(w, ids[:nc])
+                    if row[f"{wire}_agree"] < floor:
+                        fail(f"{fam} {wire} probe wire agrees "
+                             f"{row[f'{wire}_agree']:.4f} < {floor}")
+                rg = row["global_recall"]
+                if (n_probes == 128
+                        and row["local_recall"] < DIST_LOCAL_FLOOR * rg):
+                    fail(f"{fam} local-probe recall {row['local_recall']:.4f}"
+                         f" < {DIST_LOCAL_FLOOR} x the global {rg:.4f}")
+            log(f"[dist] {fam} n_probes={n_probes} batch={batch}: global "
+                f"equals single-device bit for bit over {n_q} queries; "
+                f"recall@10 {r:.4f}, median {ms:.3f} ms (single-device "
+                f"{ms1:.3f} ms), {len(outs)} requests" + "".join(
+                    f", {k} {v:.4f}" for k, v in row.items()
+                    if k.endswith(("agree", "local_recall"))))
+            out[f"{n_probes}x{batch}"] = row
+    save, load = {"flat": (checkpoint.save_flat, checkpoint.load_flat),
+                  "pq": (checkpoint.save_pq, checkpoint.load_pq),
+                  "bq": (checkpoint.save_bq, checkpoint.load_bq)}[fam]
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    save(di, buf)
+    buf.seek(0)
+    back = load(res, di.comms, buf)
+    s = time.perf_counter() - t0
+    sp = SP(n_probes=128)
+    _same(torch, f"{fam} save -> load -> search",
+          search(res, sp, back, queries[:500], K),
+          search(res, sp, di, queries[:500], K))
+    log(f"[dist] {fam} checkpoint ({buf.getbuffer().nbytes} bytes) save -> "
+        f"load {s:.2f} s -> search: bit-identical")
+    out["checkpoint_bytes"] = buf.getbuffer().nbytes
+    return out
+
+
+def phase_dist(torch, state: dict) -> None:
+    """The mesh layer on DIST_SLOTS shard slots of the card (the module
+    docstring)."""
+    import shutil
+
+    from raft_tpu_torch.comms import local_comms
+    from raft_tpu_torch.distributed import (
+        brute_force_knn,
+        brute_force_knn_ring,
+        build_sharded,
+        kmeans_fit,
+    )
+    from raft_tpu_torch.distributed import bq as dbq
+    from raft_tpu_torch.distributed import ivf as divf
+    from raft_tpu_torch.io import BinDataset
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_bq, ivf_flat
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    res, x, queries, gt_i = (state["res"], state["x"], state["queries"],
+                             state["gt_i"])
+    comms = local_comms(shape=(DIST_SLOTS,), device="cuda")
+    out = {}
+    reset_launches()
+
+    # exact kNN: ids equal single-device brute force, ties aside
+    nq = DIST_KNN_QUERIES
+    t0 = time.perf_counter()
+    bd, bi = brute_force_knn(comms, x, queries[:nq], K)
+    rd, ri = brute_force_knn_ring(comms, x, queries[:nq], K)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    bf = brute_force.build(res, x)
+    td, ti = brute_force.search(res, bf, queries[:nq], K)
+    tol = 1e-5 * ((queries[:nq] ** 2).sum(dim=1, keepdim=True)
+                  + float(bf.norms.max()))
+    for name, (d, i) in (("brute_force_knn", (bd, bi)),
+                         ("brute_force_knn_ring", (rd, ri))):
+        if bool(((d - td).abs() > tol).any()) or float(
+                (i != ti).float().mean()) > 1e-3:
+            fail(f"{name} differs from single-device brute force beyond "
+                 "ties")
+    log(f"[dist] brute_force_knn and its ring form over {DIST_SLOTS} slots, "
+        f"{nq} queries: {s:.2f} s, {int((bi != ti).sum())} and "
+        f"{int((ri != ti).sum())} ids differ from brute force, at distances "
+        "tied within 1e-5 (|q|^2 + max |x|^2)")
+
+    # k-means: two fits torch.equal, on single-device Lloyd's path
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.distributed import kmeans as dist_kmeans
+
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append(kmeans_fit(comms, x, KMEANS_CLUSTERS,
+                               n_iters=KMEANS_ITERS, seed=state["seed"]))
+        torch.cuda.synchronize()
+        fits[-1] = fits[-1] + (time.perf_counter() - t0,)
+    (c1, in1, s1), (c2, in2, s2) = fits
+    if not (torch.equal(c1, c2) and torch.equal(in1, in2)):
+        fail("two same-seed distributed k-means fits differ")
+    seeds = dist_kmeans.initial_centers(x, KMEANS_CLUSTERS, state["seed"])
+    same_c, same, n_it = kmeans.fit(res, kmeans.KMeansParams(
+        n_clusters=KMEANS_CLUSTERS, init=kmeans.InitMethod.Array,
+        max_iter=KMEANS_ITERS, tol=0.0), x, init_centroids=seeds)
+    gap = float(in1) / float(same) - 1.0
+    moved = (c1 - same_c).norm(dim=1) / same_c.norm(dim=1).clamp(min=1e-30)
+    single = state.get("kmeans_inertia")
+    log(f"[dist] kmeans_fit k={KMEANS_CLUSTERS} {KMEANS_ITERS} iterations "
+        f"over {DIST_SLOTS} slots: {s1:.2f} s and {s2:.2f} s, torch.equal; "
+        f"inertia {float(in1):.6g}, {gap:+.4%} of the single-device fit "
+        f"from the same seeds ({float(same):.6g}, {n_it} iterations); "
+        f"centers moved from its by |dc|/|c| median "
+        f"{float(moved.median()):.3g}, max {float(moved.max()):.3g}, "
+        f"{int((moved > 1e-4).sum())} of {KMEANS_CLUSTERS} above 1e-4" + (
+            "" if single is None else
+            f"; {float(in1) / single - 1.0:+.4%} of the distance phase's "
+            f"fit seeded on all rows ({single:.6g})"))
+    if abs(gap) > DIST_KMEANS_GAP:
+        fail(f"distributed k-means inertia is {gap:+.4%} from the "
+             "single-device fit's")
+    if float(moved.median()) > DIST_KMEANS_CENTER_MEDIAN:
+        fail(f"distributed k-means centers moved a median "
+             f"{float(moved.median()):.3g} from single-device Lloyd's")
+    out["kmeans"] = dict(fit_s=[s1, s2], inertia=float(in1),
+                         same_seeds=float(same), gap=gap,
+                         center_moved_median=float(moved.median()),
+                         center_moved_max=float(moved.max()),
+                         all_rows_seeded=single)
+    del fits, c1, c2, same_c
+
+    # IVF-Flat: the dealt build and the streamed build
+    params = ivf_flat.IvfFlatIndexParams(n_lists=N_LISTS)
+    t0 = time.perf_counter()
+    flat = divf.build(res, comms, params, x)
+    torch.cuda.synchronize()
+    log(f"[dist] ivf_flat build + deal: {time.perf_counter() - t0:.2f} s")
+    out["flat"] = dist_family(torch, state, "flat", flat, state["index"],
+                              ivf_flat.IvfFlatSearchParams, divf.search,
+                              ivf_flat.search)
+    del flat
+    with BinDataset(state["stream_path"], use_native=True) as ds:
+        t0 = time.perf_counter()
+        streamed = divf.build_streaming(res, comms, params, ds,
+                                        chunk_rows=STREAM_CHUNKS[0])
+        torch.cuda.synchronize()
+        sb = time.perf_counter() - t0
+    with BinDataset(state["stream_path"], use_native=True) as ds:
+        single_streamed = divf.from_index(comms, ivf_flat.build_streaming(
+            res, params, ds, chunk_rows=STREAM_CHUNKS[0]))
+    sp = ivf_flat.IvfFlatSearchParams(n_probes=128)
+    got = divf.search(res, sp, streamed, queries[:1000], K)
+    r = recall(got[1], gt_i[:1000])
+    rs = recall(divf.search(res, sp, single_streamed, queries[:1000], K)[1],
+                gt_i[:1000])
+    log(f"[dist] ivf_flat build_streaming over {DIST_SLOTS} slots: {sb:.2f} "
+        f"s, size {streamed.size}; recall@10 at (128, 500) {r:.4f} (the "
+        f"single-device streamed build dealt: {rs:.4f})")
+    if streamed.size != N_ROWS or abs(r - rs) > STREAM_RECALL_GAP:
+        fail("the distributed streamed build lost rows or recall")
+    out["flat_streaming"] = dict(build_s=sb, recall=r, single=rs)
+    del streamed, single_streamed
+    shutil.rmtree(state.pop("stream_dir"), ignore_errors=True)
+
+    # IVF-PQ and IVF-BQ on the pq and main phases' indexes, dealt
+    t0 = time.perf_counter()
+    pq = divf.from_pq_index(comms, state["pq_index"])
+    bq = dbq.from_bq_index(comms, state["bq_index"])
+    torch.cuda.synchronize()
+    log(f"[dist] ivf_pq and ivf_bq deals: {time.perf_counter() - t0:.2f} s")
+    out["pq"] = dist_family(torch, state, "pq", pq, state["pq_index"],
+                            ivf_pq.IvfPqSearchParams, divf.search_pq,
+                            ivf_pq.search)
+    out["bq"] = dist_family(torch, state, "bq", bq, state["bq_index"],
+                            ivf_bq.IvfBqSearchParams, dbq.search_bq,
+                            ivf_bq.search)
+    del pq, bq
+
+    # index-per-shard CAGRA on the first DIST_CAGRA_ROWS rows
+    part = x[:DIST_CAGRA_ROWS]
+    t0 = time.perf_counter()
+    sharded = build_sharded(
+        res, lambda r_, p: cagra.build(r_, cagra_params(cagra), p),
+        lambda r_, ix, q, k: cagra.search(
+            r_, cagra.CagraSearchParams(itopk_size=64, search_width=4), ix,
+            q, k), part, n_shards=DIST_SLOTS)
+    torch.cuda.synchronize()
+    cs = time.perf_counter() - t0
+    truth = brute_force.search(res, brute_force.build(res, part),
+                               queries[:500], K)[1]
+    _, ci = sharded.search(res, queries[:500], K)
+    rc = recall(ci, truth)
+    log(f"[dist] sharded ANN: {DIST_SLOTS} CAGRA sub-indexes on the first "
+        f"{DIST_CAGRA_ROWS} rows, build {cs:.2f} s, recall@10 {rc:.4f} at "
+        "itopk 64, batch 500")
+    if rc < 0.90:
+        fail(f"sharded CAGRA recall {rc:.4f} < 0.90")
+    out["sharded_cagra"] = dict(build_s=cs, recall=rc)
+    del sharded
+    counts = read_launches(("list_major_scan", "bq_scan", "ivf_pq_scan",
+                            "beam_search"), "dist")
+    launches = state.setdefault("launches", {})
+    for name, c in counts.items():
+        launches[name] = launches.get(name, 0) + c
+    path = os.path.join("chiprun_out", "dist.json")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"card": state.get("card"), "stream": state.get("stream"),
+                   **out}, f, indent=1)
+    log(f"[dist] {state.get('card')}: results in {path}")
+    torch.cuda.empty_cache()
 
 
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
@@ -4492,7 +4955,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="env,build,kernels,main,serve,ragged,"
-                            "distance,pq,times")
+                            "distance,pq,stream,dist,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4539,6 +5002,11 @@ def main() -> int:
         if "gt_i" not in state:
             pq_data(torch, args.seed, state)
         timed("pq", phase_pq, torch, state)
+    if "stream" in phases or "dist" in phases:
+        stream_alone(torch, args.seed, state)
+        timed("stream", phase_stream, torch, state)
+    if "dist" in phases:
+        timed("dist", phase_dist, torch, state)
     if "main" in phases:
         if "times" in phases:
             records = timed("times", phase_times, torch, state)

@@ -149,6 +149,32 @@ def packed_layout_bytes(n_lists: int, max_list_size: int, row_bytes: int,
     return b
 
 
+def dealt_shard_bytes(arrays, r: int) -> int:
+    """Per-shard bytes of dealing these build-device tensors over ``r``
+    shards (``raft_tpu/core/memwatch.py:283``): each shard receives
+    ``ceil(rows / r)`` list blocks of every dealt tensor. Accepts tensors,
+    numpy arrays or ``(shape, dtype)`` pairs of planned buffers; pure
+    shape arithmetic, computed before anything moves."""
+    total = 0
+    for a in arrays:
+        if a is None:
+            continue
+        if isinstance(a, tuple):
+            shape, dtype = a
+            itemsize = (torch.empty((), dtype=dtype).element_size()
+                        if isinstance(dtype, torch.dtype)
+                        else np.dtype(dtype).itemsize)
+        elif _is_array(a):
+            shape = tuple(a.shape)
+            itemsize = (a.element_size() if isinstance(a, torch.Tensor)
+                        else a.dtype.itemsize)
+        else:
+            continue
+        rows = -(-int(shape[0]) // max(int(r), 1))
+        total += rows * int(np.prod(shape[1:], dtype=np.int64)) * itemsize
+    return total
+
+
 def device_memory_stats(devices=None) -> dict:
     """Live truth per CUDA device: ``{"supported": bool, "devices":
     {ordinal: {"in_use_bytes", "peak_bytes", "limit_bytes"}}}``.

@@ -450,6 +450,104 @@ def sample_quantile(samples, q: float) -> float:
     return ts[lo] + (ts[hi] - ts[lo]) * (pos - lo)
 
 
+# straggler gauges of the mesh layer (the JAX package's names)
+MESH_SHARD_SKEW = "serving.mesh.shard_skew"
+MESH_SLOWEST_SHARD = "serving.mesh.slowest_shard"
+MESH_SHARD_TIME_MAX = "serving.mesh.shard_time_max_s"
+MESH_SHARD_TIME_MEAN = "serving.mesh.shard_time_mean_s"
+MESH_SHARD_SKEW_P50 = "serving.mesh.shard_skew_p50"
+MESH_SHARD_SKEW_P99 = "serving.mesh.shard_skew_p99"
+
+
+def straggler_stats(timings) -> dict:
+    """Reduce per-shard timings (seconds, index = shard ordinal) into
+    straggler attribution (``raft_tpu/core/tracing.py:584``):
+    ``slowest_shard`` (argmax), ``shard_skew`` (max - min), max and
+    mean."""
+    ts = [float(t) for t in timings]
+    if not ts:
+        return {"shards": 0, "shard_skew": 0.0, "slowest_shard": -1,
+                "max_s": 0.0, "mean_s": 0.0}
+    mx = max(ts)
+    return {"shards": len(ts), "shard_skew": mx - min(ts),
+            "slowest_shard": ts.index(mx), "max_s": mx,
+            "mean_s": sum(ts) / len(ts)}
+
+
+def poll_shard_timings(parts, t0: float, *, poll_s: float = 50e-6) -> list:
+    """Per-shard arrival offsets (seconds after ``t0``) from a
+    non-blocking poll over ``parts``, a sequence of ``(distances,
+    indices)`` pairs, one per shard ordinal (``raft_tpu/core/
+    tracing.py:606``). A CUDA tensor is ready when a CUDA event recorded
+    behind it on its device's current stream has completed (the poll
+    records one event a shard, up front); a CPU tensor is ready at once.
+    Polling instead of blocking shard by shard keeps an early straggler
+    from dragging every later reading up to its own."""
+    events = []
+    for d, i in parts:
+        dev = d.device if isinstance(d, torch.Tensor) else None
+        if dev is not None and dev.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+        else:
+            events.append(None)
+    timings = [0.0] * len(parts)
+    pending = set(builtins.range(len(parts)))
+    while pending:
+        for s in tuple(pending):
+            ev = events[s]
+            if ev is None or ev.query():
+                timings[s] = time.perf_counter() - t0
+                pending.discard(s)
+        if pending:
+            time.sleep(poll_s)
+    return timings
+
+
+def record_mesh_spans(family: str, t0: float, t1: float, *,
+                      trace_ids: Tuple[int, ...] = (),
+                      phases: Optional[dict] = None, shard_timings=None,
+                      shard_attrs: Optional[dict] = None,
+                      skew_samples=None,
+                      count_dispatch: bool = True) -> dict:
+    """Record one mesh dispatch (``raft_tpu/core/tracing.py:656``): a
+    ``serving.mesh.<phase>`` span per entry of ``phases`` over the
+    dispatch window (attrs carry the modeled per-phase bytes), a
+    ``serving.mesh.shard`` span per entry of ``shard_timings`` (seconds
+    after ``t0`` at which that shard's output was ready), the straggler
+    gauges, and ``serving.mesh.shard_skew_p50/_p99`` from
+    ``skew_samples`` (one skew per dispatch). Returns the straggler
+    stats."""
+    for phase, attrs in (phases or {}).items():
+        a = dict(attrs or {})
+        a["family"] = family
+        record_span(f"serving.mesh.{phase}", t0, t1, trace_ids=trace_ids,
+                    attrs=a)
+    stats = straggler_stats(shard_timings or ())
+    if shard_timings:
+        for s, dt in enumerate(shard_timings):
+            a = {"family": family, "shard": s}
+            if shard_attrs:
+                a.update(shard_attrs)
+            record_span("serving.mesh.shard", t0, t0 + float(dt),
+                        trace_ids=trace_ids, attrs=a)
+        set_gauges({
+            MESH_SHARD_SKEW: stats["shard_skew"],
+            MESH_SLOWEST_SHARD: float(stats["slowest_shard"]),
+            MESH_SHARD_TIME_MAX: stats["max_s"],
+            MESH_SHARD_TIME_MEAN: stats["mean_s"],
+        })
+        if count_dispatch:
+            inc_counter("serving.mesh.dispatches")
+    if skew_samples:
+        stats["shard_skew_p50"] = sample_quantile(skew_samples, 0.50)
+        stats["shard_skew_p99"] = sample_quantile(skew_samples, 0.99)
+        set_gauges({MESH_SHARD_SKEW_P50: stats["shard_skew_p50"],
+                    MESH_SHARD_SKEW_P99: stats["shard_skew_p99"]})
+    return stats
+
+
 def probe_freq_stats(counts, top_n: int = 8) -> dict:
     """One cumulative probe-frequency plane's traffic stats: ``total``
     probes, ``probed_fraction`` (share of lists ever probed), the shares

@@ -29,9 +29,9 @@ executor's ragged plans run :func:`_search_ragged_fn`, the same body
 with a per-row probe budget. The same body serves the tiered family
 (:mod:`raft_tpu_torch.neighbors.tiered`, ``TieredIvfBq``: the five record
 planes split between a hot tier and pinned host memory, ``cold_planes``).
-Not ported yet: ``build_streaming`` (with ``neighbors/_streaming.py`` and
-``io/``, ROADMAP Queue 1 item 3), the distributed bodies, and the opt-in
-``memwatch.admit`` capacity gate of ``extend``.
+:func:`build_streaming` builds from a dataset file chunk by chunk; the
+list-sharded index is :mod:`raft_tpu_torch.distributed.bq`. Not ported
+yet: the opt-in ``memwatch.admit`` capacity gate of ``extend``.
 """
 
 from __future__ import annotations
@@ -360,6 +360,76 @@ def extend(res: Optional[Resources], index: IvfBqIndex, new_vectors,
             index, codes=c, rnorm=rn, cfac=cf, errw=ew, indices=ids,
             list_sizes=sizes, data=data,
             data_norms=_slot_norms(data, ids) if with_vectors else None)
+
+
+def build_streaming(res: Optional[Resources], params: IvfBqIndexParams,
+                    source, chunk_rows: int = 1 << 20,
+                    train_rows: int = 1 << 18) -> IvfBqIndex:
+    """Streamed BQ build over a :class:`raft_tpu_torch.io.BinDataset` —
+    ``ivf_bq.py:361`` of the JAX package (the passes of the flat/PQ
+    streaming builds: train sample -> centers and rotation by
+    :func:`build` on it, labels + sizes, then encode + scatter into the
+    padded planes in place, ``index_put_``). With ``store_vectors=False``
+    only the sign codes and per-vector scalars live on the device
+    (searches are then estimate-only); by default the raw rows stream
+    into the rerank plane too. Each chunk is a cancellation point."""
+    from raft_tpu_torch.core import memwatch
+    from raft_tpu_torch.neighbors._streaming import (
+        label_pass,
+        sample_trainset,
+        scatter_pass,
+    )
+
+    res = ensure_resources(res)
+    n, dim = source.n_rows, source.dim
+    expect(params.n_lists <= n, "n_lists > n_rows")
+    with tracing.range("raft_tpu.ivf_bq.build_streaming"):
+        train_rows = max(params.n_lists * 2, min(train_rows, n))
+        trainset = sample_trainset(source, train_rows, chunk_rows)
+        empty = build(res, dataclasses.replace(params,
+                                               add_data_on_build=False),
+                      trainset)
+        km = KMeansBalancedParams(metric=_kmeans_metric(params.metric))
+        labels_np, sizes_np = label_pass(res, km, empty.centers, source,
+                                         chunk_rows, params.n_lists)
+        max_size = padded_extent(sizes_np)
+        dim_ext, bits, nl = empty.dim_ext, params.bits, params.n_lists
+        # one slot: packed words, the three correction scalars and the id
+        # (+ the raw vector and its norm when the rerank plane streams)
+        slot = (bits * dim_ext // 32) * 4 + 4 + bits * 4 + 4 + 4
+        if params.store_vectors:
+            slot += dim * 4 + 4
+        memwatch.admit(nl * int(max_size) * slot, "ivf_bq.build_streaming")
+        dev = res.device
+        codes = torch.zeros((nl, max_size, bits * dim_ext // 32),
+                            dtype=torch.int32, device=dev)
+        rnorm = torch.zeros((nl, max_size), device=dev)
+        cfac = torch.zeros((nl, max_size, bits), device=dev)
+        errw = torch.zeros((nl, max_size), device=dev)
+        indices = torch.full((nl, max_size), -1, dtype=torch.int32,
+                             device=dev)
+        data = (torch.zeros((nl, max_size, dim), device=dev)
+                if params.store_vectors else None)
+
+        def scatter(rows, lists, ranks, ids):
+            rot = (rows - empty.centers[lists]) @ empty.rotation.T
+            c, rn, cf, ew = _encode(rot, bits)
+            slots = (lists, ranks)
+            codes.index_put_(slots, c)
+            rnorm.index_put_(slots, rn)
+            cfac.index_put_(slots, cf)
+            errw.index_put_(slots, ew)
+            indices.index_put_(slots, ids)
+            if data is not None:
+                data.index_put_(slots, rows)
+
+        scatter_pass(res, source, labels_np, chunk_rows, nl, scatter)
+        return dataclasses.replace(
+            empty, codes=codes, rnorm=rnorm, cfac=cfac, errw=errw,
+            indices=indices, list_sizes=res.put(sizes_np, torch.int32),
+            data=data,
+            data_norms=(None if data is None
+                        else _slot_norms(data, indices)))
 
 
 # ---------------------------------------------------------------------------

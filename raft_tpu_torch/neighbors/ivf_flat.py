@@ -14,8 +14,8 @@ The executor (:mod:`raft_tpu_torch.core.executor`) and :func:`search`
 both run :func:`_search_impl_fn` as :func:`serving_plan` sets it up; the
 executor's ragged plans run :func:`_search_ragged_fn`, the same body
 with a per-row probe budget. ``scan_engine="rank"`` runs the legacy
-rank-major gather scan instead of the list-major one. Not ported yet:
-``build_streaming``.
+rank-major gather scan instead of the list-major one.
+:func:`build_streaming` builds from a dataset file chunk by chunk.
 """
 
 from __future__ import annotations
@@ -307,6 +307,71 @@ def extend(res: Optional[Resources], index: IvfFlatIndex, new_vectors,
             list_sizes=sizes,
             metric=index.metric,
             adaptive_centers=index.adaptive_centers,
+        )
+
+
+def build_streaming(res: Optional[Resources], params: IvfFlatIndexParams,
+                    source, chunk_rows: int = 1 << 20,
+                    train_rows: int = 1 << 18) -> IvfFlatIndex:
+    """Build from a dataset that never fully materializes in host memory
+    — ``ivf_flat.py:363`` of the JAX package (role of the reference's
+    managed-memory trainset spill, ``ivf_pq_build.cuh:1542-1554``, plus
+    its batched extend).
+
+    ``source`` is a :class:`raft_tpu_torch.io.BinDataset` (or any object
+    with ``n_rows``/``dim``/``iter_chunks``). Three streamed passes:
+
+    1. a strided train sample -> balanced k-means centers;
+    2. per-chunk labels (device) + list sizes (host);
+    3. per-chunk scatter into the padded float32 list tensor, written in
+       place (``index_put_``) after the capacity gate admits it.
+
+    Each chunk is a cancellation point (:mod:`~raft_tpu_torch.core.
+    interruptible`). The sample keeps its stride across chunks, so the
+    index does not depend on ``chunk_rows``."""
+    from raft_tpu_torch.neighbors._streaming import (
+        label_pass,
+        sample_trainset,
+        scatter_pass,
+    )
+
+    res = ensure_resources(res)
+    n, d = source.n_rows, source.dim
+    expect(params.n_lists <= n, "n_lists > n_rows")
+    with tracing.range("raft_tpu.ivf_flat.build_streaming"):
+        train_rows = max(params.n_lists, min(train_rows, n))
+        trainset = sample_trainset(source, train_rows, chunk_rows)
+        km = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
+                                  metric=_kmeans_metric(params.metric),
+                                  seed=res.seed)
+        centers = kmeans_balanced.fit(res, km, res.put(trainset),
+                                      params.n_lists)
+        labels_np, sizes_np = label_pass(res, km, centers, source,
+                                         chunk_rows, params.n_lists)
+        max_size = padded_extent(sizes_np)
+        memwatch.admit(
+            memwatch.packed_layout_bytes(params.n_lists, int(max_size),
+                                         d * 4),
+            "ivf_flat.build_streaming")
+        data = torch.zeros((params.n_lists, max_size, d), device=res.device)
+        indices = torch.full((params.n_lists, max_size), -1,
+                             dtype=torch.int32, device=res.device)
+
+        def scatter(rows, lists, ranks, ids):
+            data.index_put_((lists, ranks), rows)
+            indices.index_put_((lists, ranks), ids)
+
+        scatter_pass(res, source, labels_np, chunk_rows, params.n_lists,
+                     scatter)
+        return IvfFlatIndex(
+            centers=centers,
+            center_norms=(centers * centers).sum(dim=1),
+            data=data,
+            data_norms=_slot_norms(data, indices),
+            indices=indices,
+            list_sizes=res.put(sizes_np, torch.int32),
+            metric=DistanceType(params.metric),
+            adaptive_centers=params.adaptive_centers,
         )
 
 

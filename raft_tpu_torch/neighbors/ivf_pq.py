@@ -31,8 +31,8 @@ The executor and :func:`search` both run :func:`_search_impl_fn` as
 :func:`serving_plan` sets it up; the executor's ragged plans run
 :func:`_search_ragged_fn`. The same body serves the tiered family
 (:mod:`raft_tpu_torch.neighbors.tiered`, ``TieredIvfPq``) with its codes
-split between a hot plane and pinned host memory. Not ported yet:
-``build_streaming`` (ROADMAP Queue 1 item 3), which raises.
+split between a hot plane and pinned host memory.
+:func:`build_streaming` builds from a dataset file chunk by chunk.
 """
 
 from __future__ import annotations
@@ -419,12 +419,67 @@ def build(res: Optional[Resources], params: IvfPqIndexParams,
                       torch.arange(n, dtype=torch.int32, device=dev))
 
 
-def build_streaming(res, params, source, chunk_rows: int = 1 << 20,
-                    train_rows: int = 1 << 18):
-    """The streamed build over a ``BinDataset``: not ported yet."""
-    raise NotImplementedError(
-        "ivf_pq.build_streaming waits for the streaming I/O port "
-        "(ROADMAP.md Queue 1 item 3)")
+def build_streaming(res: Optional[Resources], params: IvfPqIndexParams,
+                    source, chunk_rows: int = 1 << 20,
+                    train_rows: int = 1 << 18) -> IvfPqIndex:
+    """Streamed PQ build over a :class:`raft_tpu_torch.io.BinDataset` —
+    ``ivf_pq.py:405`` of the JAX package: the dataset never fully
+    materializes host-side (role of the reference's managed-memory
+    trainset spill, ``ivf_pq_build.cuh:1542-1554``).
+
+    Passes: (1) a strided train sample -> centers, rotation and codebooks
+    by :func:`build` on it; (2) per-chunk labels + list sizes; (3)
+    per-chunk encode + scatter into the padded code planes, written in
+    place (``index_put_``). Only the codes live on the device; they stay
+    unpacked (one byte a code) at every ``pq_bits``, as in the JAX
+    package. Each chunk is a cancellation point."""
+    from raft_tpu_torch.neighbors._streaming import (
+        label_pass,
+        sample_trainset,
+        scatter_pass,
+    )
+
+    res = ensure_resources(res)
+    expect(params.codebook_kind == CodebookKind.PER_SUBSPACE,
+           "build_streaming supports PER_SUBSPACE codebooks")
+    n, dim = source.n_rows, source.dim
+    expect(params.n_lists <= n, "n_lists > n_rows")
+    pq_dim = params.pq_dim if params.pq_dim > 0 else _auto_pq_dim(dim)
+    pq_len = -(-dim // pq_dim)
+    with tracing.range("raft_tpu.ivf_pq.build_streaming"):
+        train_rows = max(params.n_lists * 2, 1 << params.pq_bits,
+                         min(train_rows, n))
+        trainset = sample_trainset(source, train_rows, chunk_rows)
+        empty = build(res, dataclasses.replace(params,
+                                               add_data_on_build=False),
+                      trainset)
+        km = KMeansBalancedParams(metric=_kmeans_metric(params.metric))
+        labels_np, sizes_np = label_pass(res, km, empty.centers, source,
+                                         chunk_rows, params.n_lists)
+        max_size = padded_extent(sizes_np)
+        memwatch.admit(
+            memwatch.packed_layout_bytes(params.n_lists, int(max_size),
+                                         pq_dim, norms=False),
+            "ivf_pq.build_streaming")
+        dev = res.device
+        codes = torch.zeros((params.n_lists, max_size, pq_dim),
+                            dtype=torch.uint8, device=dev)
+        indices = torch.full((params.n_lists, max_size), -1,
+                             dtype=torch.int32, device=dev)
+
+        def scatter(rows, lists, ranks, ids):
+            rot = _rotate_residuals(rows, lists, empty.centers,
+                                    empty.rotation)
+            codes.index_put_((lists, ranks), _encode(
+                rot, empty.codebooks, lists, CodebookKind.PER_SUBSPACE,
+                pq_dim, pq_len))
+            indices.index_put_((lists, ranks), ids)
+
+        scatter_pass(res, source, labels_np, chunk_rows, params.n_lists,
+                     scatter)
+        return dataclasses.replace(
+            empty, codes=codes, indices=indices,
+            list_sizes=res.put(sizes_np, torch.int32), packed=False)
 
 
 def extend(res: Optional[Resources], index: IvfPqIndex, new_vectors,

@@ -8,6 +8,10 @@ library is never loaded. :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them.
 
 There is no fallback: a CUDA call on a machine without ``nvcc`` raises.
+
+Host libraries (``csrc/<name>.cpp``, plain C++ with no CUDA: the dataset
+I/O of :mod:`raft_tpu_torch.io`) go through the same steps with ``g++``
+(or ``$CXX``) and HOST_FLAGS in place of ``nvcc`` (:func:`host_library`).
 """
 
 from __future__ import annotations
@@ -18,12 +22,13 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,19 +73,39 @@ def nvcc_path() -> str:
     return path
 
 
+def cxx_path() -> str:
+    path = shutil.which(os.environ.get("CXX", "g++"))
+    if path is None:
+        raise RuntimeError("no C++ compiler (g++ or $CXX) to build the host "
+                           "libraries of raft_tpu_torch")
+    return path
+
+
+def _source(name: str) -> Tuple[str, List[str]]:
+    """The source file of library ``name`` and its flags: a ``.cpp`` (host
+    code, no CUDA) is built by ``g++`` with HOST_FLAGS, a ``.cu`` by
+    ``nvcc`` with FLAGS."""
+    if os.path.exists(os.path.join(CSRC, f"{name}.cpp")):
+        return f"{name}.cpp", HOST_FLAGS
+    return f"{name}.cu", FLAGS
+
+
 def _library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    src, flags = _source(name)
+    h = hashlib.sha256(" ".join(flags).encode())
     for fn in sorted(os.listdir(CSRC)):
-        if fn == f"{name}.cu" or fn.endswith(".cuh"):
+        if fn == src or (src.endswith(".cu") and fn.endswith(".cuh")):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str, out: str) -> subprocess.Popen:
+    src, flags = _source(name)
+    compiler = nvcc_path() if src.endswith(".cu") else cxx_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [compiler, *flags, "-o", tmp, os.path.join(CSRC, src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -90,7 +115,8 @@ def _finish(name: str, out: str, proc: subprocess.Popen) -> None:
     with open(out + ".log", "w") as f:
         f.write(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"{os.path.basename(proc.args[0])} failed for "
+                           f"{_source(name)[0]}:\n{log}")
     os.replace(f"{out}.{os.getpid()}.tmp", out)
 
 
@@ -104,6 +130,18 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
     for n, proc in procs.items():
         _finish(n, paths[n], proc)
     return paths
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The host library built from ``csrc/<name>.cpp``, compiled on first
+    use like the kernels; raises when there is no compiler or the build
+    fails."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_all([name])[name])
+            _loaded[name] = lib
+    return lib
 
 
 def load(name: str):

@@ -126,6 +126,25 @@ def ragged_probes(probes: torch.Tensor, row_probes: torch.Tensor,
                        torch.full_like(probes, n_lists))
 
 
+def ragged_owned(mine: torch.Tensor, row_probes: torch.Tensor,
+                 shards: int = 1) -> torch.Tensor:
+    """Fold a packed ragged tile's per-row probe budgets into a sharded
+    probe-ownership mask (``raft_tpu/ops/ivf_scan.py:214``), the mesh
+    half of the ragged front: ``mine`` is
+    :func:`raft_tpu_torch.distributed.ivf.select_probes_sharded`'s
+    (row, probe rank) mask, whose columns follow the exact coarse top-k
+    (a total order, so a row's first ``b`` columns are the solo
+    ``n_probes=b`` selection). A row keeps only its slots below its
+    budget; ``shards`` turns the global budget into the per-shard one of
+    ``probe_mode="local"`` (``ceil(b / R)``). Pad rows (budget 0) own
+    nothing."""
+    slot = torch.arange(mine.shape[1], device=mine.device)
+    budget = torch.as_tensor(row_probes, device=mine.device)
+    if shards > 1:
+        budget = -torch.div(-budget, shards, rounding_mode="floor")
+    return mine & (slot[None, :] < budget[:, None])
+
+
 def unique_lists(probes: torch.Tensor, n_lists: int) -> torch.Tensor:
     """Sorted union of probed list ids, padded to the static cap
     ``min(n_lists, q * n_probes)`` with the sentinel id ``n_lists``.

@@ -65,7 +65,16 @@ def test_import_leaves_jax_unloaded():
             "raft_tpu_torch.distance, raft_tpu_torch.cluster, "
             "raft_tpu_torch.neighbors.ball_cover, "
             "raft_tpu_torch.neighbors.epsilon_neighborhood, "
-            "raft_tpu_torch.spatial, raft_tpu_torch.utils; "
+            "raft_tpu_torch.spatial, raft_tpu_torch.utils, "
+            "raft_tpu_torch.core.interruptible, raft_tpu_torch.io, "
+            "raft_tpu_torch.io.binfile, raft_tpu_torch.neighbors._streaming, "
+            "raft_tpu_torch.comms, raft_tpu_torch.comms.comms, "
+            "raft_tpu_torch.comms.bootstrap, raft_tpu_torch.distributed, "
+            "raft_tpu_torch.distributed.ivf, raft_tpu_torch.distributed.bq, "
+            "raft_tpu_torch.distributed.knn, "
+            "raft_tpu_torch.distributed.kmeans, "
+            "raft_tpu_torch.distributed.sharded_ann, "
+            "raft_tpu_torch.distributed.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'raft_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

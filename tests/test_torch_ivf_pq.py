@@ -294,8 +294,10 @@ def test_engine_resolution_and_errors():
             cold_codes=ti.codes[:0], hot_slot_map=maps,
             cold_slot_map=-1 - 0 * maps, n_probes=2, k=5, metric=ti.metric,
             codebook_kind=ti.codebook_kind)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        t_pq.build_streaming(CPU, t_pq.IvfPqIndexParams(), None)
+    # build_streaming is ported: it refuses what the JAX one refuses
+    with pytest.raises(RaftError, match="PER_SUBSPACE"):
+        t_pq.build_streaming(CPU, t_pq.IvfPqIndexParams(
+            codebook_kind=t_pq.CodebookKind.PER_CLUSTER), None)
     with pytest.raises(RaftError, match="pq_bits"):
         t_pq.build(CPU, t_pq.IvfPqIndexParams(pq_bits=3), _int_data(0, 64))
 
