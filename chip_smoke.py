@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases env,build,kernels,main,serve,ragged,distance,pq,stream,
-                  dist,times]
+                  dist,meshserve,observe,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -100,10 +100,11 @@ non-zero exit (nothing is caught and passed over):
             during the tiered searches. The IVF-BQ path on the same data:
             ivf_bq.build (n_lists=1024, bits 1, the vector plane kept);
             the same four searches (recall@10, median ms, rows
-            reranked as a share of rows probed), each request then
+            reranked as a share of rows probed), the requests then
             held against the plain scan on distances, ids and rows
-            reranked; n_probes=1024 recall
-            on 1,000 queries; save -> load -> search bit-identical; and
+            reranked (at batch 10 every other of 100, at batch 500 every
+            fifth of 20, spread over the queries: cuts for the time limit);
+            n_probes=1024 recall on 1,000 queries; save -> load -> search bit-identical; and
             matrix.select_k(k=10) over a (64, 1,000,000) slab of squared
             distances equals brute force's ids, ties aside. Tiered IVF-BQ
             on that index: build_tiered_bq(hot_fraction=0.5), the five
@@ -268,8 +269,57 @@ non-zero exit (nothing is caught and passed over):
             sub-indexes on the first 200,000 rows (recall@10 >= 0.90 at itopk
             64, batch 500). The IVF scan, the BQ scan, ivf_pq_scan and the beam
             search must launch in the phase; its launches add to the kernels
-            line's. Its numbers go to chiprun_out/dist.json.
-11. times   per kernel at the main path's shapes: kernel ms (CUDA
+            line's. Its numbers go to chiprun_out/dist.json. It keeps the
+            three dealt indexes for the next two phases.
+11. meshserve  the executor's mesh plans on dist's indexes (alone with
+            --phases env,build,dist,meshserve,observe): an executor a
+            family (IVF-Flat, IVF-PQ on the sift raft_ivf_pq entry, IVF-BQ
+            bits 1), the ladder 8..512 at n_probes {32, 128} captured
+            (capture s, graph-pool bytes); 200 requests of 1-500 rows
+            (from --seed) each equal to distributed.search* bit for bit,
+            no capture after warmup, kernel #2, ivf_pq_scan and #4
+            launched; direct and captured median ms at (32, 10), (128,
+            10) and (128, 500) over 20 timed requests a point, beside
+            serve's single-device captured ms; a 2 x 2 grid (2 list x 2
+            query slots, query_axis) equal to the 1-D plan bit for bit
+            (global probes); a ragged DynamicBatcher (n_probes 20/24/32, 256-row
+            tiles) fed from 4 threads with 160 requests of 1-40 rows, each
+            equal to its solo search (pad waste printed); the probe
+            histogram of 8 requests equal to the single-device
+            executor's in the dealt order; mesh_trace's phase spans over
+            the merged outputs' readiness (no per-slot span or straggler
+            gauge: the executor sees no slot's own readiness) with no
+            capture. Its launches add to the kernels line's; its
+            numbers go to chiprun_out/meshserve.json.
+12. observe the observability plane over a served run: a
+            MetricsExporter on 127.0.0.1 over a probe-accounting executor
+            serving the single-device and the dist IVF-Flat indexes
+            (n_probes 32), a TierManager, a memory ledger and an
+            IndexGauge (shadow recall through brute force at a 10%
+            sample, drift), a batcher fed from 4 threads (800 requests of
+            1-40 rows, each equal to its direct search); /profile?seconds=1
+            during the traffic, attributed against executable_costs():
+            every entry that served in the window gets measured device
+            seconds from its timed calls (CUDA events), printed beside
+            the kernels the trace saw, and device_achieved_gbps beside
+            the modeled bytes; ContinuousCapture's two 0.05 s windows
+            under its 1% budget move rolling_*; /metrics, /snapshot.json,
+            /trace.json?trace_id=, /memory.json, /tier.json, /index.json;
+            the shadow-recall Wilson interval must contain the recall@10
+            measured against brute-force truth, and the drift score of
+            queries shifted by one list's centre offset must exceed the
+            in-distribution one; a FlightRecorder attached while the
+            batcher serves from 4 threads, its latency threshold the
+            served p50 (below the served p99), fires on a scrape, and its
+            incident's capture of that traffic is attributed to every
+            entry that served in it (/incident.json answers 200); a
+            FleetAggregator over two exporters in this
+            process (one replica each) sums the replicas' lifetime
+            counters exactly and takes the fleet p99 from the merged
+            histogram; /memory_profile before and after an
+            ivf_flat.extend of 100,000 rows shows its allocation. Its
+            numbers go to chiprun_out/observe.json.
+13. times   per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -288,7 +338,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-12. profile (not in the default run) torch.profiler over five requests
+14. profile (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -1580,12 +1630,6 @@ def main_bq(torch, state: dict) -> None:
     list_sizes = index.list_sizes.to(torch.int64)
     for n_probes in (32, 128):
         sp = ivf_bq.IvfBqSearchParams(n_probes=n_probes)
-        # rows probed over the first 1,000 queries
-        probed = 0
-        for s0 in range(0, 1000, 500):
-            probes = ivf_bq.coarse_probes(index, queries[s0:s0 + 500],
-                                          n_probes)[0]
-            probed += int(list_sizes[probes.to(torch.int64)].sum())
         for batch, n_q in ((10, 1000), (500, N_QUERIES)):
             outs, times = [], []
             for s0 in range(0, n_q, batch):
@@ -1594,11 +1638,18 @@ def main_bq(torch, state: dict) -> None:
                                           queries[s0:s0 + batch], K))
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t1) * 1e3)
-            # every request against the plain scan, after the timing: the
+            # the requests against the plain scan, after the timing: the
             # search's ids and distances, and the rows each query reranked
-            # (the kernel's count, from the same request's scan again)
-            surv = 0
-            for j, s0 in enumerate(range(0, n_q, batch)):
+            # (the kernel's count, from the same request's scan again) of
+            # every BQ_PLAIN_STRIDE[batch]-th request (a cut for the time
+            # limit: the plain scan takes seconds a request at batch 500)
+            surv = probed = 0
+            stride = BQ_PLAIN_STRIDE[batch]
+            starts = range(0, n_q, batch)
+            checked = [(j, s0) for j, s0 in enumerate(starts)
+                       if j % stride == 0]
+            t_chk = time.perf_counter()
+            for j, s0 in checked:
                 qb = queries[s0:s0 + batch]
                 name = (f"ivf_bq.search n_probes={n_probes} batch={batch} "
                         f"request {j}")
@@ -1609,8 +1660,10 @@ def main_bq(torch, state: dict) -> None:
                         and torch.equal(outs[j][1], got[1])):
                     fail(f"{name}: the scan run again differs from the "
                          "search")
-                if s0 < 1000:
-                    surv += int(got[2].sum())
+                surv += int(got[2].sum())
+                probes = ivf_bq.coarse_probes(index, qb, n_probes)[0]
+                probed += int(list_sizes[probes.to(torch.int64)].sum())
+            t_chk = time.perf_counter() - t_chk
             share = surv / probed
             state[f"bq_survivors_p{n_probes}"] = share
             ids = torch.cat([o[1] for o in outs])
@@ -1619,9 +1672,9 @@ def main_bq(torch, state: dict) -> None:
             log(f"[main] ivf_bq.search n_probes={n_probes} batch={batch}: "
                 f"recall@10 {r:.4f} over {n_q} queries, median {ms:.3f} ms "
                 f"per batch, rows reranked {surv} of {probed} probed "
-                f"({100 * share:.3f}%) over the first 1000 queries; every "
-                "request equals the plain scan on distances, ids and rows "
-                "reranked")
+                f"({100 * share:.3f}%) over the checked requests' queries; "
+                f"{len(checked)} requests (every {stride}) equal the plain "
+                f"scan on distances, ids and rows reranked ({t_chk:.1f} s)")
             state[f"bq_recall_p{n_probes}_b{batch}"] = r
             state[f"bq_ms_p{n_probes}_b{batch}"] = ms
     if state["bq_recall_p128_b500"] < 0.95:
@@ -1673,6 +1726,10 @@ def main_bq(torch, state: dict) -> None:
     main_cagra(torch, state)
 
 
+#: IVF-BQ requests held against the plain scan, by batch: every other of
+#: the 100 timed at batch 10 (50 over the 1,000 queries), every fifth of
+#: the 20 at batch 500 (4 over the 10,000)
+BQ_PLAIN_STRIDE = {10: 2, 500: 5}
 #: tiered IVF-BQ requests (n_probes, batch, requests): the plain fused
 #: engine runs them (~4 s at (128, 500)), so three of each small one and
 #: one at 500, a cut for the time limit
@@ -4853,7 +4910,8 @@ def phase_dist(torch, state: dict) -> None:
     out["flat"] = dist_family(torch, state, "flat", flat, state["index"],
                               ivf_flat.IvfFlatSearchParams, divf.search,
                               ivf_flat.search)
-    del flat
+    # the meshserve and observe phases serve these dealt indexes
+    state["dist_flat"] = flat
     with BinDataset(state["stream_path"], use_native=True) as ds:
         t0 = time.perf_counter()
         streamed = divf.build_streaming(res, comms, params, ds,
@@ -4889,7 +4947,7 @@ def phase_dist(torch, state: dict) -> None:
     out["bq"] = dist_family(torch, state, "bq", bq, state["bq_index"],
                             ivf_bq.IvfBqSearchParams, dbq.search_bq,
                             ivf_bq.search)
-    del pq, bq
+    state["dist_pq"], state["dist_bq"] = pq, bq
 
     # index-per-shard CAGRA on the first DIST_CAGRA_ROWS rows
     part = x[:DIST_CAGRA_ROWS]
@@ -4926,6 +4984,662 @@ def phase_dist(torch, state: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# meshserve / observe: the executor's mesh plans and the observability
+# plane, on the dist phase's 4-slot indexes
+
+
+MESH_POINTS = ((32, 10), (128, 10), (128, 500))
+MESH_TIMED = 20
+MESH_RAGGED_REQUESTS = 160
+MESH_ACCOUNTED_REQUESTS = 8
+OBSERVE_REQUESTS = 800
+OBSERVE_THREADS = 4
+#: served requests in the flight recorder's threshold window and in its
+#: trigger window
+FLIGHT_WINDOW = 64
+DRIFT_ROUNDS = 3
+
+
+def _mesh_families(state: dict) -> list:
+    """(family, dealt index, params type, direct search, kernel) of the
+    three list-sharded families the dist phase kept."""
+    from raft_tpu_torch.distributed import bq as dbq
+    from raft_tpu_torch.distributed import ivf as divf
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+
+    return [("dist_ivf_flat", state["dist_flat"],
+             ivf_flat.IvfFlatSearchParams, divf.search, "list_major_scan"),
+            ("dist_ivf_pq", state["dist_pq"], ivf_pq.IvfPqSearchParams,
+             divf.search_pq, "ivf_pq_scan"),
+            ("dist_ivf_bq", state["dist_bq"], ivf_bq.IvfBqSearchParams,
+             dbq.search_bq, "bq_scan")]
+
+
+def _host_ms(torch, fn, reps: int) -> float:
+    """Median request ms on the host clock, each request synchronized."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_meshserve(torch, state: dict) -> None:
+    """The executor's mesh plans on the dist phase's indexes (the module
+    docstring)."""
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.comms import local_comms
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.distributed import ivf as divf
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serving import BatcherConfig, DynamicBatcher, metrics
+
+    res, queries = state["res"], state["queries"]
+    sizes = _request_sizes(state["seed"] + 15, SERVE_REQUESTS)
+    out = {"families": {}}
+    launches = state.setdefault("launches", {})
+    executors = {}
+    for family, index, SP, direct, kernel in _mesh_families(state):
+        ex = SearchExecutor(res)
+        t0 = time.perf_counter()
+        for n_probes in (32, 128):
+            ex.warmup(index, buckets=SERVE_LADDER, k=K,
+                      params=SP(n_probes=n_probes))
+        cap_s = time.perf_counter() - t0
+        costs = ex.executable_costs().values()
+        if not all(c["captured"] for c in costs):
+            fail(f"meshserve {family}: a plan was not captured")
+        pool = sum(c["pool_bytes"] for c in costs)
+        reqs = [(m, s, SP(n_probes=(32, 128)[j % 2]))
+                for j, (m, s) in enumerate(sizes)]
+        want = [direct(res, sp, index, queries[s:s + m], K)
+                for m, s, sp in reqs]
+        torch.cuda.synchronize()
+        c0 = ex.stats.compile_count
+        reset_launches()
+        got = [ex.search(index, queries[s:s + m], K, params=sp)
+               for m, s, sp in reqs]
+        torch.cuda.synchronize()
+        counts = read_launches((kernel,), f"meshserve {family}")
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        for j, (g, w) in enumerate(zip(got, want)):
+            _served_equal(torch, f"mesh {family} request {j}", g, w)
+        if ex.stats.compile_count != c0:
+            fail(f"meshserve {family}: {ex.stats.compile_count - c0} "
+                 "captures after warmup")
+        log(f"[meshserve] {family}: {len(costs)} plans captured (ladder "
+            f"{SERVE_LADDER[0]}..{SERVE_LADDER[-1]} x n_probes 32, 128) in "
+            f"{cap_s:.2f} s, graph pools {pool / 2**20:.1f} MiB; "
+            f"{len(reqs)} requests of 1-500 rows equal the direct search "
+            f"bit for bit, 0 captures after warmup, {kernel} launched "
+            f"{counts[kernel]} times")
+        row = {"plans": len(costs), "capture_s": cap_s, "pool_bytes": pool,
+               "launches": counts[kernel]}
+        serve_rows = {r["request"]: r for r in state.get("serve_times", ())}
+        for n_probes, batch in MESH_POINTS:
+            sp = SP(n_probes=n_probes)
+            q = queries[:batch]
+            d_ms = _host_ms(torch, lambda: direct(res, sp, index, q, K),
+                            MESH_TIMED)
+            c_ms = _host_ms(torch, lambda: ex.search(index, q, K, params=sp),
+                            MESH_TIMED)
+            single = serve_rows.get(
+                f"ivf_flat n_probes={n_probes} batch={batch}", {}).get(
+                    "captured_ms") if family == "dist_ivf_flat" else None
+            row[f"{n_probes}x{batch}"] = dict(direct_ms=d_ms, captured_ms=c_ms,
+                                              single_captured_ms=single)
+            log(f"[meshserve] {family} ({n_probes}, {batch}): direct "
+                f"{d_ms:.3f} ms, captured {c_ms:.3f} ms (median of "
+                f"{MESH_TIMED} requests, host clock, each synchronized)"
+                + ("" if single is None else
+                   f"; single-device captured (serve phase) {single:.3f} ms"))
+        out["families"][family] = row
+        executors[family] = ex
+
+    flat = state["dist_flat"]
+    flat_ex = executors["dist_ivf_flat"]
+    # the 2-D grid: the same lists over 4 list slots x 2 query slots
+    comms2 = local_comms(("lists", "queries"), shape=(2, 2),
+                         device=res.device)
+    flat2 = divf.from_index(comms2, state["index"])
+    ex2 = SearchExecutor(res)
+    for n_probes, batch in MESH_POINTS:
+        sp = ivf_flat.IvfFlatSearchParams(n_probes=n_probes)
+        q = queries[:batch + 3]
+        _served_equal(torch, f"2-D grid ({n_probes}, {batch + 3})",
+                      ex2.search(flat2, q, K, params=sp, query_axis="queries"),
+                      flat_ex.search(flat, q, K, params=sp))
+    log("[meshserve] 2 x 2 grid (2 list x 2 query slots, query_axis): "
+        f"equal to the 1-D {DIST_SLOTS}-slot plan bit for bit at "
+        + ", ".join(f"({p}, {b + 3})" for p, b in MESH_POINTS)
+        + f" ({ex2.stats.compile_count} plans captured)")
+    del flat2, ex2
+
+    # the batcher over the mesh ragged family, four threads
+    ragged = SearchExecutor(res, ragged_tile=256)
+    classes = [ivf_flat.IvfFlatSearchParams(n_probes=p) for p in (20, 24, 32)]
+    ragged.warmup_ragged(flat, k=K, params=classes[-1])
+    rng = np.random.default_rng(state["seed"] + 16)
+    reqs = [(int(m), int(rng.integers(0, N_QUERIES - 40)),
+             classes[int(rng.integers(0, 3))])
+            for m in rng.integers(1, 41, MESH_RAGGED_REQUESTS)]
+    solo = [divf.search(res, sp, flat, queries[s:s + m], K)
+            for m, s, sp in reqs]
+    torch.cuda.synchronize()
+    c0 = ragged.stats.compile_count
+    metrics.reset()
+    results = [None] * len(reqs)
+    with DynamicBatcher(ragged, BatcherConfig(max_wait_s=0.002,
+                                              ragged=True)) as b:
+        def worker(t):
+            hs = [(j, b.submit(flat, queries[s:s + m], K, params=sp))
+                  for j, (m, s, sp) in enumerate(reqs)
+                  if j % OBSERVE_THREADS == t]
+            for j, h in hs:
+                results[j] = h.result(timeout=120)
+
+        import threading
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(OBSERVE_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    for j, (g, w) in enumerate(zip(results, solo)):
+        if g is None:
+            fail(f"meshserve ragged request {j} got no result")
+        _served_equal(torch, f"mesh ragged request {j}", g, w)
+    waste = metrics.derived()["pad_waste_fraction"]
+    calls = tracing.get_counter("serving.execute.calls")
+    if ragged.stats.compile_count != c0 or ragged.ragged_executables() != 1:
+        fail("meshserve ragged: a capture after warmup")
+    log(f"[meshserve] ragged dist_ivf_flat (n_probes 20/24/32, 256-row "
+        f"tiles) behind a DynamicBatcher from {OBSERVE_THREADS} threads: "
+        f"{len(reqs)} requests of 1-40 rows in {int(calls)} packed "
+        f"dispatches, each row equal to its solo search; pad waste "
+        f"{100 * waste:.1f}%, 0 captures after warmup")
+    out["ragged"] = dict(requests=len(reqs), dispatches=calls,
+                         pad_waste=waste)
+    del ragged
+
+    # probe accounting: the mesh plane in the dealt order against the
+    # single-device executor's, on the same requests
+    from raft_tpu_torch.distributed.ivf import deal_order
+
+    sp = ivf_flat.IvfFlatSearchParams(n_probes=32)
+    mesh_acc = SearchExecutor(res, probe_accounting=True)
+    single_acc = SearchExecutor(res, probe_accounting=True)
+    mesh_acc.warmup(flat, buckets=(512,), k=K, params=sp)
+    single_acc.warmup(state["index"], buckets=(512,), k=K, params=sp)
+    for j in range(MESH_ACCOUNTED_REQUESTS):
+        q = queries[500 * j:500 * j + 500 - 7 * j]
+        mesh_acc.search(flat, q, K, params=sp)
+        single_acc.search(state["index"], q, K, params=sp)
+    (hm,) = mesh_acc.probe_frequencies().values()
+    (hs,) = single_acc.probe_frequencies().values()
+    perm = deal_order(state["index"].list_sizes.cpu().numpy(), DIST_SLOTS)
+    if not np.array_equal(hm, hs[perm]):
+        fail("meshserve: the mesh probe histogram differs from the "
+             "single-device one")
+    log(f"[meshserve] probe accounting over {MESH_ACCOUNTED_REQUESTS} "
+        f"requests ({int(hm.sum())} probes): the mesh plane equals the "
+        "single-device plane in the dealt order, list for list")
+    del mesh_acc, single_acc
+
+    # mesh_trace: spans and gauges from a captured plan, no new capture
+    traced = SearchExecutor(res, mesh_trace=True)
+    traced.warmup(flat, buckets=(16,), k=K, params=sp)
+    c0 = traced.stats.compile_count
+    tracing.reset_spans()
+    tracing.reset_gauges("serving.mesh.")
+    d0 = tracing.get_counter("serving.mesh.dispatches")
+    tid = tracing.new_trace_id()
+    for j in range(5):
+        traced.search(flat, queries[16 * j:16 * j + 16], K, params=sp,
+                      trace_ids=(tid,))
+    rec = tracing.span_recorder()
+    phases = {p: rec.spans(trace_id=tid, name=f"serving.mesh.{p}")
+              for p in ("coarse_select", "scan", "merge")}
+    ready = [s.duration for s in phases["merge"]]
+    # the executor sees only the merged outputs: no per-slot span or
+    # straggler gauge (SearchExecutor._record_mesh_dispatch)
+    if (any(len(v) != 5 for v in phases.values()) or min(ready) <= 0
+            or rec.spans(trace_id=tid, name="serving.mesh.shard")
+            or tracing.gauges("serving.mesh.")
+            or tracing.get_counter("serving.mesh.dispatches") != d0 + 5
+            or traced.stats.compile_count != c0):
+        fail("meshserve: mesh_trace spans missing, per-slot readings "
+             "published, or a capture")
+    log(f"[meshserve] mesh_trace: 5 dispatches recorded "
+        f"{ {p: len(v) for p, v in phases.items()} } phase spans over the "
+        f"merged outputs' readiness ({min(ready) * 1e3:.3f}-"
+        f"{max(ready) * 1e3:.3f} ms after dispatch), no per-slot span; "
+        "0 captures")
+    state["mesh_executors"] = executors
+    out["card"] = state.get("card")
+    path = os.path.join("chiprun_out", "meshserve.json")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    log(f"[meshserve] {state.get('card')}: results in {path}")
+
+
+def _get_url(url: str, data=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 method="POST" if data is not None
+                                 else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_observe(torch, state: dict) -> None:
+    """The observability plane over a served run (the module
+    docstring)."""
+    import tempfile
+    import threading
+
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.core import memwatch, profiling, tracing
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, tiered
+    from raft_tpu_torch.serving import (
+        BatcherConfig,
+        ContinuousCapture,
+        ContinuousConfig,
+        DriftDetector,
+        DynamicBatcher,
+        FleetAggregator,
+        FlightConfig,
+        FlightRecorder,
+        IndexGauge,
+        LatencyAnomaly,
+        MetricsExporter,
+        PlacementConfig,
+        ShadowConfig,
+        ShadowSampler,
+        TierManager,
+        metrics,
+    )
+    from raft_tpu_torch.serving.federation import merge_histograms
+    from raft_tpu_torch.serving.flight import window_quantile
+    from raft_tpu_torch.serving.harness import ManualClock
+
+    res, queries, gt_i = state["res"], state["queries"], state["gt_i"]
+    index, flat = state["index"], state["dist_flat"]
+    sp = ivf_flat.IvfFlatSearchParams(n_probes=32)
+    out = {}
+    metrics.reset()
+    ex = SearchExecutor(res, probe_accounting=True)
+    t0 = time.perf_counter()
+    # every plan the batcher can dispatch (its micro-batches hold at most
+    # full_batch_rows = 256 rows) captured before the traffic: a miss
+    # during a profiler session would wait for the session to end
+    ladder = tuple(bk for bk in SERVE_LADDER if bk <= 256)
+    for idx in (index, flat):
+        ex.warmup(idx, buckets=ladder, k=K, params=sp)
+    tmgr = TierManager(tiered.build_tiered(index, hot_fraction=0.5), ex,
+                       config=PlacementConfig(), clock=ManualClock())
+    ledger = memwatch.MemoryLedger(executor=ex)
+    ledger.watch("ivf_flat", index)
+    exact = brute_force.build(res, state["x"])
+    ex.warmup(exact, buckets=ladder, k=K)
+    prof_dir = tempfile.mkdtemp(prefix="observe_")
+    b = DynamicBatcher(ex, BatcherConfig(max_wait_s=0.002))
+    sampler = ShadowSampler(b, exact, ShadowConfig(
+        fraction=0.1, seed=state["seed"], timeout_s=None, window_s=1e9))
+    det = DriftDetector.from_index(index)
+    gauge = IndexGauge(executor=ex, indexes={"ivf_flat": index},
+                       sampler=sampler, drift={"ivf_flat": det})
+    cont_clock = ManualClock()
+    cont = ContinuousCapture(executor=ex, config=ContinuousConfig(
+        period_s=5.0, capture_seconds=0.05, duty_cycle_budget=0.01),
+        clock=cont_clock, profile_dir=prof_dir)
+    exp = MetricsExporter(executor=ex, batcher=b, profile_dir=prof_dir,
+                          index_gauge=gauge, memory=ledger, tier=tmgr)
+    exp.start()
+    log(f"[observe] exporter on {exp.url('/')}: a probe-accounting executor "
+        f"(ivf_flat and dist_ivf_flat, n_probes 32, {ex.stats.compile_count}"
+        f" plans), TierManager, memory ledger, index gauge; set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # traffic: 4 threads, alternating single-device and mesh requests
+    # of 1-40 rows, every one checked against its direct search
+    rng = np.random.default_rng(state["seed"] + 17)
+    reqs = [(int(m), int(rng.integers(0, N_QUERIES - 40)))
+            for m in rng.integers(1, 41, OBSERVE_REQUESTS)]
+    from raft_tpu_torch.distributed import ivf as divf
+
+    want = [(divf.search(res, sp, flat, queries[s:s + m], K) if j % 2
+             else ivf_flat.search(res, sp, index, queries[s:s + m], K))
+            for j, (m, s) in enumerate(reqs)]
+    results = [None] * len(reqs)
+
+    def serve(sel):
+        def worker(t):
+            hs = []
+            for j in sel:
+                if j % OBSERVE_THREADS != t:
+                    continue
+                m, s = reqs[j]
+                q = queries[s:s + m]
+                if j % 2:
+                    hs.append((j, b.submit(flat, q, K, params=sp)))
+                else:
+                    hs.append((j, sampler.submit(index, q, K, params=sp)))
+            for j, h in hs:
+                results[j] = h.result(timeout=120)
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(OBSERVE_THREADS)]
+        for th in threads:
+            th.start()
+        return threads
+
+    # /profile?seconds=1 while the first half of the traffic runs
+    half = range(len(reqs) // 2)
+    threads = serve(half)
+    code, body = _get_url(exp.url("/profile?seconds=1"))
+    for th in threads:
+        th.join()
+    if code != 200:
+        fail(f"/profile answered {code}: {body[:200]!r}")
+    trace_file = json.loads(body)["trace_file"]
+    if trace_file is None or not os.path.exists(trace_file):
+        fail("/profile wrote no trace")
+    data = profiling.load_trace(trace_file)
+    calls = profiling.parse_calls(data)
+    ops = profiling.parse_chrome_trace(data)
+    attr = profiling.attribute(trace_file, ex.executable_costs())
+    served = {c["module"] for c in calls}
+    if not served or set(attr.modules) != {
+            d for d, info in ex.executable_costs().items()
+            if info["hlo_module"] in served}:
+        fail("the /profile capture's attribution misses an entry that "
+             "served in the window")
+    if not any(m.family == "dist_ivf_flat" for m in attr.modules.values()) \
+            or not any(m.family == "ivf_flat" for m in attr.modules.values()):
+        fail("the /profile window saw no mesh or no single-device entry")
+    cats = {}
+    for ev in data.get("traceEvents", ()):
+        cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+    annot = {e.get("name") for e in data.get("traceEvents", ())
+             if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("rt_")}
+    log(f"[observe] /profile?seconds=1: {os.path.getsize(trace_file)} bytes,"
+        f" {len(ops)} device ops, event categories {cats}; {len(calls)} "
+        f"timed calls over {len(served)} entries; rt_ annotations from the "
+        f"batcher thread seen in the trace: {len(annot)}")
+    for digest, m in sorted(attr.modules.items()):
+        if m.device_seconds <= 0:
+            fail(f"entry {digest} served without measured device time")
+        log(f"[observe]   {m.family} {digest}: {m.invocations} calls, "
+            f"device {m.device_seconds * 1e3:.3f} ms (CUDA events), the "
+            f"trace's kernels {m.trace_seconds * 1e3:.3f} ms "
+            f"({len(m.kernel_seconds)} kernel names: "
+            f"{sorted(m.kernel_seconds)[:4]}), measured "
+            f"{m.measured_gbps():.2f} GB/s over modeled "
+            f"{m.modeled_bytes_per_call / 1e6:.2f} MB a call")
+    profiling.publish(attr)
+    d = metrics.derived()
+    log(f"[observe] derived: device_achieved_gbps "
+        f"{d['device_achieved_gbps']:.2f} over modeled bytes "
+        f"{d['modeled_bytes_total'] / 1e9:.3f} GB total; wall-clock "
+        f"achieved_gbps {d['achieved_gbps']:.2f}")
+    out["profile"] = dict(device_ops=len(ops), calls=len(calls),
+                          categories=cats, annotations=len(annot),
+                          modules={dg: m.to_dict()
+                                   for dg, m in attr.modules.items()},
+                          device_achieved_gbps=d["device_achieved_gbps"])
+
+    # continuous capture: two windows under the 1% budget, each over
+    # traffic that runs until both are taken (unchecked: its requests
+    # repeat checked ones)
+    stop = threading.Event()
+
+    def pump(t):
+        j = t
+        while not stop.is_set():
+            m, s = reqs[j % len(reqs)]
+            idx = flat if j % 2 else index
+            b.submit(idx, queries[s:s + m], K, params=sp).result(timeout=120)
+            j += OBSERVE_THREADS
+
+    pumps = [threading.Thread(target=pump, args=(t,))
+             for t in range(OBSERVE_THREADS)]
+    for th in pumps:
+        th.start()
+    time.sleep(0.2)
+    snaps = [cont.tick()]
+    cont_clock.advance(5.0)
+    snaps.append(cont.tick())
+    stop.set()
+    for th in pumps:
+        th.join()
+    threads = serve(range(len(reqs) // 2, 3 * len(reqs) // 4))
+    for th in threads:
+        th.join()
+    d = metrics.derived()
+    if (any(s is None for s in snaps) or snaps[-1]["windows"] != 2
+            or d["rolling_windows"] != 2 or d["rolling_gbps"] <= 0):
+        fail("ContinuousCapture did not fold two windows into the rolling "
+             "gauges")
+    # the second capture was admitted at 1% exactly; a period later the
+    # two captures amortize to it again
+    duty = cont.duty_cycle(cont_clock.now() + 5.0)
+    if duty > 0.01 + 1e-12:
+        fail(f"continuous duty cycle {duty:.4f} over its 1% budget")
+    log(f"[observe] ContinuousCapture: 2 windows of 0.05 s a 5 s period, "
+        f"duty cycle {100 * duty:.2f}% (budget 1%), rolling_gbps "
+        f"{d['rolling_gbps']:.2f}, rolling_windows {d['rolling_windows']:.0f}")
+    out["continuous"] = dict(duty=duty, rolling_gbps=d["rolling_gbps"])
+
+    # the rest of the traffic, then the scrapes
+    threads = serve(range(3 * len(reqs) // 4, len(reqs)))
+    for th in threads:
+        th.join()
+    for j, (g, w) in enumerate(zip(results, want)):
+        if g is None:
+            fail(f"observe request {j} got no result")
+        _served_equal(torch, f"observe request {j}", g, w)
+    code, text = _get_url(exp.url("/metrics"))
+    text = text.decode()
+    need = ("serving_batcher_e2e_seconds_bucket", "index_health_rows",
+            "serving_executable_bytes_accessed", "memory_index_resident_bytes")
+    if code != 200 or not all(n in text for n in need):
+        fail("/metrics misses a family")
+    code, body = _get_url(exp.url("/snapshot.json"))
+    snap = json.loads(body)
+    tid = tracing.span_recorder().spans(name="serving.admission")[-1] \
+        .trace_ids[0]
+    code2, body2 = _get_url(exp.url(f"/trace.json?trace_id={tid}"))
+    spans = [e for e in json.loads(body2)["traceEvents"] if e.get("ph") == "X"]
+    if code != 200 or code2 != 200 or not spans:
+        fail("/snapshot.json or /trace.json failed")
+    for path in ("/memory.json", "/tier.json", "/index.json"):
+        if _get_url(exp.url(path))[0] != 200:
+            fail(f"{path} did not answer")
+    log(f"[observe] {len(reqs)} requests served from {OBSERVE_THREADS} "
+        f"threads, each equal to its direct search; /metrics {len(text)} "
+        f"bytes, /snapshot.json {len(snap['executables'])} entries, "
+        f"/trace.json?trace_id={tid}: {len(spans)} spans; /memory.json, "
+        "/tier.json, /index.json 200")
+
+    # shadow recall against brute-force truth
+    sampler.pump()
+    est = sampler.window.estimate(0.0)
+    single_ids = torch.cat([results[j][1] for j in range(0, len(reqs), 2)])
+    single_truth = torch.cat([gt_i[s:s + m] for j, (m, s) in enumerate(reqs)
+                              if j % 2 == 0])
+    measured = recall(single_ids, single_truth)
+    log(f"[observe] shadow recall at a 10% sample: {est['estimate']:.4f} "
+        f"[{est['ci_low']:.4f}, {est['ci_high']:.4f}] over "
+        f"{int(est['trials'])} trials; recall@10 against brute-force truth "
+        f"{measured:.4f}")
+    if not est["ci_low"] <= measured <= est["ci_high"]:
+        fail("the shadow-recall Wilson interval misses the measured recall")
+    out["recall"] = dict(est, measured=measured)
+
+    # drift: in-distribution traffic, then queries shifted by one list's
+    # centre offset
+    gauge.publish()
+    base = det.score
+    shift = (index.centers[1] - index.centers[0])[None, :]
+    scores = {}
+    for name, off in (("in_dist", 0.0), ("shifted", shift)):
+        for r in range(DRIFT_ROUNDS):
+            for j in range(10):
+                s0 = 500 * r + 50 * j
+                ex.search(index, queries[s0:s0 + 50] + off, K, params=sp)
+            gauge.publish()
+        scores[name] = det.score
+    in_dist, shifted = scores["in_dist"], scores["shifted"]
+    log(f"[observe] drift score: {base:.4f} after the served traffic, "
+        f"{in_dist:.4f} after in-distribution queries, {shifted:.4f} after "
+        "queries shifted by one list's centre offset")
+    if not shifted > in_dist:
+        fail("the shifted drift score is not higher than the in-distribution"
+             " one")
+    out["drift"] = dict(in_dist=in_dist, shifted=shifted)
+
+    # the flight recorder, attached while the batcher serves: its latency
+    # threshold is the p50 of the served requests just before the attach,
+    # below their p99, so the window of the same traffic since the attach
+    # fires it on the next scrape, and its capture runs over that traffic
+    bounds = tracing.get_histogram(metrics.E2E).snapshot()["bucket_bounds"]
+
+    def e2e_window(n: int) -> list:
+        """The E2E histogram's cumulative counts over the next ``n``
+        served requests."""
+        c0 = tracing.get_histogram(metrics.E2E).snapshot()["bucket_counts"]
+        t_end = time.perf_counter() + 60
+        while True:
+            c1 = tracing.get_histogram(metrics.E2E).snapshot()["bucket_counts"]
+            win = [b1 - b0 for b1, b0 in zip(c1, c0)]
+            if win[-1] >= n:
+                return win
+            if time.perf_counter() > t_end:
+                fail(f"observe: {win[-1]} of {n} requests served in 60 s")
+            time.sleep(0.01)
+
+    stop = threading.Event()
+    pumps = [threading.Thread(target=pump, args=(t,))
+             for t in range(OBSERVE_THREADS)]
+    for th in pumps:
+        th.start()
+    base = e2e_window(FLIGHT_WINDOW)
+    served_p50 = window_quantile(bounds, base, 0.50)
+    served_p99 = window_quantile(bounds, base, 0.99)
+    if not 0 < served_p50 < served_p99:
+        fail(f"observe: served p50 {served_p50} is not below p99 {served_p99}")
+    flight = FlightRecorder(executor=ex, batcher=b, config=FlightConfig(
+        cooldown_s=1e9, capture_seconds=0.2,
+        latency=LatencyAnomaly(p99_threshold_s=served_p50, min_count=8)),
+        profile_dir=prof_dir)
+    flight.profile_lock = exp._profile_lock
+    exp.flight = flight
+    e2e_window(FLIGHT_WINDOW)
+    _get_url(exp.url("/metrics"))
+    stop.set()
+    for th in pumps:
+        th.join()
+    code, body = _get_url(exp.url("/incident.json"))
+    if code != 200:
+        fail(f"/incident.json answered {code} after a latency anomaly")
+    bundle = json.loads(body)
+    if bundle["triggers"] != ["latency_anomaly"]:
+        fail("the incident was not the latency anomaly")
+    if bundle.get("trace_file") is None or bundle.get("attribution") is None:
+        fail(f"the incident has no attributed capture: "
+             f"{bundle.get('capture_error')}")
+    inc_calls = profiling.parse_calls(
+        profiling.load_trace(bundle["trace_file"]))
+    inc_served = {c["module"] for c in inc_calls}
+    inc_modules = bundle["attribution"]["modules"]
+    want_modules = {d for d, info in ex.executable_costs().items()
+                    if info["hlo_module"] in inc_served}
+    if not inc_served or set(inc_modules) != want_modules:
+        fail("the incident's attribution does not name the entries that "
+             "served during its capture")
+    calls_by = sorted((m["family"], m["invocations"])
+                      for m in inc_modules.values())
+    log(f"[observe] FlightRecorder attached while serving (threshold "
+        f"{served_p50 * 1e3:.3f} ms = served p50; served p99 "
+        f"{served_p99 * 1e3:.3f} ms): incident {bundle['incident']} "
+        f"({bundle['triggers']}) on a scrape, its 0.2 s capture "
+        f"attributed to {len(inc_modules)} entries from {len(inc_calls)} "
+        f"timed calls {calls_by}")
+    out["flight"] = dict(threshold_s=served_p50, served_p99_s=served_p99,
+                         calls=len(inc_calls), modules=len(inc_modules))
+
+    # the fleet: two exporters in this process, one replica each
+    b.close()
+    exp2 = MetricsExporter(executor=ex)
+    exp2.start()
+    agg = FleetAggregator({"a": exp.url("/snapshot.json"),
+                           "b": exp2.url("/snapshot.json")})
+    fleet = agg.fleet_snapshot()
+    snap_a = json.loads(_get_url(exp.url("/snapshot.json"))[1])
+    snap_b = json.loads(_get_url(exp2.url("/snapshot.json"))[1])
+    name = "serving.execute.calls"
+    total = (snap_a["counters_lifetime"][name]
+             + snap_b["counters_lifetime"][name])
+    hname = metrics.E2E
+    merged = merge_histograms([snap_a["histograms"][hname],
+                               snap_b["histograms"][hname]])
+    fleet_p99 = fleet["histograms"][hname]["p99"]
+    log(f"[observe] FleetAggregator over two exporters: {fleet['healthy']} "
+        f"healthy; fleet {name} {fleet['counters'][name]:.0f} = "
+        f"{snap_a['counters_lifetime'][name]:.0f} + "
+        f"{snap_b['counters_lifetime'][name]:.0f}; fleet e2e p99 "
+        f"{fleet_p99 * 1e3:.3f} ms (the merged histogram's "
+        f"{merged['p99'] * 1e3:.3f} ms)")
+    if fleet["counters"][name] != total or fleet_p99 != merged["p99"]:
+        fail("the fleet counters or p99 differ from the replicas'")
+    exp2.close()
+
+    # the memory profile around an extend
+    code, body = _get_url(exp.url("/memory_profile"))
+    if code != 200:
+        fail(f"/memory_profile answered {code}")
+    seq = json.loads(body)["seq"]
+    grown = ivf_flat.extend(res, index, state["x"][:100_000],
+                            torch.arange(N_ROWS, N_ROWS + 100_000,
+                                         dtype=torch.int32,
+                                         device=res.device))
+    torch.cuda.synchronize()
+    code, body = _get_url(exp.url(f"/memory_profile?diff={seq}"))
+    diff = json.loads(body)["diff"]
+    top = diff["deltas"][:3]
+    log(f"[observe] memory profile around ivf_flat.extend(100,000 rows): "
+        f"{diff['total_delta_bytes'] / 2**20:.1f} MiB more allocated; top "
+        f"groups {[(t['label'], t['delta_bytes']) for t in top]}")
+    if not any("ivf_flat.py" in t["label"] and t["delta_bytes"] > 0
+               for t in diff["deltas"]):
+        fail("the memory-profile diff does not show the extend's allocation")
+    del grown
+    exp.close()
+    import shutil
+
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    out["card"] = state.get("card")
+    path = os.path.join("chiprun_out", "observe.json")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    log(f"[observe] {state.get('card')}: results in {path}")
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
@@ -4955,7 +5669,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="env,build,kernels,main,serve,ragged,"
-                            "distance,pq,stream,dist,times")
+                            "distance,pq,stream,dist,meshserve,observe,"
+                            "times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -5007,6 +5722,10 @@ def main() -> int:
         timed("stream", phase_stream, torch, state)
     if "dist" in phases:
         timed("dist", phase_dist, torch, state)
+        if "meshserve" in phases:
+            timed("meshserve", phase_meshserve, torch, state)
+        if "observe" in phases:
+            timed("observe", phase_observe, torch, state)
     if "main" in phases:
         if "times" in phases:
             records = timed("times", phase_times, torch, state)

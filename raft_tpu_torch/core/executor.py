@@ -69,10 +69,50 @@ copy, one replay and two output copies of host work instead of the
   clamps are decided in one place. Each block's result is a column
   slice of the class top-k, equal to a solo search of that block.
 
-``executable_costs`` reports each entry's family, bucket, k, capture
-seconds, kernel launches per replay and graph-pool bytes (the growth of
-reserved device memory across its capture). XLA's modeled flops and
-bytes have no counterpart yet.
+- **Mesh plans** (:meth:`SearchExecutor._plan_dist`): one plan builder for
+  the list-sharded ``DistributedIvfFlat`` / ``DistributedIvfPq`` /
+  ``DistributedIvfBq`` over their shard bodies
+  (``distributed/ivf._dist_search_fn``, ``_dist_search_pq_fn``,
+  ``distributed/bq._dist_search_bq_fn``). The key carries the mesh
+  identity (:func:`_mesh_key`) and the resolved engine and wires, so an
+  engine switch or another mesh is a distinct entry; on the card the whole
+  slot loop, the collectives between its per-slot loops and the merge are
+  captured as one CUDA graph. A ``query_axis`` names a second mesh axis:
+  the padded block rounds up to the grid extent x the list-axis size and
+  no probe accounting runs. With ``probe_accounting`` the plane is one
+  (n_lists,) int32 tensor whose (R, n_local) view hands each slot its
+  rows, so it reads in the dist index's own list-id space (the dealt
+  order, slot by slot). ``mesh_trace=True`` records the modeled phase
+  spans over the dispatch's readiness after every bucketed mesh dispatch
+  (:meth:`SearchExecutor._record_mesh_dispatch` says why no slot has a
+  readiness of its own).
+- **Cost model**: the JAX package reads XLA's ``cost_analysis()``; the
+  port has no compiler to ask, so every plan builder models its
+  ``flops`` and ``bytes_accessed`` from its statics (:func:`_ivf_cost`
+  and the builders): the list rows a bucket's probes can touch, the
+  coarse GEMM, codes and LUTs for PQ, planes and reranked rows for BQ,
+  and the collective payload of a mesh plan. The graph pool takes the
+  place of ``peak_hbm_bytes``. Each dispatch adds the entry's numbers to
+  ``serving.execute.modeled_{flops,bytes}``.
+- **Correlation**: every entry is named ``rt_<family>_<digest>`` (the
+  JAX package's HLO module name, less ``jit_``). While a capture window
+  is open (:func:`raft_tpu_torch.core.profiling.capture_window`; every
+  profiler session opens one) every replay or eager call runs inside
+  ``torch.profiler.record_function`` of that name, and a CUDA entry's
+  call is also bracketed by a timing ``torch.cuda.Event`` pair, the
+  device seconds :func:`~raft_tpu_torch.core.profiling.attribute` reads;
+  with no window open a call is neither named nor timed.
+- **Captures and profiler sessions** exclude each other (a CUDA graph
+  captured inside a session hung the process on the card): a cache miss
+  that meets a session running on another thread releases the
+  executor's locks, waits for the session to end and dispatches again
+  (:func:`_past_sessions`); on the session's own thread it raises.
+
+``executable_costs`` reports each entry's family, bucket, k, modeled
+flops and bytes, ``peak_hbm_bytes`` (its graph pool), the correlation
+name (``hlo_module``), capture seconds, kernel launches per replay and
+graph-pool bytes (the growth of reserved device memory across its
+capture), and a mesh entry's collective payload model.
 
 Tiered plans (IVF-Flat, IVF-PQ, IVF-BQ) snapshot one placement
 generation under the container's swap lock, which the dispatch holds
@@ -82,9 +122,8 @@ ledger attached (:meth:`SearchExecutor.attach_memwatch`) every dispatch
 samples the device's memory stats on the host, and the ledger's forecast
 reads :meth:`SearchExecutor.memory_reservations`.
 
-Not ported yet: the mesh plans and mesh tracing:
-:meth:`SearchExecutor._plan` raises ``TypeError`` for them, as the JAX
-package does for an unknown index.
+An index of no supported family raises ``TypeError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -102,13 +141,28 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core import profiling, tracing
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.core.validation import expect
 
 # counters a capture may add that belong to the request, not to the
 # executor's own bookkeeping: replays add these again
 _OWN_PREFIXES = ("serving.", "index.")
+
+# the readiness poll quantum of mesh_trace
+_MESH_POLL_S = 50e-6
+
+
+def _past_sessions(fn: Callable):
+    """``fn()``, run again after the profiler session it met has ended: a
+    capture raises :class:`~raft_tpu_torch.core.profiling.SessionRunning`
+    before anything is dispatched or counted, and ``fn`` has released the
+    executor's locks by the time this waits."""
+    while True:
+        try:
+            return fn()
+        except profiling.SessionRunning:
+            profiling.wait_for_session()
 
 
 @dataclasses.dataclass
@@ -141,21 +195,33 @@ class _Plan:
     probe: Any = None
     # a ragged plan: called as fn(queries, budgets, *arrays, ...)
     ragged: bool = False
+    # a mesh plan: its slot count (the probe plane's view), the padded
+    # rows of a 2-D plan (None: the bucket) and its payload model maker
+    slots: int = 0
+    rows: Optional[int] = None
+    payload: Any = None
+    # modeled {"flops", "bytes_accessed"} of one call, made when an entry
+    # is built
+    cost: Optional[Callable[[], dict]] = None
 
 
 class _Entry:
     """A cached plan entry: eager (``graph`` None), or a captured graph
     with its static buffers, outputs and the tensors it bakes in."""
 
-    __slots__ = ("family", "bucket", "k", "digest", "graph", "static_q",
-                 "static_fw", "static_nv", "static_b", "outputs", "keep",
-                 "launches", "counters", "pool_bytes", "capture_seconds")
+    __slots__ = ("family", "bucket", "k", "digest", "module", "cost",
+                 "payload_model", "graph", "static_q", "static_fw",
+                 "static_nv", "static_b", "outputs", "keep", "launches",
+                 "counters", "pool_bytes", "capture_seconds")
 
     def __init__(self, family: str, bucket: int, k: int, digest: str):
         self.family = family
         self.bucket = bucket
         self.k = k
         self.digest = digest
+        self.module = f"rt_{family}_{digest}"
+        self.cost: dict = {}
+        self.payload_model = None
         self.graph = None
         self.static_q = None
         self.static_fw = None
@@ -188,9 +254,65 @@ def _kernel_wrappers() -> dict:
             "stream_read_sum": stream_read_sum, "ivf_pq_scan": ivf_pq_scan}
 
 
+def _flat(arrays):
+    """The tensors of a plan's arrays: a mesh plan's per-slot lists are
+    flattened, None entries dropped."""
+    for a in arrays:
+        if isinstance(a, (list, tuple)):
+            yield from _flat(a)
+        elif a is not None:
+            yield a
+
+
 def _sig(*arrays) -> tuple:
-    return tuple((tuple(a.shape), str(a.dtype)) for a in arrays
-                 if a is not None)
+    return tuple((tuple(a.shape), str(a.dtype)) for a in _flat(arrays))
+
+
+def _mesh_key(comms) -> tuple:
+    """The cache-key part that names a mesh precisely: its axis, axis
+    names, grid shape and every slot's device, so a transposed, re-axed or
+    re-placed grid never reuses another's entry (``executor.py:312``)."""
+    mesh = comms.mesh
+    return ("mesh", comms.axis, tuple(mesh.axis_names),
+            tuple(mesh.devices.shape),
+            tuple(str(d) for d in mesh.slot_devices()))
+
+
+def _ivf_cost(rows: int, k: int, dim: int, n_lists: int, n_probes: int,
+              live_rows: int, row_bytes: int, row_flops: int,
+              extra_bytes: float = 0.0, extra_flops: float = 0.0) -> dict:
+    """The modeled work of one IVF call over ``rows`` queries: the queries
+    and centers read, the coarse GEMM, the live list rows the bucket's
+    probes can touch (``min(rows * n_probes, n_lists)`` lists of the mean
+    ``live_rows / n_lists`` rows, ``row_bytes`` each, read once) and
+    scanned at ``row_flops`` a (query, probed row), and the (rows, k)
+    results written. ``extra_*`` add a family's own terms (LUTs,
+    reranked rows, collective payloads)."""
+    mean_rows = live_rows / max(n_lists, 1)
+    touched = min(rows * n_probes, n_lists)
+    return {
+        "flops": float(2 * rows * n_lists * dim
+                       + rows * n_probes * mean_rows * row_flops
+                       + extra_flops),
+        "bytes_accessed": float(4 * rows * dim + 4 * n_lists * (dim + 1)
+                                + touched * mean_rows * row_bytes
+                                + 8 * rows * k + extra_bytes),
+    }
+
+
+def _live_rows(index) -> int:
+    """The rows an index holds (a host read of its list sizes, made once
+    an entry is built)."""
+    sizes = index.list_sizes
+    if isinstance(sizes, list):
+        return sum(int(s.sum()) for s in sizes)
+    return int(sizes.sum())
+
+
+def _row_bytes(*planes) -> int:
+    """Bytes one list row holds across (n_lists, extent, ...) planes."""
+    return sum(int(np.prod(p.shape[2:], dtype=np.int64)) * p.element_size()
+               for p in planes if p is not None)
 
 
 def _statics(static: dict) -> tuple:
@@ -227,7 +349,10 @@ def _pad(t: torch.Tensor, rows: int, mode: str) -> torch.Tensor:
 
 def _cost_gauges(digest: str, info: dict) -> dict:
     base = f"serving.executable.{digest}."
-    return {base + "pool_bytes": float(info.get("pool_bytes", 0)),
+    return {base + "flops": info.get("flops", 0.0),
+            base + "bytes_accessed": info.get("bytes_accessed", 0.0),
+            base + "peak_hbm_bytes": info.get("peak_hbm_bytes", 0.0),
+            base + "pool_bytes": float(info.get("pool_bytes", 0)),
             base + "launches": float(info.get("launches", 0)),
             base + "capture_seconds": info.get("capture_seconds", 0.0)}
 
@@ -259,13 +384,22 @@ class SearchExecutor:
         batch whose rows fit it runs through its own entry, which cuts
         the pad of partial tiles at light load. Both tiles share one
         :meth:`ragged_key`; the tile is chosen at dispatch.
+      mesh_trace: after every bucketed mesh dispatch, wait for its
+        outputs and record the ``serving.mesh.{coarse_select,scan,merge}``
+        spans (modeled bytes from the entry's payload model) over the
+        dispatch's readiness. No ``serving.mesh.shard`` span or straggler
+        gauge is recorded: the executor sees only the merged outputs
+        (:meth:`_record_mesh_dispatch`). The calling thread waits out the
+        poll, so the tiles of an oversized batch serialize; nothing is
+        captured differently. Ragged mesh dispatches skip it.
     """
 
     def __init__(self, res: Optional[Resources] = None, *,
                  min_bucket: int = 8, max_bucket: int = 4096,
                  max_entries: int = 64, probe_accounting: bool = False,
                  capture: Optional[bool] = None, ragged_tile: int = 256,
-                 ragged_tile_small: Optional[int] = None):
+                 ragged_tile_small: Optional[int] = None,
+                 mesh_trace: bool = False):
         self.res = ensure_resources(res)
         expect(0 < min_bucket <= max_bucket,
                f"need 0 < min_bucket <= max_bucket, got "
@@ -285,6 +419,7 @@ class SearchExecutor:
         self.buckets: Tuple[int, ...] = tuple(buckets)
         self.max_entries = max_entries
         self.probe_accounting = probe_accounting
+        self.mesh_trace = mesh_trace
         if capture is None:
             capture = self.res.device.type == "cuda"
         self.capture = bool(capture)
@@ -326,22 +461,25 @@ class SearchExecutor:
         t0 = time.perf_counter()
         for b in (buckets if buckets is not None else self.buckets):
             expect(b in self.buckets, f"bucket {b} not in {self.buckets}")
-            with self._lock, self._dispatch_lock(index):
-                plan = self._plan(index, params, k, b, fw, kw)
-                self._get_entry_locked(plan, b, k, fw)
+            _past_sessions(lambda: self._warm_bucket(index, params, k, b,
+                                                     fw, kw))
         dt = time.perf_counter() - t0
         self.stats.warmup_seconds += dt
         tracing.inc_counter("serving.warmup_seconds", dt)
         return dt
+
+    def _warm_bucket(self, index, params, k: int, b: int, fw, kw) -> None:
+        with self._lock, self._dispatch_lock(index):
+            plan = self._plan(index, params, k, b, fw, kw)
+            self._get_entry_locked(plan, plan.rows or b, k, fw)
 
     def search(self, index, queries, k: int, params=None,
                sample_filter=None, trace_ids: Tuple[int, ...] = (),
                **kw) -> Tuple[torch.Tensor, torch.Tensor]:
         """Bucketed search: (distances (q, k), indices (q, k) int32) on
         the index's device, bit-identical to the family's direct
-        ``search``. ``trace_ids`` is accepted for the serving batcher
-        (the mesh spans it tags in the JAX package are not ported)."""
-        del trace_ids
+        ``search``. ``trace_ids`` tag the mesh spans of a mesh dispatch
+        under ``mesh_trace`` (the serving batcher passes its members')."""
         expect(len(np.shape(queries)) == 2, "queries must be (q, dim)")
         q = int(np.shape(queries)[0])
         fw = self._resolve_filter(sample_filter)
@@ -351,14 +489,15 @@ class SearchExecutor:
                     torch.zeros((0, k), dtype=torch.int32, device=dev))
         max_b = self.buckets[-1]
         if q <= max_b:
-            return self._run(index, queries, k, params, fw, kw)
+            return self._run(index, queries, k, params, fw, kw,
+                             trace_ids=trace_ids)
         # every tile, the ragged tail too, runs the top bucket's entry
         outs_d, outs_i = [], []
         for start in range(0, q, max_b):
             fwt = fw[start:start + max_b] if (
                 fw is not None and fw.ndim == 2) else fw
             d, i = self._run(index, queries[start:start + max_b], k, params,
-                             fwt, kw, bucket=max_b)
+                             fwt, kw, bucket=max_b, trace_ids=trace_ids)
             outs_d.append(d)
             outs_i.append(i)
         return torch.cat(outs_d), torch.cat(outs_i)
@@ -440,13 +579,16 @@ class SearchExecutor:
                f"plan family: {reason}")
         t0 = time.perf_counter()
         for tile in self._ragged_tiles():
-            with self._lock, self._dispatch_lock(index):
-                plan = self._plan_ragged(index, fw, spec, tile)
-                self._get_entry_locked(plan, tile, spec["k_class"], fw)
+            _past_sessions(lambda: self._warm_tile(index, fw, spec, tile))
         dt = time.perf_counter() - t0
         self.stats.warmup_seconds += dt
         tracing.inc_counter("serving.warmup_seconds", dt)
         return dt
+
+    def _warm_tile(self, index, fw, spec: dict, tile: int) -> None:
+        with self._lock, self._dispatch_lock(index):
+            plan = self._plan_ragged(index, fw, spec, tile)
+            self._get_entry_locked(plan, tile, spec["k_class"], fw)
 
     def _ragged_tiles(self) -> Tuple[int, ...]:
         """The configured tiles, small first."""
@@ -526,30 +668,39 @@ class SearchExecutor:
         budgets = torch.from_numpy(ragged_row_probes(
             sizes, [s["n_probes"] for s in specs], padded_total)).to(dev)
         packed = self._pack(blocks, sizes, padded_total, dev)
-        fwp = None
         split = f"p{spec['np_class']}.t{tile}"
-        parts_d, parts_i = [], []
-        with self._lock, self._dispatch_lock(index):
-            plan = self._plan_ragged(index, fw, spec, tile)
-            if plan.use_filter and fw is not None:
-                fwp = fw.to(plan.device)
-                if fwp.ndim == 2:
-                    fwp = _pad(fwp, padded_total, "zero")
-            for start in range(0, padded_total, tile):
-                q_real = min(total - start, tile)
-                qt = packed[start:start + tile]
-                bt = budgets[start:start + tile]
-                fwt = fwp
-                if fwp is not None and fwp.ndim == 2:
-                    fwt = fwp[start:start + tile]
-                entry = self._get_entry_locked(plan, tile, spec["k_class"],
-                                               fw, qt, fwt, bt)
-                d, i = self._execute_locked(plan, entry, qt, fwt, q_real, bt)
-                parts_d.append(d)
-                parts_i.append(i)
-                tracing.inc_counters({
-                    f"serving.execute.rows.{split}": float(q_real),
-                    f"serving.execute.padded_rows.{split}": float(tile)})
+
+        def dispatch():
+            # every tile runs one entry, so a capture can only happen
+            # before the first tile dispatches
+            fwp = None
+            parts_d, parts_i = [], []
+            with self._lock, self._dispatch_lock(index):
+                plan = self._plan_ragged(index, fw, spec, tile)
+                if plan.use_filter and fw is not None:
+                    fwp = fw.to(plan.device)
+                    if fwp.ndim == 2:
+                        fwp = _pad(fwp, padded_total, "zero")
+                for start in range(0, padded_total, tile):
+                    q_real = min(total - start, tile)
+                    qt = packed[start:start + tile]
+                    bt = budgets[start:start + tile]
+                    fwt = fwp
+                    if fwp is not None and fwp.ndim == 2:
+                        fwt = fwp[start:start + tile]
+                    entry = self._get_entry_locked(
+                        plan, tile, spec["k_class"], fw, qt, fwt, bt)
+                    d, i = self._execute_locked(plan, entry, qt, fwt,
+                                                q_real, bt)
+                    parts_d.append(d)
+                    parts_i.append(i)
+                    tracing.inc_counters({
+                        f"serving.execute.rows.{split}": float(q_real),
+                        f"serving.execute.padded_rows.{split}":
+                            float(tile)})
+            return parts_d, parts_i
+
+        parts_d, parts_i = _past_sessions(dispatch)
         d_all = parts_d[0] if len(parts_d) == 1 else torch.cat(parts_d)
         i_all = parts_i[0] if len(parts_i) == 1 else torch.cat(parts_i)
         out, row = [], 0
@@ -579,8 +730,7 @@ class SearchExecutor:
         return _pad(cat, rows, "zero")
 
     # the non-raggable residue as the JAX package's reason strings (test
-    # surface): what ragged_fallback_reason returns. "query_axis" and
-    # "dist_filter" belong to the mesh plans, which are not ported
+    # surface): what ragged_fallback_reason returns
     _RAGGED_RESIDUE = {
         "cagra_k": "cagra: the k class cap exceeds itopk_size, so the "
                    "class executable's beam buffer would differ from "
@@ -607,6 +757,11 @@ class SearchExecutor:
         ``(None, reason)`` where the request stays bucketed. The engine
         comes from the family's bucketed plan at the class caps, so the
         raggability decision and the plan cannot disagree."""
+        from raft_tpu_torch.distributed.bq import DistributedIvfBq
+        from raft_tpu_torch.distributed.ivf import (
+            DistributedIvfFlat,
+            DistributedIvfPq,
+        )
         from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq, tiered
         from raft_tpu_torch.neighbors.brute_force import BruteForceIndex
         from raft_tpu_torch.neighbors.cagra import CagraIndex
@@ -616,6 +771,10 @@ class SearchExecutor:
             (tiered.TieredIvf, "tiered_ivf", tiered.TieredSearchParams),
             (tiered.TieredIvfPq, "tiered_ivf_pq", ivf_pq.IvfPqSearchParams),
             (tiered.TieredIvfBq, "tiered_ivf_bq", ivf_bq.IvfBqSearchParams),
+            (DistributedIvfFlat, "dist_ivf_flat",
+             ivf_flat.IvfFlatSearchParams),
+            (DistributedIvfPq, "dist_ivf_pq", ivf_pq.IvfPqSearchParams),
+            (DistributedIvfBq, "dist_ivf_bq", ivf_bq.IvfBqSearchParams),
             (ivf_flat.IvfFlatIndex, "ivf_flat",
              ivf_flat.IvfFlatSearchParams),
             (ivf_bq.IvfBqIndex, "ivf_bq", ivf_bq.IvfBqSearchParams),
@@ -630,14 +789,27 @@ class SearchExecutor:
             if isinstance(index, BruteForceIndex):
                 return None, reasons["brute_force"]
             return None, reasons["family"]
-        if kw:
+        if family.startswith("dist_"):
+            if kw.get("query_axis") is not None:
+                return None, reasons["query_axis"]
+            if not set(kw) <= {"probe_mode", "wire_dtype",
+                               "probe_wire_dtype"}:
+                return None, reasons["kw"]
+            if fw is not None:
+                return None, reasons["dist_filter"]
+        elif kw:
             return None, reasons["kw"]
         params = params or params_type()
         if params.coarse_algo != "exact":
             return None, reasons["approx"]
         if params.scan_engine == "rank":
             return None, reasons["rank"]
-        if index.max_list_size <= 0 or k <= 0:
+        # a mesh IVF-BQ index has no max_list_size; its codes' extent
+        # plays the same role
+        extent = getattr(index, "max_list_size", None)
+        if extent is None:
+            extent = index.codes[0].shape[1]
+        if extent <= 0 or k <= 0:
             return None, reasons["empty"]
         n_probes = min(params.n_probes, index.n_lists)
         np_class = min(_pow2_at_least(n_probes, 8), index.n_lists)
@@ -697,6 +869,12 @@ class SearchExecutor:
         "tiered_ivf_bq": ("raft_tpu_torch.neighbors.tiered",
                           "_tiered_bq_search_ragged_fn"),
         "cagra": ("raft_tpu_torch.neighbors.cagra", "_search_ragged_fn"),
+        "dist_ivf_flat": ("raft_tpu_torch.distributed.ivf",
+                          "_dist_search_ragged_fn"),
+        "dist_ivf_pq": ("raft_tpu_torch.distributed.ivf",
+                        "_dist_search_ragged_pq_fn"),
+        "dist_ivf_bq": ("raft_tpu_torch.distributed.bq",
+                        "_dist_search_ragged_bq_fn"),
     }
 
     def _ragged_fn(self, family: str) -> Callable:
@@ -708,14 +886,15 @@ class SearchExecutor:
     def _plan_ragged(self, index, fw, spec, tile: int) -> _Plan:
         """The ragged plan, derived from the family's bucketed plan at the
         class caps for a ``tile``-row bucket: the same arrays, statics
-        (less the pinned-exact ``coarse_algo``), capturability and probe
+        (less the pinned-exact ``coarse_algo`` and a mesh plan's
+        ``query_axis``, None here), capturability and probe
         plane (shared with the bucketed plans), with the family's ragged
         body and the family tag marked ``_ragged``. The caller holds the
         executor lock and the index's dispatch lock."""
         base = self._plan(index, spec["params_cls"], spec["k_class"], tile,
                           fw, spec["kw"])
         statics = {n: v for n, v in base.static.items()
-                   if n != "coarse_algo"}
+                   if n not in ("coarse_algo", "query_axis")}
         key = (base.key[0] + "_ragged",) + base.key[1:]
         return dataclasses.replace(base, key=key,
                                    fn=self._ragged_fn(base.key[0]),
@@ -745,6 +924,8 @@ class SearchExecutor:
     def _index_device(index) -> torch.device:
         for name in ("centers", "dataset"):
             t = getattr(index, name, None)
+            if isinstance(t, list) and t:
+                t = t[0]
             if isinstance(t, torch.Tensor):
                 return t.device
         raise TypeError(f"SearchExecutor does not support {type(index)!r}")
@@ -761,22 +942,65 @@ class SearchExecutor:
             return index._swap_lock
         return contextlib.nullcontext()
 
-    def _run(self, index, queries, k, params, fw, kw, bucket=None):
+    def _run(self, index, queries, k, params, fw, kw, bucket=None,
+             trace_ids: Tuple[int, ...] = ()):
+        return _past_sessions(lambda: self._run_once(
+            index, queries, k, params, fw, kw, bucket, trace_ids))
+
+    def _run_once(self, index, queries, k, params, fw, kw, bucket,
+                  trace_ids: Tuple[int, ...]):
         q = int(np.shape(queries)[0])
         bucket = bucket or self.bucket_for(q)
         with self._lock, self._dispatch_lock(index):
             plan = self._plan(index, params, k, bucket, fw, kw)
             expect(int(np.shape(queries)[1]) == plan.qdim,
                    "query dim mismatch")
-            qp = self._padded_queries(queries, bucket, plan)
+            # a 2-D mesh plan pads to the grid extent, every other to the
+            # bucket
+            rows = plan.rows or bucket
+            qp = self._padded_queries(queries, rows, plan)
             fwp = None
             if plan.use_filter and fw is not None:
                 fwp = fw.to(plan.device)
                 if fwp.ndim == 2:
-                    fwp = _pad(fwp, bucket, "zero")
-            entry = self._get_entry_locked(plan, bucket, k, fw, qp, fwp)
+                    fwp = _pad(fwp, rows, "zero")
+            entry = self._get_entry_locked(plan, rows, k, fw, qp, fwp)
+            t0 = time.perf_counter()
             out_d, out_i = self._execute_locked(plan, entry, qp, fwp, q)
+        # after the lock: the readiness poll lasts as long as the slowest
+        # slot, and other threads' searches and scrapes must not wait on
+        # it
+        if plan.slots and self.mesh_trace:
+            self._record_mesh_dispatch(entry, plan, out_d, out_i, t0,
+                                       trace_ids)
         return out_d, out_i
+
+    def _record_mesh_dispatch(self, entry: _Entry, plan: _Plan, out_d,
+                              out_i, t0: float,
+                              trace_ids: Tuple[int, ...]) -> None:
+        """The mesh spans of one sharded dispatch (``executor.py:1288``):
+        the three modeled phase spans (bytes from the entry's payload
+        model) from ``t0`` to the merged outputs' readiness, read by
+        :func:`~raft_tpu_torch.core.tracing.poll_shard_timings`, and one
+        ``serving.mesh.dispatches``.
+
+        The JAX package polls each output shard and reduces the offsets
+        into ``serving.mesh.shard`` spans and the straggler gauges. Here
+        the dispatch returns only the merged outputs, one (q, k) pair
+        behind every slot's work (on one card the slots run one after
+        another on one stream), so there is one reading and no slot has
+        a readiness of its own: the per-slot spans and the
+        ``serving.mesh.shard_*`` / ``slowest_shard`` gauges stay unset
+        rather than publish R copies of it."""
+        from raft_tpu_torch.distributed.ivf import mesh_phases
+
+        (ready,) = tracing.poll_shard_timings([(out_d, out_i)], t0,
+                                              poll_s=_MESH_POLL_S)
+        phases = (mesh_phases(entry.payload_model)
+                  if entry.payload_model is not None else None)
+        tracing.record_mesh_spans(entry.family, t0, t0 + ready,
+                                  trace_ids=trace_ids, phases=phases)
+        tracing.inc_counter("serving.mesh.dispatches")
 
     def _padded_queries(self, queries, rows: int, plan: _Plan):
         """The (rows, dim) query block on the plan's device and type; a
@@ -799,6 +1023,15 @@ class SearchExecutor:
         if plan.probe is None:
             return plan.fn(*args, **plan.static)
         plane = self._probe_state[plan.probe[0]]
+        if plan.slots:
+            # a mesh plan: each slot counts its own lists, the slot-s rows
+            # of the (R, n_local) view (the dealt order)
+            views = list(plane.view(plan.slots, -1))
+            d, i, counts = plan.fn(*args, probe_counts=views,
+                                   n_valid=n_valid, **plan.static)
+            for v, c in zip(views, counts):
+                v.copy_(c)
+            return d, i
         d, i, counts = plan.fn(*args, probe_counts=plane, n_valid=n_valid,
                                **plan.static)
         plane.copy_(counts)
@@ -807,30 +1040,45 @@ class SearchExecutor:
     def _execute_locked(self, plan: _Plan, entry: _Entry, qp, fwp,
                         q_real: int, budgets=None):
         bucket = qp.shape[0]
-        if entry.graph is None:
-            d, i = self._call(plan, qp, fwp, q_real, budgets)
-            out_d, out_i = d[:q_real], i[:q_real]
-        else:
-            entry.static_q.copy_(qp)
-            if entry.static_b is not None:
-                entry.static_b.copy_(budgets)
-            if entry.static_fw is not None:
-                entry.static_fw.copy_(fwp)
-            if entry.static_nv is not None:
-                entry.static_nv.fill_(q_real)
-            entry.graph.replay()
-            # clones before the lock is released: the next replay
-            # overwrites the static outputs
-            out_d = entry.outputs[0][:q_real].clone()
-            out_i = entry.outputs[1][:q_real].clone()
-            wrappers = _kernel_wrappers()
-            for name, n in entry.launches.items():
-                wrappers[name].launches += n
-            if entry.counters:
-                tracing.inc_counters(entry.counters)
+        named = profiling.window_open()
+        timed = named and plan.device.type == "cuda"
+        if timed:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        with (torch.profiler.record_function(entry.module) if named
+              else contextlib.nullcontext()):
+            if entry.graph is None:
+                d, i = self._call(plan, qp, fwp, q_real, budgets)
+                out_d, out_i = d[:q_real], i[:q_real]
+            else:
+                entry.static_q.copy_(qp)
+                if entry.static_b is not None:
+                    entry.static_b.copy_(budgets)
+                if entry.static_fw is not None:
+                    entry.static_fw.copy_(fwp)
+                if entry.static_nv is not None:
+                    entry.static_nv.fill_(q_real)
+                entry.graph.replay()
+                # clones before the lock is released: the next replay
+                # overwrites the static outputs
+                out_d = entry.outputs[0][:q_real].clone()
+                out_i = entry.outputs[1][:q_real].clone()
+                wrappers = _kernel_wrappers()
+                for name, n in entry.launches.items():
+                    wrappers[name].launches += n
+                if entry.counters:
+                    tracing.inc_counters(entry.counters)
+        if timed:
+            ev1.record()
+            profiling.note_call(entry.module, ev0, ev1)
         amounts = {"serving.execute.calls": 1.0,
                    "serving.execute.rows": float(q_real),
-                   "serving.execute.padded_rows": float(bucket)}
+                   "serving.execute.padded_rows": float(bucket),
+                   "serving.execute.modeled_flops":
+                       entry.cost.get("flops", 0.0),
+                   "serving.execute.modeled_bytes":
+                       entry.cost.get("bytes_accessed", 0.0)}
         if plan.probe is not None:
             amounts["index.probe.dispatches"] = 1.0
             amounts["index.probe.rows"] = float(q_real)
@@ -850,24 +1098,43 @@ class SearchExecutor:
             self.stats.cache_hits += 1
             tracing.inc_counter("serving.cache_hits")
             return ent
-        self.stats.cache_misses += 1
-        tracing.inc_counter("serving.cache_misses")
-        digest = hashlib.sha1(repr(plan.key).encode()).hexdigest()[:12]
-        ent = _Entry(plan.key[0], bucket, k, digest)
-        t0 = time.perf_counter()
-        if self.capture and plan.capturable:
-            self._capture_locked(plan, ent, bucket, fw, qp, fwp, budgets)
-        dt = time.perf_counter() - t0
+        capture = self.capture and plan.capturable
+        # before anything is counted: a miss that meets a profiler session
+        # leaves here and is dispatched again after it
+        with (profiling.graph_capture() if capture
+              else contextlib.nullcontext()):
+            self.stats.cache_misses += 1
+            tracing.inc_counter("serving.cache_misses")
+            digest = hashlib.sha1(repr(plan.key).encode()).hexdigest()[:12]
+            ent = _Entry(plan.key[0], bucket, k, digest)
+            ent.cost = dict(plan.cost()) if plan.cost is not None else {}
+            t0 = time.perf_counter()
+            if capture:
+                self._capture_locked(plan, ent, bucket, fw, qp, fwp,
+                                     budgets)
+            dt = time.perf_counter() - t0
         self.stats.compile_count += 1
         tracing.inc_counter("serving.compile_count")
         if ent.graph is not None:
             ent.capture_seconds = dt
             tracing.inc_counter("serving.capture_seconds", dt)
         info = {"family": ent.family, "bucket": bucket, "k": k,
+                "hlo_module": ent.module,
+                "flops": ent.cost.get("flops", 0.0),
+                "bytes_accessed": ent.cost.get("bytes_accessed", 0.0),
+                "peak_hbm_bytes": float(ent.pool_bytes),
                 "captured": ent.graph is not None,
                 "capture_seconds": ent.capture_seconds,
                 "launches": sum(ent.launches.values()),
                 "pool_bytes": ent.pool_bytes}
+        if plan.payload is not None:
+            from raft_tpu_torch.distributed.ivf import publish_payload_gauges
+
+            family, model_fn = plan.payload
+            ent.payload_model = dict(model_fn())
+            info["collective_family"] = family
+            info["collective_payload"] = ent.payload_model
+            publish_payload_gauges(family, ent.payload_model)
         self._cost_table[digest] = info
         tracing.set_gauges(_cost_gauges(digest, info))
         self._cache[plan.key] = ent
@@ -904,7 +1171,7 @@ class SearchExecutor:
         if plan.probe is not None:
             # 0 valid rows: the warm-up run adds nothing to the plane
             ent.static_nv = torch.zeros((), dtype=torch.int32, device=dev)
-        ent.keep = tuple(a for a in plan.arrays if a is not None)
+        ent.keep = tuple(_flat(plan.arrays))
 
         def body():
             return self._call(plan, ent.static_q, ent.static_fw,
@@ -962,9 +1229,12 @@ class SearchExecutor:
     # -- introspection ------------------------------------------------------
 
     def executable_costs(self) -> dict:
-        """``{digest: {family, bucket, k, captured, capture_seconds,
-        launches, pool_bytes}}`` for every cached entry: kernel launches
-        per replay and the bytes its graph pool holds."""
+        """``{digest: {family, bucket, k, hlo_module, flops,
+        bytes_accessed, peak_hbm_bytes, captured, capture_seconds,
+        launches, pool_bytes[, collective_family, collective_payload]}}``
+        for every cached entry: the modeled work of one call, the
+        correlation name of its profiler annotation, kernel launches per
+        replay and the bytes its graph pool holds."""
         with self._lock:
             return {d: dict(info) for d, info in self._cost_table.items()}
 
@@ -977,6 +1247,13 @@ class SearchExecutor:
         vals = {"serving.executor.cached_executables": float(n)}
         for digest, info in table.items():
             vals.update(_cost_gauges(digest, info))
+            if "collective_payload" in info:
+                from raft_tpu_torch.distributed.ivf import (
+                    publish_payload_gauges,
+                )
+
+                publish_payload_gauges(info["collective_family"],
+                                       info["collective_payload"])
         tracing.set_gauges(vals)
 
     def attach_memwatch(self, ledger) -> None:
@@ -1123,6 +1400,11 @@ class SearchExecutor:
 
     def _plan(self, index, params, k: int, bucket: int, fw, kw,
               for_key: bool = False) -> _Plan:
+        from raft_tpu_torch.distributed.bq import DistributedIvfBq
+        from raft_tpu_torch.distributed.ivf import (
+            DistributedIvfFlat,
+            DistributedIvfPq,
+        )
         from raft_tpu_torch.neighbors.brute_force import BruteForceIndex
         from raft_tpu_torch.neighbors.cagra import CagraIndex
         from raft_tpu_torch.neighbors.ivf_bq import IvfBqIndex
@@ -1150,6 +1432,9 @@ class SearchExecutor:
             plan = self._plan_ivf_pq(index, params, k, bucket, fw)
         elif isinstance(index, CagraIndex):
             plan = self._plan_cagra(index, params, k, bucket, fw)
+        elif isinstance(index, (DistributedIvfFlat, DistributedIvfPq,
+                                DistributedIvfBq)):
+            plan = self._plan_dist(index, params, k, bucket, fw, kw)
         else:
             raise TypeError(
                 f"SearchExecutor does not support {type(index)!r}")
@@ -1162,7 +1447,7 @@ class SearchExecutor:
         if self.capture and plan.capturable and not for_key:
             # what the graph bakes in: the index arrays' and the probe
             # plane's addresses
-            ptrs = tuple(a.data_ptr() for a in plan.arrays if a is not None)
+            ptrs = tuple(a.data_ptr() for a in _flat(plan.arrays))
             if plan.probe is not None:
                 ptrs += (plane.data_ptr(),)
             plan.key = plan.key + (("captured",) + ptrs,)
@@ -1180,9 +1465,18 @@ class SearchExecutor:
                   or index.dataset.dtype == torch.bfloat16 else torch.float32)
         key = ("bf_fused" if fused else "bf_scan", bucket, _sig(*arrays),
                _statics(static), _filter_spec(None))
+        n = index.dataset.shape[0]
+
+        def cost():
+            return {"flops": float(2 * bucket * n * index.dim),
+                    "bytes_accessed": float(
+                        sum(a.numel() * a.element_size()
+                            for a in _flat(arrays))
+                        + 4 * bucket * index.dim + 8 * bucket * k)}
+
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.dataset.device, qdtype=qdtype,
-                     qdim=index.dim)
+                     qdim=index.dim, cost=cost)
 
     def _plan_ivf_flat(self, index, params, k, bucket, fw) -> _Plan:
         from raft_tpu_torch.neighbors import ivf_flat as m
@@ -1195,7 +1489,9 @@ class SearchExecutor:
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.centers.device, use_filter=True,
                      qdim=index.dim,
-                     capturable=static["scan_engine"] == "cuda", probe=probe)
+                     capturable=static["scan_engine"] == "cuda", probe=probe,
+                     cost=lambda: self._flat_cost(index, bucket, k,
+                                                  static["n_probes"]))
 
     def _plan_ivf_bq(self, index, params, k, bucket, fw) -> _Plan:
         from raft_tpu_torch.neighbors import ivf_bq as m
@@ -1210,7 +1506,9 @@ class SearchExecutor:
                      device=index.centers.device, use_filter=True,
                      qdim=index.dim,
                      capturable=static["scan_engine"] in ("cuda", "rank"),
-                     probe=probe)
+                     probe=probe,
+                     cost=lambda: self._bq_cost(index, bucket, k,
+                                                static["n_probes"]))
 
     def _plan_ivf_pq(self, index, params, k, bucket, fw) -> _Plan:
         from raft_tpu_torch.neighbors import ivf_pq as m
@@ -1223,7 +1521,10 @@ class SearchExecutor:
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.centers.device, use_filter=True,
                      qdim=index.dim,
-                     capturable=static["scan_engine"] == "cuda", probe=probe)
+                     capturable=static["scan_engine"] == "cuda", probe=probe,
+                     cost=lambda: self._pq_cost(
+                         index, bucket, k, static["n_probes"],
+                         static.get("lut_dtype")))
 
     def _plan_cagra(self, index, params, k, bucket, fw) -> _Plan:
         from raft_tpu_torch.neighbors import cagra as m
@@ -1235,9 +1536,21 @@ class SearchExecutor:
                ("planes", index.seed_centers is not None,
                 arrays[-1] is not None),
                _statics(static), _filter_spec(None if kernel else fw))
+        # the walk's modeled work: every iteration expands w parents of
+        # graph_degree neighbours a query, each a distance over dim
+        visits = (bucket * static["max_iters"] * static["w"]
+                  * index.graph.shape[1])
+
+        def cost():
+            return {"flops": float(2 * visits * index.dim),
+                    "bytes_accessed": float(
+                        visits * (index.dim * index.dataset.element_size()
+                                  + 4)
+                        + 4 * bucket * index.dim + 8 * bucket * k)}
+
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.dataset.device, use_filter=not kernel,
-                     qdim=index.dim, capturable=kernel)
+                     qdim=index.dim, capturable=kernel, cost=cost)
 
     def _plan_tiered(self, index, params, k, bucket, fw) -> _Plan:
         from raft_tpu_torch.neighbors import tiered as m
@@ -1254,7 +1567,10 @@ class SearchExecutor:
         key, probe = self._probe_plumbing(index, "tiered_ivf", key)
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.centers.device, use_filter=True,
-                     qdim=index.dim, capturable=False, probe=probe)
+                     qdim=index.dim, capturable=False, probe=probe,
+                     cost=lambda: self._tiered_cost(index, bucket, k,
+                                                    static["n_probes"],
+                                                    2 * index.dim))
 
     def _plan_tiered_pq(self, index, params, k, bucket, fw) -> _Plan:
         """The tiered IVF-PQ plan: ``_plan_ivf_pq``'s statics over one
@@ -1273,7 +1589,10 @@ class SearchExecutor:
         key, probe = self._probe_plumbing(index, "tiered_ivf_pq", key)
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.centers.device, use_filter=True,
-                     qdim=index.dim, capturable=False, probe=probe)
+                     qdim=index.dim, capturable=False, probe=probe,
+                     cost=lambda: self._pq_cost(
+                         index, bucket, k, static["n_probes"],
+                         static.get("lut_dtype"), codes=index.hot_codes))
 
     def _plan_tiered_bq(self, index, params, k, bucket, fw) -> _Plan:
         """The tiered IVF-BQ plan: ``_plan_ivf_bq``'s statics over one
@@ -1289,4 +1608,210 @@ class SearchExecutor:
         key, probe = self._probe_plumbing(index, "tiered_ivf_bq", key)
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=index.centers.device, use_filter=True,
-                     qdim=index.dim, capturable=False, probe=probe)
+                     qdim=index.dim, capturable=False, probe=probe,
+                     cost=lambda: self._tiered_cost(
+                         index, bucket, k, static["n_probes"],
+                         2 * index.dim_ext // 32 + 8))
+
+    # -- modeled costs ------------------------------------------------------
+
+    @staticmethod
+    def _flat_cost(index, rows: int, k: int, n_probes: int,
+                   data=None, norms=None, ids=None) -> dict:
+        """IVF-Flat: each probed row is read whole (vector, norm, id) and
+        costs a multiply-add a dimension."""
+        data = index.data if data is None else data
+        norms = index.data_norms if norms is None else norms
+        ids = index.indices if ids is None else ids
+        return _ivf_cost(rows, k, index.dim, index.n_lists, n_probes,
+                         _live_rows(index), _row_bytes(data, norms, ids),
+                         2 * index.dim)
+
+    @staticmethod
+    def _tiered_cost(index, rows: int, k: int, n_probes: int,
+                     row_flops: int) -> dict:
+        """A tiered container: a probed row is its share of a list's
+        tiered planes (:attr:`block_bytes`) and its id, wherever the list
+        lives."""
+        ext = max(index.max_list_size, 1)
+        return _ivf_cost(rows, k, index.dim, index.n_lists, n_probes,
+                         _live_rows(index), index.block_bytes // ext + 4,
+                         row_flops)
+
+    @staticmethod
+    def _pq_cost(index, rows: int, k: int, n_probes: int, lut_dtype,
+                 codes=None, ids=None) -> dict:
+        """IVF-PQ: a probed row is its codes and id, scored by one LUT add
+        a subspace; each (query, probe) builds its LUT (a rotated residual,
+        then 2^bits entries a subspace over pq_len) and reads it once."""
+        codes = index.codes if codes is None else codes
+        ids = index.indices if ids is None else ids
+        pq_dim = int(index.pq_dim)
+        book = 1 << int(index.pq_bits)
+        pq_len = int(index.pq_len)
+        item = torch.empty((), dtype=lut_dtype or torch.float32
+                           ).element_size()
+        pairs = rows * n_probes
+        return _ivf_cost(
+            rows, k, index.dim, index.n_lists, n_probes, _live_rows(index),
+            _row_bytes(codes, ids), pq_dim,
+            extra_bytes=pairs * pq_dim * book * item,
+            extra_flops=pairs * (2 * index.dim * pq_dim * pq_len
+                                 + 3 * pq_dim * book * pq_len))
+
+    @staticmethod
+    def _bq_cost(index, rows: int, k: int, n_probes: int,
+                 planes=None, data=None) -> dict:
+        """IVF-BQ: a probed row is its code and correction planes, scored
+        by a popcount estimate a code word; the survivors reranked exactly
+        are modeled as ``k`` full rows a query (the least a fused search
+        reads)."""
+        if planes is None:
+            planes = (index.codes, index.rnorm, index.cfac, index.errw,
+                      index.indices)
+        data = index.data if data is None else data
+        dim_ext = int(index.dim_ext)
+        rerank = 0
+        if data is not None:
+            rerank = rows * k * (index.dim * data.element_size() + 4)
+        return _ivf_cost(rows, k, index.dim, index.n_lists, n_probes,
+                         _live_rows(index), _row_bytes(*planes),
+                         2 * dim_ext // 32 + 8,
+                         extra_bytes=rerank,
+                         extra_flops=2 * rows * k * index.dim)
+
+    # -- the mesh plans -----------------------------------------------------
+
+    def _dist_statics(self, index, kw) -> tuple:
+        """The shared mesh-plan pieces ``(comms, probe_mode, wire_dtype,
+        probe_wire_dtype, query_axis)``, validated (``executor.py:1702``).
+        ``"auto"`` wires resolve in :meth:`_plan_dist` once the probe
+        budget is known."""
+        from raft_tpu_torch.comms.comms import (
+            resolve_probe_wire_dtype,
+            resolve_wire_dtype,
+        )
+
+        comms = index.comms
+        probe_mode = kw.get("probe_mode", "global")
+        wire_dtype = kw.get("wire_dtype", "f32")
+        probe_wire_dtype = kw.get("probe_wire_dtype", "f32")
+        query_axis = kw.get("query_axis")
+        expect(probe_mode in ("global", "local"),
+               f"probe_mode must be 'global' or 'local', got {probe_mode!r}")
+        if wire_dtype != "auto":
+            resolve_wire_dtype(wire_dtype)
+        if probe_wire_dtype != "auto":
+            resolve_probe_wire_dtype(probe_wire_dtype)
+        if query_axis is not None:
+            expect(query_axis in comms.mesh.axis_names
+                   and query_axis != comms.axis,
+                   f"query_axis {query_axis!r} must be another mesh axis")
+        return comms, probe_mode, wire_dtype, probe_wire_dtype, query_axis
+
+    def _plan_dist(self, index, params, k, bucket, fw, kw) -> _Plan:
+        """One plan builder for the three list-sharded families
+        (``executor.py:1735``): the probe budget, engine and wires as the
+        direct searches resolve them, the family's statics and per-slot
+        arrays, the mesh key, the slot-viewed probe plane and the payload
+        model. The ragged plans derive from it (:meth:`_plan_ragged`)."""
+        from raft_tpu_torch.distributed import bq as dist_bq
+        from raft_tpu_torch.distributed import ivf as dist_ivf
+        from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+
+        expect(fw is None,
+               "distributed searches have no sample_filter support")
+        (comms, probe_mode, wire_dtype, probe_wire_dtype,
+         query_axis) = self._dist_statics(index, kw)
+        r = comms.size
+        rows = bucket
+        if query_axis is not None:
+            # whole query shards, each a whole scatter-merge slice per
+            # list shard: a multiple of the grid extent
+            grid = comms.mesh.shape[query_axis] * r
+            rows = -(-bucket // grid) * grid
+        if isinstance(index, dist_ivf.DistributedIvfFlat):
+            family, fn = "dist_ivf_flat", dist_ivf._dist_search_fn
+            params = params or ivf_flat.IvfFlatSearchParams()
+            engine = dist_ivf.resolve_flat_engine(params, index, k)
+            extra, key_extra = {}, ()
+            arrays = (index.centers, index.center_norms, index.data,
+                      index.data_norms, index.indices)
+        elif isinstance(index, dist_ivf.DistributedIvfPq):
+            family, fn = "dist_ivf_pq", dist_ivf._dist_search_pq_fn
+            params = params or ivf_pq.IvfPqSearchParams()
+            engine, score_mode = dist_ivf.resolve_pq_engine(params, index, k)
+            extra = {"codebook_kind": index.codebook_kind,
+                     "score_mode": score_mode,
+                     "lut_dtype": params.lut_dtype}
+            key_extra = ()
+            arrays = (index.centers, index.center_norms, index.rotation,
+                      index.codebooks, index.codes, index.indices)
+        else:
+            family, fn = "dist_ivf_bq", dist_bq._dist_search_bq_fn
+            params = params or ivf_bq.IvfBqSearchParams()
+            engine = dist_bq.resolve_bq_serving_engine(params, index, k)
+            extra = {"epsilon": params.epsilon,
+                     "query_bits": params.query_bits}
+            key_extra = (("data", index.data is not None),)
+            arrays = (index.centers, index.center_norms, index.centers_rot,
+                      index.rotation, index.codes, index.rnorm, index.cfac,
+                      index.errw, index.indices, index.data,
+                      index.data_norms)
+        expect(params.coarse_algo in ("exact", "approx"),
+               f"coarse_algo must be 'exact' or 'approx', got "
+               f"{params.coarse_algo!r}")
+        n_probes = dist_ivf.resolve_probe_budget(
+            params.n_probes, index.n_lists, r, probe_mode)
+        wire_dtype, probe_wire_dtype = dist_ivf.resolve_auto_wires(
+            rows, k, n_probes, index.n_lists, r, wire_dtype, probe_mode,
+            probe_wire_dtype)
+        static = {"comms": comms, "n_probes": n_probes, "k": k,
+                  "metric": index.metric, "probe_mode": probe_mode,
+                  "coarse_algo": params.coarse_algo, "scan_engine": engine,
+                  "wire_dtype": wire_dtype,
+                  "probe_wire_dtype": probe_wire_dtype,
+                  "query_axis": query_axis, **extra}
+        key = ((family, rows, _mesh_key(comms), _sig(*arrays)) + key_extra
+               + (_statics({n: v for n, v in static.items()
+                            if n != "comms"}), _filter_spec(None)))
+        probe, slots = None, r
+        if query_axis is None:
+            key, probe = self._probe_plumbing(index, family, key)
+            devs = set(map(str, comms.mesh.slot_devices()))
+            expect(probe is None or len(devs) == 1,
+                   "mesh probe accounting needs every slot on one device")
+        model = lambda: dist_ivf.collective_payload_model(  # noqa: E731
+            rows, k, n_probes, index.n_lists, r, wire_dtype, probe_mode,
+            probe_wire_dtype)
+        cost = lambda: self._dist_cost(  # noqa: E731
+            index, family, rows, k, n_probes, params, model())
+        return _Plan(key=key, fn=fn, static=static, arrays=arrays,
+                     device=comms.mesh.slot_devices()[0], qdim=index.dim,
+                     capturable=engine == "cuda", probe=probe, slots=slots,
+                     rows=rows if query_axis is not None else None,
+                     payload=(family, model), cost=cost)
+
+    def _dist_cost(self, index, family, rows, k, n_probes, params,
+                   payload: dict) -> dict:
+        """A mesh plan's modeled work: its family's over all lists (a
+        shard's planes stand for every shard's, the lists being dealt
+        whole), plus every slot's collective payload."""
+        r = index.comms.size
+        if family == "dist_ivf_flat":
+            cost = self._flat_cost(index, rows, k, n_probes,
+                                   data=index.data[0],
+                                   norms=index.data_norms[0],
+                                   ids=index.indices[0])
+        elif family == "dist_ivf_pq":
+            cost = self._pq_cost(index, rows, k, n_probes, params.lut_dtype,
+                                 codes=index.codes[0], ids=index.indices[0])
+        else:
+            cost = self._bq_cost(
+                index, rows, k, n_probes,
+                planes=(index.codes[0], index.rnorm[0], index.cfac[0],
+                        index.errw[0], index.indices[0]),
+                data=index.data[0] if index.data is not None else None)
+        wire = r * (payload["coarse_bytes"] + payload["merge_bytes"])
+        cost["bytes_accessed"] += float(wire)
+        return cost

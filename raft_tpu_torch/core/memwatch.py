@@ -22,10 +22,11 @@ the ledger, its scrape surface and the opt-in capacity gate).
   gauge names.
 - :func:`install_gate` / :func:`admit`: the opt-in process-wide gate that
   build paths consult; without a gate every admission passes.
-
-Not ported yet: the parsing and diffing of device-memory profiles
-(``parse_memory_profile``, ``diff_memory_profiles``), which wait for the
-profile ingestion of ROADMAP Queue 1 item 5.
+- :func:`parse_memory_profile` / :func:`diff_memory_profiles`: the
+  allocator's own view, ``torch.cuda.memory._snapshot()`` (in place of
+  XLA's pprof device-memory profile), grouped by segment and by the
+  frames the snapshot recorded, and the per-group divergence between two
+  snapshots, in the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -527,6 +528,78 @@ class MemoryLedger:
             "divergence_bytes": snap["divergence_bytes"],
             "devices": snap["devices"],
         }
+
+
+# ---------------------------------------------------------------------------
+# /memory_profile diffing: per-allocation-group divergence attribution
+# ---------------------------------------------------------------------------
+
+# the frames of the allocator and of the framework itself, which name no
+# caller: the first frame outside them is the allocation's site
+_FRAMEWORK_FRAMES = ("/torch/", "\\torch\\", "<frozen",
+                     "/raft_tpu_torch/core/")
+
+
+def _site(frames) -> str:
+    """The first recorded Python frame outside the framework, as
+    ``name@file:line`` (``(none)`` when the snapshot recorded none)."""
+    for f in frames or ():
+        fname = str(f.get("filename", ""))
+        if (not fname.endswith(".py")
+                or any(m in fname for m in _FRAMEWORK_FRAMES)):
+            continue
+        return f"{f.get('name', '')}@{fname.rsplit('/', 1)[-1]}:" \
+               f"{f.get('line', 0)}"
+    return "(none)"
+
+
+def parse_memory_profile(snapshot) -> Dict[str, int]:
+    """One ``torch.cuda.memory._snapshot()`` (a dict, or its pickle)
+    reduced into ``{label_key: bytes}`` of the allocated blocks
+    (``memwatch.py:749``): ``label_key`` is
+    ``device=<d>,segment=<large|small>,site=<name@file:line>``, the site
+    being the first frame outside the framework that
+    ``torch.cuda.memory._record_memory_history`` recorded
+    (``site=(none)`` without history). Cached but unallocated bytes are
+    not counted: the groups say what holds memory, as the JAX package's
+    live-buffer groups do."""
+    if isinstance(snapshot, (bytes, bytearray)):
+        import pickle
+
+        snapshot = pickle.loads(snapshot)
+    out: Dict[str, int] = {}
+    for seg in snapshot.get("segments", ()):
+        dev = seg.get("device", 0)
+        kind = seg.get("segment_type", "")
+        for blk in seg.get("blocks", ()):
+            if blk.get("state") != "active_allocated":
+                continue
+            key = f"device={dev},segment={kind},site={_site(blk.get('frames'))}"
+            out[key] = out.get(key, 0) + int(blk.get("size", 0))
+    return out
+
+
+def diff_memory_profiles(before: Dict[str, int],
+                         after: Dict[str, int]) -> dict:
+    """Per-group divergence between two parsed snapshots
+    (``memwatch.py:832``): ``deltas`` (largest |delta| first, ties by
+    label) and the totals before, after and between."""
+    keys = sorted(set(before) | set(after))
+    deltas = []
+    for key in keys:
+        b = int(before.get(key, 0))
+        a = int(after.get(key, 0))
+        if a != b:
+            deltas.append({"label": key, "from_bytes": b,
+                           "to_bytes": a, "delta_bytes": a - b})
+    deltas.sort(key=lambda d: (-abs(d["delta_bytes"]), d["label"]))
+    return {
+        "deltas": deltas,
+        "total_before_bytes": int(sum(before.values())),
+        "total_after_bytes": int(sum(after.values())),
+        "total_delta_bytes": int(sum(after.values())
+                                 - sum(before.values())),
+    }
 
 
 _GATE: Optional[MemoryLedger] = None  # guarded-by: _GATE_LOCK

@@ -14,14 +14,16 @@ and a reset folds them into the process-lifetime ledger
 (:func:`lifetime_counters`); gauges hold the last value set; histograms
 are log2-bucketed latency distributions; spans are host-side stage
 timings with trace ids in a bounded ring (:class:`SpanRecorder`), with
-a Chrome trace-event export.
+a Chrome trace-event export. The mesh helpers (``poll_shard_timings``,
+``record_mesh_spans``, ``straggler_stats``), the index-health statistics
+and the drift divergence (``index_health``, ``probe_freq_stats``,
+``js_divergence``) are pure reductions. :func:`capture` is a
+``torch.profiler`` session that writes a Chrome trace.
 
-Not ported yet: the mesh helpers (``poll_shard_timings``,
-``record_mesh_spans``, ``straggler_stats``, with the comms layer), the
-index-health statistics and drift divergence (with the observability
-modules), ``capture``/``start_server`` (``torch.profiler`` is called
-directly) and the XLA compile listener, which has no counterpart: the
-executor counts its CUDA-graph captures itself.
+Two names have no counterpart: ``start_server`` (``torch.profiler`` has
+no remote-capture server: it raises, and capture on demand from outside
+the process is the exporter's ``/profile``) and the XLA compile listener
+(the executor counts its CUDA-graph captures itself).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import builtins
 import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import threading
 import time
@@ -40,10 +43,50 @@ import torch
 
 
 @contextlib.contextmanager
-def range(name: str):  # noqa: A001 - mirrors the reference name
-    """A named span in ``torch.profiler`` traces."""
-    with torch.profiler.record_function(name):
+def range(name: str, *fmt_args):  # noqa: A001 - mirrors the reference name
+    """A named span in ``torch.profiler`` traces (``name % fmt_args``
+    when arguments are given)."""
+    label = name % fmt_args if fmt_args else name
+    with torch.profiler.record_function(label):
         yield
+
+
+def annotated(name: str):
+    """Decorator form of :func:`range`, used on public entry points."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with range(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
+@contextlib.contextmanager
+def capture(log_dir: str):
+    """A ``torch.profiler`` session over the enclosed block, its Chrome
+    trace (with the executor's timed calls) written into ``log_dir``
+    (:func:`raft_tpu_torch.core.profiling.session`)::
+
+        with tracing.capture("/tmp/trace"):
+            index = ivf_flat.build(res, params, dataset)
+    """
+    from raft_tpu_torch.core import profiling
+
+    with profiling.session(log_dir) as cap:
+        yield cap
+
+
+def start_server(port: int = 9999):
+    """No counterpart: ``torch.profiler`` has no remote-capture server.
+    Capture from outside the process through the exporter's ``/profile``
+    endpoint."""
+    raise NotImplementedError(
+        "torch.profiler has no remote-capture server; capture on demand "
+        "through MetricsExporter's /profile endpoint")
 
 
 _counters: Dict[str, float] = {}  # guarded-by: _counters_lock
@@ -546,6 +589,72 @@ def record_mesh_spans(family: str, t0: float, t1: float, *,
         set_gauges({MESH_SHARD_SKEW_P50: stats["shard_skew_p50"],
                     MESH_SHARD_SKEW_P99: stats["shard_skew_p99"]})
     return stats
+
+
+# the flat (unlabeled) drift/recall gauge names of the index gauge
+DRIFT_SCORE = "index.drift.score"
+RECALL_ESTIMATE = "index.recall.estimate"
+
+
+def index_health(list_sizes, max_list_size: Optional[int] = None,
+                 shards: int = 0) -> dict:
+    """One index's per-list populations reduced into its health stats
+    (``tracing.py:723``): occupancy skew (``max``/``mean``/``p99`` list
+    size, the Gini coefficient), ``dead_lists`` (empty), ``overflow_lists``
+    (at the padded capacity ``max_list_size``), ``fill_fraction`` of the
+    padded planes and, with ``shards`` > 1, the per-shard row totals'
+    ``shard_imbalance`` (max/mean)."""
+    sizes = np.asarray(list_sizes, dtype=np.int64)
+    n = int(sizes.size)
+    total = int(sizes.sum())
+    out = {
+        "n_lists": n,
+        "rows": total,
+        "max_list_size": int(sizes.max()) if n else 0,
+        "mean_list_size": total / n if n else 0.0,
+        "p99_list_size": float(np.percentile(sizes, 99)) if n else 0.0,
+        "dead_lists": int((sizes == 0).sum()),
+        "overflow_lists": 0,
+        "fill_fraction": 0.0,
+        "gini": 0.0,
+        "shard_imbalance": 1.0,
+    }
+    if max_list_size:
+        out["overflow_lists"] = int((sizes >= max_list_size).sum())
+        out["fill_fraction"] = (total / (n * max_list_size)
+                                if n * max_list_size else 0.0)
+    if total > 0 and n > 1:
+        s = np.sort(sizes)
+        cum = np.cumsum(s, dtype=np.float64)
+        out["gini"] = float(
+            (n + 1 - 2.0 * (cum.sum() / cum[-1])) / n)
+    if shards > 1 and n % shards == 0:
+        per_shard = sizes.reshape(shards, n // shards).sum(axis=1)
+        mean = per_shard.mean()
+        out["shard_imbalance"] = (float(per_shard.max() / mean)
+                                  if mean > 0 else 1.0)
+    return out
+
+
+def js_divergence(p, q) -> float:
+    """Jensen-Shannon divergence (base 2, in [0, 1]) between two count
+    histograms (``tracing.py:804``): a zero histogram against a non-zero
+    one scores 1.0, two zero histograms 0.0."""
+    pa = np.asarray(p, dtype=np.float64)
+    qa = np.asarray(q, dtype=np.float64)
+    ps, qs = pa.sum(), qa.sum()
+    if ps == 0 and qs == 0:
+        return 0.0
+    if ps == 0 or qs == 0:
+        return 1.0
+    pa, qa = pa / ps, qa / qs
+    m = 0.5 * (pa + qa)
+
+    def kl(a, b):
+        mask = a > 0
+        return float(np.sum(a[mask] * np.log2(a[mask] / b[mask])))
+
+    return 0.5 * kl(pa, m) + 0.5 * kl(qa, m)
 
 
 def probe_freq_stats(counts, top_n: int = 8) -> dict:

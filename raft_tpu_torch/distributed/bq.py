@@ -298,6 +298,25 @@ def _dist_search_ragged_bq_fn(queries, row_probes, centers, center_norms,
         probe_wire_dtype=probe_wire_dtype)
 
 
+def resolve_bq_serving_engine(params: IvfBqSearchParams, index, k: int
+                              ) -> str:
+    """The fused engine of a mesh IVF-BQ search, for the direct
+    :func:`search_bq` and the executor's mesh plan alike."""
+    from raft_tpu_torch.ops.bq_scan import resolve_bq_engine
+
+    expect(index.data is not None,
+           "distributed IVF-BQ search needs the rerank plane "
+           "(store_vectors=True): the estimate-only rank scan is not "
+           "ported to the mesh")
+    expect(params.scan_engine in ("auto", "cuda", "torch"),
+           "distributed scan_engine must be auto|cuda|torch (the rank "
+           f"scan is not ported to the mesh), got {params.scan_engine!r}")
+    engine = resolve_bq_engine(params.scan_engine, data=index.data[0], k=k)
+    expect(engine != "cuda" or index.data[0].device.type == "cuda",
+           "scan_engine='cuda' needs an index on a CUDA device")
+    return engine
+
+
 def search_bq(res: Optional[Resources], params: IvfBqSearchParams,
               index: DistributedIvfBq, queries, k: int,
               probe_mode: str = "global", query_axis: Optional[str] = None,
@@ -311,24 +330,13 @@ def search_bq(res: Optional[Resources], params: IvfBqSearchParams,
     (not with ``query_axis``, whose grid is itself the large-batch
     form). Needs the rerank plane: an estimate-only index's rank scan is
     not ported to the mesh."""
-    from raft_tpu_torch.ops.bq_scan import resolve_bq_engine
-
     res = ensure_resources(res)
     comms = index.comms
-    expect(index.data is not None,
-           "distributed IVF-BQ search needs the rerank plane "
-           "(store_vectors=True): the estimate-only rank scan is not "
-           "ported to the mesh")
     queries = torch.as_tensor(queries).to(index.centers[0].device)
     n_probes, wire_dtype, probe_wire_dtype = _resolve_search(
         comms, queries, k, index.dim, index.n_lists, params, probe_mode,
         query_axis, wire_dtype, probe_wire_dtype)
-    expect(params.scan_engine in ("auto", "cuda", "torch"),
-           "distributed scan_engine must be auto|cuda|torch (the rank "
-           f"scan is not ported to the mesh), got {params.scan_engine!r}")
-    engine = resolve_bq_engine(params.scan_engine, data=index.data[0], k=k)
-    expect(engine != "cuda" or index.data[0].device.type == "cuda",
-           "scan_engine='cuda' needs an index on a CUDA device")
+    engine = resolve_bq_serving_engine(params, index, k)
     with tracing.range("raft_tpu.distributed.ivf_bq.search"):
         def run(qt, _fw):
             return _dist_search_bq_fn(

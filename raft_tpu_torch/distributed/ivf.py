@@ -615,6 +615,30 @@ def _dist_search_ragged_fn(queries, row_probes, centers, center_norms, data,
         probe_wire_dtype=probe_wire_dtype)
 
 
+def resolve_flat_engine(params: IvfFlatSearchParams, index, k: int) -> str:
+    """The list-major engine of a mesh IVF-Flat search: what the direct
+    :func:`search` and the executor's mesh plan both run."""
+    from raft_tpu_torch.ops.ivf_scan import resolve_scan_engine
+
+    engine = _resolve_list_engine(params.scan_engine, index.data[0].device)
+    return resolve_scan_engine(engine, data=index.data[0], k=k)
+
+
+def resolve_pq_engine(params: IvfPqSearchParams, index, k: int
+                      ) -> Tuple[str, str]:
+    """``(scan engine, score mode)`` of a mesh IVF-PQ search, for the
+    direct :func:`search_pq` and the executor's mesh plan alike."""
+    expect(params.lut_dtype in ivf_pq_mod.LUT_DTYPES,
+           f"lut_dtype must be float32/bfloat16/float8_e4m3fn/float8_e5m2, "
+           f"got {params.lut_dtype}")
+    score_mode = ivf_pq_mod.resolve_score_mode(params.score_mode)
+    engine = _resolve_list_engine(params.scan_engine,
+                                  index.codes[0].device)
+    if engine == "cuda":
+        engine = ivf_pq_mod.resolve_scan_engine("cuda", None, k, score_mode)
+    return engine, score_mode
+
+
 def _resolve_search(comms, queries, k, index_dim, n_lists, params,
                     probe_mode, query_axis, wire_dtype, probe_wire_dtype):
     expect(queries.ndim == 2 and queries.shape[1] == index_dim,
@@ -652,10 +676,7 @@ def search(res: Optional[Resources], params: IvfFlatSearchParams,
     n_probes, wire_dtype, probe_wire_dtype = _resolve_search(
         comms, queries, k, index.dim, index.n_lists, params, probe_mode,
         query_axis, wire_dtype, probe_wire_dtype)
-    engine = _resolve_list_engine(params.scan_engine, index.data[0].device)
-    from raft_tpu_torch.ops.ivf_scan import resolve_scan_engine
-
-    engine = resolve_scan_engine(engine, data=index.data[0], k=k)
+    engine = resolve_flat_engine(params, index, k)
     with tracing.range("raft_tpu.distributed.ivf_flat.search"):
         model = lambda: collective_payload_model(  # noqa: E731
             queries.shape[0], k, n_probes, index.n_lists, comms.size,
@@ -985,14 +1006,7 @@ def search_pq(res: Optional[Resources], params: IvfPqSearchParams,
     n_probes, wire_dtype, probe_wire_dtype = _resolve_search(
         comms, queries, k, index.dim, index.n_lists, params, probe_mode,
         query_axis, wire_dtype, probe_wire_dtype)
-    expect(params.lut_dtype in ivf_pq_mod.LUT_DTYPES,
-           f"lut_dtype must be float32/bfloat16/float8_e4m3fn/float8_e5m2, "
-           f"got {params.lut_dtype}")
-    score_mode = ivf_pq_mod.resolve_score_mode(params.score_mode)
-    engine = _resolve_list_engine(params.scan_engine,
-                                  index.codes[0].device)
-    if engine == "cuda":
-        engine = ivf_pq_mod.resolve_scan_engine("cuda", None, k, score_mode)
+    engine, score_mode = resolve_pq_engine(params, index, k)
     with tracing.range("raft_tpu.distributed.ivf_pq.search"):
         model = lambda: collective_payload_model(  # noqa: E731
             queries.shape[0], k, n_probes, index.n_lists, comms.size,

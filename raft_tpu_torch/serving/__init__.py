@@ -24,9 +24,26 @@ placement policy — the port of ``raft_tpu/serving``'s request layer.
 - :mod:`~raft_tpu_torch.serving.prefetch`: the forecast and the staged
   promotions ahead of an epoch (:class:`~raft_tpu_torch.serving.prefetch
   .TierPrefetcher`).
+- :mod:`~raft_tpu_torch.serving.exporter`: :class:`MetricsExporter`, the
+  one HTTP scrape surface (``/metrics``, ``/snapshot.json``,
+  ``/trace.json``, ``/profile``, ``/incident.json``, ``/memory.json``,
+  ``/memory_profile``, ``/tier.json``, ``/index.json``, ``/fleet.json``,
+  ``/route.json``, ``/push``, ``/healthz``).
+- :mod:`~raft_tpu_torch.serving.flight`: :class:`FlightRecorder`, the
+  incident capture its triggers arm (multiburn, latency anomaly, low
+  headroom), with on-disk bundles.
+- :mod:`~raft_tpu_torch.serving.continuous`: :class:`ContinuousCapture`,
+  low-duty-cycle profiler windows folded into the rolling attribution.
+- :mod:`~raft_tpu_torch.serving.gauge`: :class:`IndexGauge` (index
+  health, shadow recall through :class:`ShadowSampler`, drift through
+  :class:`DriftDetector`).
+- :mod:`~raft_tpu_torch.serving.federation`: :class:`FleetAggregator`,
+  one merged view over several replicas' exporters.
 
-Not ported yet: ``continuous``, ``exporter``, ``flight``, ``gauge`` and
-``federation`` (ROADMAP Queue 1).
+Works for single-device and list-sharded (``Distributed*``) indexes
+alike: the batcher only talks to the executor API. The fleet layer
+(``fleet/{table,planner,router,harness}``) is not ported yet: the
+exporter's route endpoints answer 404 until a router is attached.
 """
 
 from raft_tpu_torch.serving.admission import AdmissionQueue, LoadShed
@@ -36,11 +53,40 @@ from raft_tpu_torch.serving.batcher import (
     DynamicBatcher,
     MonotonicClock,
 )
+from raft_tpu_torch.serving.continuous import (
+    ContinuousCapture,
+    ContinuousConfig,
+)
+from raft_tpu_torch.serving.exporter import MetricsExporter
+from raft_tpu_torch.serving.federation import (
+    FleetAggregator,
+    FleetConfig,
+    ProbePlaneView,
+    ReplicaHeadroom,
+)
+from raft_tpu_torch.serving.flight import (
+    FlightConfig,
+    FlightRecorder,
+    LatencyAnomaly,
+)
+from raft_tpu_torch.serving.gauge import (
+    DriftDetector,
+    IndexGauge,
+    RecallWindow,
+    ShadowConfig,
+    ShadowSampler,
+)
 from raft_tpu_torch.serving.metrics import (
     MultiBurnAlert,
     MultiBurnConfig,
     SloConfig,
     SloWindow,
+)
+from raft_tpu_torch.serving.placement import (
+    PlacementConfig,
+    PlacementPlan,
+    TierManager,
+    plan_epoch,
 )
 from raft_tpu_torch.serving.request import (
     Cancelled,
@@ -57,17 +103,36 @@ __all__ = [
     "AdmissionQueue",
     "BatcherConfig",
     "Cancelled",
+    "ContinuousCapture",
+    "ContinuousConfig",
     "DeadlineExceeded",
+    "DriftDetector",
     "DynamicBatcher",
+    "FleetAggregator",
+    "FleetConfig",
+    "FlightConfig",
+    "FlightRecorder",
+    "IndexGauge",
+    "LatencyAnomaly",
     "LoadShed",
+    "MetricsExporter",
     "MonotonicClock",
     "MultiBurnAlert",
     "MultiBurnConfig",
     "Overloaded",
+    "PlacementConfig",
+    "PlacementPlan",
+    "ProbePlaneView",
+    "RecallWindow",
+    "ReplicaHeadroom",
     "ResultHandle",
     "SearchRequest",
     "ServingError",
+    "ShadowConfig",
+    "ShadowSampler",
     "ShutDown",
     "SloConfig",
     "SloWindow",
+    "TierManager",
+    "plan_epoch",
 ]

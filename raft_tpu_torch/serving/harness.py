@@ -16,9 +16,6 @@
   log.
 - :func:`burst_schedule` / :func:`drive_open_loop`: bursty *open-loop*
   load (submission times fixed in advance, independent of completions).
-
-Not ported yet: the shim's scripted mesh shard timings, with the mesh
-layer.
 """
 
 from __future__ import annotations
@@ -128,14 +125,22 @@ class ShimExecutor:
     the *slow executor* that makes queues pile up on demand. ``fail_on``
     maps 0-based call ordinals (of both entries) to exceptions to raise
     instead of executing. The wrapped executor's results pass through
-    untouched; ``calls`` logs ``(n_blocks, rows)`` per call."""
+    untouched; ``calls`` logs ``(n_blocks, rows)`` per call.
+
+    ``shard_times`` scripts per-shard mesh timings: a sequence of
+    per-shard seconds applied to every ``search_blocks`` call, or a dict
+    of 0-based call ordinal -> sequence. Each scripted call records them
+    through :func:`raft_tpu_torch.core.tracing.record_mesh_spans` at the
+    injected clock's time, as a mesh dispatch would, so the
+    ``serving.mesh.*`` straggler gauges are pinned to the script."""
 
     def __init__(self, inner, *, delay_s: float = 0.0, clock=None,
-                 fail_on: Optional[dict] = None):
+                 fail_on: Optional[dict] = None, shard_times=None):
         self.inner = inner
         self.delay_s = delay_s
         self.clock = clock
         self.fail_on = dict(fail_on or {})
+        self.shard_times = shard_times
         self.calls: List[Tuple[int, int]] = []
 
     @property
@@ -153,8 +158,9 @@ class ShimExecutor:
         inner = getattr(self.inner, "ragged_key", None)
         return inner(*a, **kw) if inner is not None else None
 
-    def _charge_call(self, blocks) -> None:
-        """The scripted latency and failure of one call, either entry."""
+    def _charge_call(self, blocks) -> int:
+        """The scripted latency and failure of one call, either entry;
+        returns the call's 0-based ordinal."""
         ordinal = len(self.calls)
         self.calls.append((len(blocks),
                            sum(int(np.shape(b)[0]) for b in blocks)))
@@ -167,9 +173,21 @@ class ShimExecutor:
                 time.sleep(self.delay_s)
         if ordinal in self.fail_on:
             raise self.fail_on[ordinal]
+        return ordinal
 
     def search_blocks(self, index, blocks, k: int, **kw):
-        self._charge_call(blocks)
+        ordinal = self._charge_call(blocks)
+        times = self.shard_times
+        if isinstance(times, dict):
+            times = times.get(ordinal)
+        if times:
+            from raft_tpu_torch.core import tracing
+
+            t0 = self.clock.now() if self.clock is not None else 0.0
+            tracing.record_mesh_spans(
+                "shim", t0, t0 + max(times),
+                trace_ids=tuple(kw.get("trace_ids", ())),
+                shard_timings=list(times))
         return self.inner.search_blocks(index, blocks, k, **kw)
 
     def search_ragged(self, index, blocks, ks, **kw):

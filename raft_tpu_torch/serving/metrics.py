@@ -42,22 +42,25 @@ Batch **occupancy** is derived from one counters read
 pad-waste fraction, overall and per ragged (class, tile)
 (:func:`derived`).
 
-Not ported yet: the derived fields that read the JAX package's cost
-model and ``core/profiling`` (``modeled_bytes_total``,
-``modeled_flops_total``, ``achieved_gbps``, ``achieved_gflops``,
-``measured_device_seconds_total``, ``device_achieved_gbps``,
-``device_achieved_gflops``, ``rolling_*``, ``measured_executables``),
-which wait for the profiling port.
+The executor's modeled work (``serving.execute.modeled_flops`` /
+``.modeled_bytes``: each entry's flops and bytes from the port's own cost
+model, :mod:`raft_tpu_torch.core.executor`) over the measured execute
+seconds gives ``achieved_gbps`` / ``achieved_gflops``; the same over the
+device seconds a profiler capture attributed
+(:mod:`raft_tpu_torch.core.profiling`: ``serving.attribution.*``) gives
+``device_achieved_gbps`` / ``gflops``, and the continuous scheduler's
+rolling attribution the ``rolling_*`` fields (:func:`derived`).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import re
 import threading
 from typing import Optional
 
-from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core import profiling, tracing
 
 PREFIX = "serving.batcher."
 
@@ -345,8 +348,10 @@ def derived() -> dict:
     share of dispatched row capacity that was bucket or tile pad), the
     same per ragged params class and tile (``pad_waste_by_class``:
     ``{"p<NP>.t<T>": fraction}``, which says whether a small tile earns
-    its entry at the observed load) and the seconds spent capturing CUDA
-    graphs."""
+    its entry at the observed load), the seconds spent capturing CUDA
+    graphs, the modeled work and its achieved rates over the execute
+    seconds, and the device-measured and rolling counterparts
+    (the JAX package's names, ``metrics.py:446``)."""
     hits = tracing.get_counter("serving.cache_hits")
     misses = tracing.get_counter("serving.cache_misses")
     exec_s = tracing.get_histogram(EXECUTE).snapshot()["sum"]
@@ -359,14 +364,46 @@ def derived() -> dict:
         if pad:
             by_class[label] = 1.0 - tracing.get_counter(
                 "serving.execute.rows." + label) / pad
-    return {
+    out = {
         "cache_hit_rate": hits / (hits + misses) if hits + misses else 0.0,
         "execute_seconds_total": exec_s,
         "pad_waste_fraction": 1.0 - rows / padded if padded else 0.0,
         "pad_waste_by_class": by_class,
         "capture_seconds_total":
             tracing.get_counter("serving.capture_seconds"),
+        "modeled_bytes_total":
+            tracing.get_counter("serving.execute.modeled_bytes"),
+        "modeled_flops_total":
+            tracing.get_counter("serving.execute.modeled_flops"),
     }
+    out["achieved_gbps"] = (
+        out["modeled_bytes_total"] / exec_s / 1e9 if exec_s > 0 else 0.0)
+    out["achieved_gflops"] = (
+        out["modeled_flops_total"] / exec_s / 1e9 if exec_s > 0 else 0.0)
+    att_s = tracing.get_counter(profiling.ATTRIBUTED_SECONDS)
+    out["measured_device_seconds_total"] = att_s
+    out["device_achieved_gbps"] = (
+        tracing.get_counter(profiling.ATTRIBUTED_BYTES) / att_s / 1e9
+        if att_s > 0 else 0.0)
+    out["device_achieved_gflops"] = (
+        tracing.get_counter(profiling.ATTRIBUTED_FLOPS) / att_s / 1e9
+        if att_s > 0 else 0.0)
+    rp = profiling.ROLLING_PREFIX
+    out["rolling_windows"] = tracing.get_gauge(rp + "windows")
+    out["rolling_device_seconds"] = tracing.get_gauge(
+        rp + "device_seconds")
+    out["rolling_gbps"] = tracing.get_gauge(rp + "gbps")
+    out["rolling_gflops"] = tracing.get_gauge(rp + "gflops")
+    # each entry's measured view, from the attribution's gauges
+    measured: dict = {}
+    pat = re.compile(
+        r"^serving\.executable\.([0-9a-f]+)\.measured_([a-z_]+)$")
+    for name, v in tracing.gauges("serving.executable.").items():
+        m = pat.match(name)
+        if m:
+            measured.setdefault(m.group(1), {})[m.group(2)] = v
+    out["measured_executables"] = measured
+    return out
 
 
 def snapshot() -> dict:
