@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases env,build,kernels,main,serve,ragged,distance,pq,stream,
-                  dist,meshserve,observe,times]
+                  dist,meshserve,observe,fleet,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -38,7 +38,10 @@ non-zero exit (nothing is caught and passed over):
             64, 128, 256, 512}, search_width in {1, 4}, q in {1, 10,
             500}, seeds with -1 holes, ragged row_iters with a 0, two
             random samplings, BQ traversal off and at bits 1 and 2, and
-            every cluster size (1-16) forced at q 1, 10 and 90. Ids
+            every cluster size (1-16) forced at q 1, 10 and 90; that
+            index saved as an hnswlib file, loaded back and searched
+            through the beam kernel, equal to the original's search bit
+            for bit at batch 10 and 500 (the file deleted). Ids
             must be equal on integer-valued data (every product exact);
             on Gaussian data distances agree to |dd| <= 1e-4 (1 + |d|)
             and 99% of ids agree. The IVF-BQ scan and the beam search
@@ -267,10 +270,17 @@ non-zero exit (nothing is caught and passed over):
             and main phases' indexes (their single-device builds are not
             repeated: a cut for the time limit); a ShardedIndex of 4 CAGRA
             sub-indexes on the first 200,000 rows (recall@10 >= 0.90 at itopk
-            64, batch 500). The IVF scan, the BQ scan, ivf_pq_scan and the beam
-            search must launch in the phase; its launches add to the kernels
-            line's. Its numbers go to chiprun_out/dist.json. It keeps the
-            three dealt indexes for the next two phases.
+            64, batch 500). The rank-major engines on the three dealt
+            indexes at (32, 10) (200 queries) and (128, 500) (1,000 queries),
+            each request equal to the single-device rank search of its family
+            bit for bit, the median ms beside the list-major engine's; a
+            codes-only 4-slot IVF-BQ index (main's with its rerank plane
+            dropped) searched at the merge overfetch depth, equal to the
+            single-device codes-only search, recall@10 raw and refined. The
+            IVF scan, the BQ scan, ivf_pq_scan and the beam search must launch
+            in the phase; its launches add to the kernels line's. Its numbers
+            go to chiprun_out/dist.json. It keeps the three dealt indexes for
+            the next two phases.
 11. meshserve  the executor's mesh plans on dist's indexes (alone with
             --phases env,build,dist,meshserve,observe): an executor a
             family (IVF-Flat, IVF-PQ on the sift raft_ivf_pq entry, IVF-BQ
@@ -286,11 +296,15 @@ non-zero exit (nothing is caught and passed over):
             tiles) fed from 4 threads with 160 requests of 1-40 rows, each
             equal to its solo search (pad waste printed); the probe
             histogram of 8 requests equal to the single-device
-            executor's in the dealt order; mesh_trace's phase spans over
-            the merged outputs' readiness (no per-slot span or straggler
-            gauge: the executor sees no slot's own readiness) with no
-            capture. Its launches add to the kernels line's; its
-            numbers go to chiprun_out/meshserve.json.
+            executor's in the dealt order; mesh_trace on a captured plan:
+            the phase spans over the merged outputs' readiness and one
+            serving.mesh.shard span a slot from the event its graph records
+            after that slot's scan (4 distinct readings a dispatch, none past
+            the merged readiness), the straggler gauges set, no capture
+            after warmup; a rank-engine mesh plan, eager (IVF-Flat) and
+            captured (codes-only IVF-BQ), equal to its direct search bit for
+            bit. Its launches add to the kernels line's; its numbers go to
+            chiprun_out/meshserve.json.
 12. observe the observability plane over a served run: a
             MetricsExporter on 127.0.0.1 over a probe-accounting executor
             serving the single-device and the dist IVF-Flat indexes
@@ -319,7 +333,24 @@ non-zero exit (nothing is caught and passed over):
             histogram; /memory_profile before and after an
             ivf_flat.extend of 100,000 rows shows its allocation. Its
             numbers go to chiprun_out/observe.json.
-13. times   per kernel at the main path's shapes: kernel ms (CUDA
+13. fleet   the fleet layer on main's IVF-Flat index (alone with --phases
+            env,build,main,fleet): its own build_tiered(hot_fraction=0.5)
+            behind a probe-accounting executor (the ladder 8..512 warmed)
+            and a DynamicBatcher fed from 4 threads (240 requests of 1-40
+            rows, 3 in 4 at the centers of 16 cold lists), while a
+            FleetPlanner over a FleetAggregator of two exporters plans 4
+            epochs whose placement deltas for the replica go through
+            tiered.apply_plan(width=8, executor=): every served request
+            equal to the all-device IVF-Flat search bit for bit, 0
+            captures after warmup, tier_scan launched (epoch ms, swap
+            bytes, served p50/p99 printed); a QueryRouter over a 4-replica
+            harness behind an exporter: /route.json 404 before a table and
+            200 after a push, a newer push 200, a stale one 409,
+            fleet_route_* in /metrics; merge_fanout of device-tensor parts
+            equal to the numpy-part merge on the f32 and bf16 wires. Its
+            launches add to the kernels line's; its numbers go to
+            chiprun_out/fleet.json.
+14. times   per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -338,7 +369,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-14. profile (not in the default run) torch.profiler over five requests
+15. profile (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -357,6 +388,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import io
 import json
@@ -367,6 +399,10 @@ import time
 
 import numpy as np
 
+# past this many seconds the run prints every thread's stack and exits
+# with status 1: a run that stalls ends inside its 1,200 s limit, saying
+# where it stalled
+RUN_LIMIT_S = 1170
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 # PCIe Gen5 x16, one direction: half of the data sheet's 128 GB/s, which
 # counts both
@@ -930,6 +966,59 @@ def kernels_beam(torch, seed: int) -> None:
                 cases += 1
     log(f"[kernels] beam_search: every cluster size {sorted(sizes)} equals "
         f"the plain version bit for bit ({cases} cases in all)")
+    kernels_hnsw(torch, res, index, qx)
+
+
+def kernels_hnsw(torch, res, index, queries) -> None:
+    """The CAGRA index saved as an hnswlib file, loaded back on the card
+    and searched through the beam kernel: graph and vectors equal, and
+    the search equal to the original index's bit for bit (both seeded
+    from the strided pool: a loaded index has no seed plane)."""
+    import tempfile
+
+    from raft_tpu_torch.neighbors import cagra, hnsw
+    from raft_tpu_torch.ops.beam_search import beam_search
+
+    fd, path = tempfile.mkstemp(suffix=".hnsw")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        hnsw.save_hnswlib(res, index, path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = hnsw.load_hnswlib(res, path, index.dataset.shape[1],
+                                   metric=index.metric)
+        load_s = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+    if loaded.dataset.device != index.dataset.device or not (
+            torch.equal(loaded.graph, index.graph)
+            and torch.equal(loaded.dataset, index.dataset)):
+        fail("hnsw: the loaded index differs from the saved one")
+    sp = cagra.CagraSearchParams(itopk_size=64, search_width=4,
+                                 seed_mode="pool")
+    launches = 0
+    for q in (10, 500):
+        want = cagra.search(res, sp, index, queries[:q], 10)
+        n0 = beam_search.launches
+        got = cagra.search(res, sp, loaded, queries[:q], 10)
+        torch.cuda.synchronize()
+        launches += beam_search.launches - n0
+        if beam_search.launches == n0:
+            fail("hnsw: the loaded index's search did not launch the beam "
+                 "kernel")
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            fail(f"hnsw: the loaded index searches unlike the original at "
+                 f"batch {q} ({int((got[1] != want[1]).sum())} ids)")
+    log(f"[kernels] hnsw: the {index.dataset.shape[0]} x "
+        f"{index.dataset.shape[1]} CAGRA index (degree "
+        f"{index.graph.shape[1]}) saved as an hnswlib file ({nbytes} bytes, "
+        f"{save_s:.2f} s), loaded back ({load_s:.2f} s, the file deleted): "
+        "graph and vectors equal, and its search through the beam kernel "
+        f"({launches} launches) equals the original's bit for bit at batch "
+        "10 and 500")
 
 
 def _split_tiers(torch, data, hot_lists, cold_lists):
@@ -4810,6 +4899,108 @@ def dist_family(torch, state, fam, di, single, SP, search, single_search):
     return out
 
 
+# the rank-major mesh searches: (n_probes, batch) -> queries searched (a
+# cut for the time limit: the rank scans gather every probed list per
+# query)
+DIST_RANK_QUERIES = {(32, 10): 200, (128, 500): 1000}
+# IVF-BQ's rank estimate takes |q - c|^2 from the coarse products q.c,
+# a (q, n_lists / R) product on a slot and (q, n_lists) on one device:
+# the two GEMMs round differently, so its distances are held to this
+# share of |q|^2 + max |c|^2 (ids stay exact); IVF-Flat's and IVF-PQ's
+# rank distances use no coarse product and must be bit-identical
+DIST_RANK_BQ_RTOL = 1e-6
+
+
+def dist_rank(torch, state: dict, out: dict) -> None:
+    """The rank-major engines in the shard bodies on the three dealt
+    indexes: each request equal to the single-device rank search of the
+    same family (ids and distances), the median ms beside the list-major
+    engine's; then a codes-only 4-slot IVF-BQ index (the main phase's
+    index with its rerank plane dropped: what store_vectors=False builds)
+    searched at the overfetch depth, its recall@10 raw and refined."""
+    from raft_tpu_torch.distributed import bq as dbq
+    from raft_tpu_torch.distributed import ivf as divf
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq, refine
+
+    res, queries, gt_i = state["res"], state["queries"], state["gt_i"]
+    fams = (("flat", state["dist_flat"], state["index"],
+             ivf_flat.IvfFlatSearchParams, divf.search, ivf_flat.search),
+            ("pq", state["dist_pq"], state["pq_index"],
+             ivf_pq.IvfPqSearchParams, divf.search_pq, ivf_pq.search),
+            ("bq", state["dist_bq"], state["bq_index"],
+             ivf_bq.IvfBqSearchParams, dbq.search_bq, ivf_bq.search))
+    cmax = float(torch.square(state["index"].centers).sum(dim=1).max())
+    for fam, di, single, SP, search, single_search in fams:
+        for (n_probes, batch), n_q in DIST_RANK_QUERIES.items():
+            sp = SP(n_probes=n_probes, scan_engine="rank")
+            outs, ms = _searched(
+                torch, lambda q: search(res, sp, di, q, K), queries, batch,
+                n_q)
+            want, ms1 = _searched(
+                torch, lambda q: single_search(res, sp, single, q, K),
+                queries, batch, n_q)
+            same_d, worst = 0, 0.0
+            for i, (g, w) in enumerate(zip(outs, want)):
+                if not torch.equal(g[1], w[1]):
+                    fail(f"{fam} rank ({n_probes}, {batch}) request {i}: "
+                         f"{int((g[1] != w[1]).sum())} ids differ from the "
+                         "single-device rank search")
+                same_d += int(torch.equal(g[0], w[0]))
+                q = queries[i * batch:(i + 1) * batch]
+                scale = torch.square(q).sum(dim=1, keepdim=True) + cmax
+                ok = torch.isfinite(w[0])
+                worst = max(worst, float(((g[0] - w[0]).abs() / scale)[ok]
+                                         .max()))
+            if fam == "bq":
+                if worst > DIST_RANK_BQ_RTOL:
+                    fail(f"bq rank ({n_probes}, {batch}): distances differ "
+                         f"from the single-device rank search's by {worst:.3g}"
+                         f" of |q|^2 + max |c|^2 (> {DIST_RANK_BQ_RTOL})")
+            elif same_d != len(outs):
+                fail(f"{fam} rank ({n_probes}, {batch}): the distances of "
+                     f"{len(outs) - same_d} requests differ from the "
+                     "single-device rank search's")
+            r = recall(torch.cat([o[1] for o in outs]), gt_i[:n_q])
+            lm = out[fam][f"{n_probes}x{batch}"]["ms"]
+            log(f"[dist] {fam} rank engine n_probes={n_probes} "
+                f"batch={batch}: {len(outs)} requests, ids equal the "
+                f"single-device rank search's, distances bit-identical in "
+                f"{same_d} (largest difference {worst:.3g} of |q|^2 + max "
+                f"|c|^2); recall@10 {r:.4f}; median {ms:.3f} ms "
+                f"(single-device rank {ms1:.3f} ms; the list-major mesh "
+                f"engine {lm:.3f} ms)")
+            out[fam][f"rank_{n_probes}x{batch}"] = dict(
+                recall=r, ms=ms, single_ms=ms1, list_major_ms=lm,
+                requests=len(outs), bit_identical=same_d, worst_rel=worst)
+    # a codes-only index: the rank-major estimate scan at the overfetch
+    # depth, the candidates refined against the vectors
+    codes_only = dataclasses.replace(state["dist_bq"], data=None,
+                                     data_norms=None)
+    depth = dbq.merge_overfetch(codes_only, K)
+    sp = ivf_bq.IvfBqSearchParams(n_probes=128)
+    n_q = DIST_RANK_QUERIES[(128, 500)]
+    outs, ms = _searched(
+        torch, lambda q: dbq.search_bq(res, sp, codes_only, q, depth),
+        queries, 500, n_q)
+    cand = torch.cat([o[1] for o in outs])
+    raw = recall(cand[:, :K], gt_i[:n_q])
+    _, ref_i = refine.refine(res, state["x"], queries[:n_q], cand, K)
+    refined = recall(ref_i, gt_i[:n_q])
+    single = dataclasses.replace(state["bq_index"], data=None,
+                                 data_norms=None)
+    want = ivf_bq.search(res, sp, single, queries[:500], depth)
+    if not torch.equal(outs[0][1], want[1]):
+        fail("the codes-only 4-slot IVF-BQ search differs from the "
+             "single-device codes-only search")
+    log(f"[dist] codes-only IVF-BQ over {DIST_SLOTS} slots (rank-major "
+        f"estimate scan) at n_probes=128, batch 500, depth {depth} (the "
+        f"merge overfetch of k={K}): recall@10 {raw:.4f} raw, {refined:.4f} "
+        f"refined; median {ms:.3f} ms; ids equal the single-device "
+        "codes-only search")
+    out["bq_codes_only"] = dict(depth=depth, recall_raw=raw,
+                                recall_refined=refined, ms=ms)
+
+
 def phase_dist(torch, state: dict) -> None:
     """The mesh layer on DIST_SLOTS shard slots of the card (the module
     docstring)."""
@@ -4948,6 +5139,7 @@ def phase_dist(torch, state: dict) -> None:
                             ivf_bq.IvfBqSearchParams, dbq.search_bq,
                             ivf_bq.search)
     state["dist_pq"], state["dist_bq"] = pq, bq
+    dist_rank(torch, state, out)
 
     # index-per-shard CAGRA on the first DIST_CAGRA_ROWS rows
     part = x[:DIST_CAGRA_ROWS]
@@ -5192,7 +5384,8 @@ def phase_meshserve(torch, state: dict) -> None:
         "single-device plane in the dealt order, list for list")
     del mesh_acc, single_acc
 
-    # mesh_trace: spans and gauges from a captured plan, no new capture
+    # mesh_trace: spans and gauges from a captured plan whose graph
+    # records an event after each slot's scan, no new capture
     traced = SearchExecutor(res, mesh_trace=True)
     traced.warmup(flat, buckets=(16,), k=K, params=sp)
     c0 = traced.stats.compile_count
@@ -5207,20 +5400,65 @@ def phase_meshserve(torch, state: dict) -> None:
     phases = {p: rec.spans(trace_id=tid, name=f"serving.mesh.{p}")
               for p in ("coarse_select", "scan", "merge")}
     ready = [s.duration for s in phases["merge"]]
-    # the executor sees only the merged outputs: no per-slot span or
-    # straggler gauge (SearchExecutor._record_mesh_dispatch)
+    shards = rec.spans(trace_id=tid, name="serving.mesh.shard")
+    slot_ms = []
+    for m in phases["merge"]:
+        offs = [s.duration for s in shards if s.start == m.start]
+        if (len(offs) != DIST_SLOTS or len(set(offs)) != DIST_SLOTS
+                or max(offs) > m.duration):
+            fail(f"meshserve: mesh_trace slot readings {offs} against the "
+                 f"merged readiness {m.duration}")
+        slot_ms.append([round(o * 1e3, 4) for o in offs])
+    gauges = tracing.gauges("serving.mesh.")
     if (any(len(v) != 5 for v in phases.values()) or min(ready) <= 0
-            or rec.spans(trace_id=tid, name="serving.mesh.shard")
-            or tracing.gauges("serving.mesh.")
+            or tracing.MESH_SLOWEST_SHARD not in gauges
+            or tracing.MESH_SHARD_SKEW not in gauges
             or tracing.get_counter("serving.mesh.dispatches") != d0 + 5
             or traced.stats.compile_count != c0):
-        fail("meshserve: mesh_trace spans missing, per-slot readings "
-             "published, or a capture")
+        fail("meshserve: mesh_trace spans or straggler gauges missing, or "
+             "a capture")
     log(f"[meshserve] mesh_trace: 5 dispatches recorded "
         f"{ {p: len(v) for p, v in phases.items()} } phase spans over the "
         f"merged outputs' readiness ({min(ready) * 1e3:.3f}-"
-        f"{max(ready) * 1e3:.3f} ms after dispatch), no per-slot span; "
-        "0 captures")
+        f"{max(ready) * 1e3:.3f} ms after dispatch) and {len(shards)} "
+        f"serving.mesh.shard spans from the events inside the graph (slot "
+        f"readiness ms per dispatch {slot_ms}); straggler gauges: slowest "
+        f"slot {gauges[tracing.MESH_SLOWEST_SHARD]:.0f}, skew "
+        f"{gauges[tracing.MESH_SHARD_SKEW] * 1e3:.4f} ms; 0 captures")
+    out["mesh_trace"] = dict(ready_ms=[r * 1e3 for r in ready],
+                             slot_ms=slot_ms,
+                             gauges={k: v for k, v in gauges.items()})
+    del traced
+
+    # rank-engine mesh plans: IVF-Flat eager, codes-only IVF-BQ captured,
+    # as the single-device rank plans are
+    from raft_tpu_torch.distributed import bq as dbq
+    from raft_tpu_torch.neighbors import ivf_bq
+
+    codes_only = dataclasses.replace(state["dist_bq"], data=None,
+                                     data_norms=None)
+    rank_plans = (("dist_ivf_flat", flat, ivf_flat.IvfFlatSearchParams(
+        n_probes=32, scan_engine="rank"), divf.search, False),
+                  ("dist_ivf_bq codes-only", codes_only,
+                   ivf_bq.IvfBqSearchParams(n_probes=32), dbq.search_bq,
+                   True))
+    for name, index, rsp, direct, captured in rank_plans:
+        rex = SearchExecutor(res)
+        rex.warmup(index, buckets=(16,), k=K, params=rsp)
+        (info,) = rex.executable_costs().values()
+        c0 = rex.stats.compile_count
+        for j in range(3):
+            q = queries[16 * j:16 * j + 16 - 3 * j]
+            _served_equal(torch, f"rank mesh plan {name} request {j}",
+                          rex.search(index, q, K, params=rsp),
+                          direct(res, rsp, index, q, K))
+        if info["captured"] != captured or rex.stats.compile_count != c0:
+            fail(f"meshserve: the rank mesh plan {name} was captured="
+                 f"{info['captured']} (want {captured}) or recaptured")
+        log(f"[meshserve] rank-engine mesh plan {name} "
+            f"({'captured' if captured else 'eager'}): 3 requests equal "
+            "the direct search bit for bit, 0 captures after warmup")
+        del rex
     state["mesh_executors"] = executors
     out["card"] = state.get("card")
     path = os.path.join("chiprun_out", "meshserve.json")
@@ -5640,6 +5878,212 @@ def phase_observe(torch, state: dict) -> None:
     log(f"[observe] {state.get('card')}: results in {path}")
 
 
+# fleet: planner deltas on a live tiered replica, the router surfaces
+FLEET_REQUESTS = 240
+FLEET_EPOCHS = 4
+FLEET_SWAP_WIDTH = 8
+FLEET_N_PROBES = 32
+
+
+def phase_fleet(torch, state: dict) -> None:
+    """The fleet layer on the card (the module docstring): a tiered
+    replica rebalanced by the planner's deltas while it serves, then the
+    router's HTTP surfaces and merge_fanout on device tensors."""
+    import threading
+
+    from raft_tpu_torch import SearchExecutor
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.fleet import (
+        FleetPlanConfig,
+        FleetPlanner,
+        QueryRouter,
+        RoutingTable,
+        make_fleet,
+        merge_fanout,
+        plan_fleet,
+    )
+    from raft_tpu_torch.neighbors import ivf_flat, tiered
+    from raft_tpu_torch.serving import (
+        BatcherConfig,
+        DynamicBatcher,
+        FleetAggregator,
+        IndexGauge,
+        MetricsExporter,
+    )
+
+    res, queries, index = state["res"], state["queries"], state["index"]
+    out = {}
+    t0 = time.perf_counter()
+    t = tiered.build_tiered(index, hot_fraction=0.5)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sp = tiered.TieredSearchParams(n_probes=FLEET_N_PROBES)
+    direct_sp = ivf_flat.IvfFlatSearchParams(n_probes=FLEET_N_PROBES)
+    # replica "a" serves the live tiered index; replica "b" is a second
+    # executor over it, so the federation merges two probe planes of one
+    # label
+    ex = SearchExecutor(res, probe_accounting=True)
+    ex_b = SearchExecutor(res, probe_accounting=True)
+    t0 = time.perf_counter()
+    ex.warmup(t, buckets=SERVE_LADDER, k=K, params=sp)
+    ex_b.warmup(t, buckets=(64,), k=K, params=sp)
+    warm_s = time.perf_counter() - t0
+    exp_a = MetricsExporter(executor=ex, index_gauge=IndexGauge(ex))
+    exp_b = MetricsExporter(executor=ex_b, index_gauge=IndexGauge(ex_b))
+    exp_a.start()
+    exp_b.start()
+    agg = FleetAggregator({"a": exp_a.url("/snapshot.json"),
+                           "b": exp_b.url("/snapshot.json")})
+    planner = FleetPlanner(agg, label=ex.probe_label(t),
+                           config=FleetPlanConfig(
+                               fallback_slots=int(t.hot_lists.size),
+                               max_swaps=FLEET_SWAP_WIDTH))
+    rng = np.random.default_rng(state["seed"] + 31)
+    g = torch.Generator(device=res.device)
+    g.manual_seed(state["seed"] + 31)
+    # skewed traffic: most requests near the centers of a few cold lists
+    hot_pool = t.cold_lists[:16]
+    centers = index.centers[torch.as_tensor(hot_pool, device=res.device,
+                                            dtype=torch.int64)]
+    reqs = []
+    for j in range(FLEET_REQUESTS):
+        m = int(rng.integers(1, 41))
+        if j % 4:
+            c = centers[torch.as_tensor(rng.integers(0, len(hot_pool), m),
+                                        device=res.device)]
+            reqs.append(c + 0.05 * torch.randn(c.shape, device=res.device,
+                                               generator=g))
+        else:
+            s0 = int(rng.integers(0, N_QUERIES - m))
+            reqs.append(queries[s0:s0 + m])
+    want = [ivf_flat.search(res, direct_sp, index, q, K) for q in reqs]
+    ex_b.search(t, torch.cat(reqs[:16])[:64], K, params=sp)
+    torch.cuda.synchronize()
+    c0 = ex.stats.compile_count
+    swaps0 = tracing.get_counter("tier.swap_bytes")
+    reset_launches()
+    results = [None] * len(reqs)
+    lat = [0.0] * len(reqs)
+    epochs = []
+    moved = 0
+    with DynamicBatcher(ex, BatcherConfig(max_wait_s=0.002)) as b:
+        def worker(w):
+            for j in range(w, len(reqs), OBSERVE_THREADS):
+                t1 = time.perf_counter()
+                results[j] = b.submit(t, reqs[j], K, params=sp).result(
+                    timeout=120)
+                lat[j] = time.perf_counter() - t1
+
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(OBSERVE_THREADS)]
+        for th in threads:
+            th.start()
+        for e in range(FLEET_EPOCHS):
+            time.sleep(0.05)
+            agg.scrape()
+            table = planner.plan()
+            delta = planner.deltas({"a": t.hot_lists.tolist()})["a"]
+            t1 = time.perf_counter()
+            nbytes = tiered.apply_plan(t, list(delta.promotions),
+                                       list(delta.demotions),
+                                       FLEET_SWAP_WIDTH, executor=ex)
+            epochs.append(dict(version=table.version,
+                               swaps=len(delta.promotions), bytes=nbytes,
+                               ms=(time.perf_counter() - t1) * 1e3))
+            moved += len(delta.promotions)
+        for th in threads:
+            th.join()
+    torch.cuda.synchronize()
+    counts = read_launches(("tier_scan",), "fleet")
+    launches = state.setdefault("launches", {})
+    launches["tier_scan"] = launches.get("tier_scan", 0) + counts["tier_scan"]
+    for j, (g, w) in enumerate(zip(results, want)):
+        if g is None:
+            fail(f"fleet request {j} got no result")
+        _served_equal(torch, f"fleet request {j}", g, w)
+    if ex.stats.compile_count != c0:
+        fail(f"fleet: {ex.stats.compile_count - c0} captures after warmup")
+    if moved == 0:
+        fail("fleet: the planner's deltas moved no list")
+    swap_bytes = tracing.get_counter("tier.swap_bytes") - swaps0
+    p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
+    log(f"[fleet] tiered replica (hot_fraction 0.5, build {build_s:.2f} s, "
+        f"ladder {SERVE_LADDER[0]}..{SERVE_LADDER[-1]} of eager plans "
+        f"warmed in {warm_s:.3f} s) behind a DynamicBatcher from {OBSERVE_THREADS} "
+        f"threads: {len(reqs)} requests of 1-40 rows (n_probes "
+        f"{FLEET_N_PROBES}, 3 in 4 at 16 cold lists' centers) each equal "
+        f"to the all-device IVF-Flat search bit for bit through "
+        f"{FLEET_EPOCHS} planner epochs over a FleetAggregator of two "
+        f"exporters: {moved} lists moved, epoch ms "
+        f"{[round(e['ms'], 3) for e in epochs]}, swap bytes {swap_bytes:.0f}"
+        f"; 0 captures after warmup; tier_scan launched "
+        f"{counts['tier_scan']} times; served p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms (host clock)")
+    out["rebalance"] = dict(build_s=build_s, warm_s=warm_s,
+                            requests=len(reqs), epochs=epochs, moved=moved,
+                            swap_bytes=swap_bytes,
+                            tier_scan_launches=counts["tier_scan"],
+                            p50_ms=p50, p99_ms=p99)
+    exp_a.close()
+    exp_b.close()
+    del t, ex, ex_b
+
+    # the router: a 4-replica harness behind an exporter
+    h = make_fleet(4)
+    router = QueryRouter(h.replicas, resolve_probes=h.resolve_probes,
+                         clock=h.clock)
+    exp = MetricsExporter(route=router)
+    exp.start()
+    codes = {"before": _get_url(exp.url("/route.json"))[0]}
+    plan_table = plan_fleet(np.ones(h.executor.n_lists, np.int64),
+                            {n: None for n in h.replicas}, label="fleet",
+                            version=1)
+    codes["push_v1"] = _get_url(exp.url("/push?route=1"),
+                                plan_table.to_bytes())[0]
+    code, body = _get_url(exp.url("/route.json"))
+    codes["route_json"] = code
+    table = RoutingTable.from_json(json.loads(body))
+    newer = dataclasses.replace(plan_table, version=2)
+    codes["push_v2"] = _get_url(exp.url("/push?route=1"),
+                                newer.to_bytes())[0]
+    codes["push_stale"] = _get_url(exp.url("/push?route=1"),
+                                   plan_table.to_bytes())[0]
+    for start in (0, 40):
+        router.route(h.make_queries(8, start), K)
+    metrics_text = _get_url(exp.url("/metrics"))[1].decode()
+    exp.close()
+    if (codes != {"before": 404, "push_v1": 200, "route_json": 200,
+                  "push_v2": 200, "push_stale": 409}
+            or table != plan_table or "fleet_route_" not in metrics_text):
+        fail(f"fleet: the router's HTTP surfaces answered {codes}")
+    # merge_fanout: CUDA-tensor parts merge as the numpy parts do
+    q = h.make_queries(64, 5)
+    lids = h.resolve_probes(q)
+    parts = [h.executor.scan_lists(q, lids[j::3], K) for j in range(3)]
+    cuda_parts = [(torch.as_tensor(d, device=res.device),
+                   torch.as_tensor(i, device=res.device)) for d, i in parts]
+    for wire in ("f32", "bf16"):
+        gd, gi = merge_fanout(cuda_parts, K, wire_dtype=wire)
+        wd, wi = merge_fanout(parts, K, wire_dtype=wire)
+        if gd.device != cuda_parts[0][0].device or not (
+                torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)):
+            fail(f"fleet: merge_fanout of CUDA parts differs on the {wire} "
+                 "wire")
+    log(f"[fleet] QueryRouter over a 4-replica harness behind an exporter: "
+        f"/route.json {codes['before']} before a table, then push "
+        f"{codes['push_v1']}, /route.json {codes['route_json']}, a newer "
+        f"push {codes['push_v2']}, a stale push {codes['push_stale']}; "
+        "fleet_route_* in /metrics; merge_fanout of CUDA-tensor parts "
+        "equals the numpy-part merge on the f32 and bf16 wires")
+    out["router"] = codes
+    out["card"] = state.get("card")
+    path = os.path.join("chiprun_out", "fleet.json")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    log(f"[fleet] {state.get('card')}: results in {path}")
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
@@ -5670,7 +6114,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="env,build,kernels,main,serve,ragged,"
                             "distance,pq,stream,dist,meshserve,observe,"
-                            "times")
+                            "fleet,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -5689,6 +6133,7 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(RUN_LIMIT_S, exit=True)
     state: dict = {}
 
     def timed(name, fn, *a):
@@ -5726,11 +6171,14 @@ def main() -> int:
             timed("meshserve", phase_meshserve, torch, state)
         if "observe" in phases:
             timed("observe", phase_observe, torch, state)
+    if "fleet" in phases and "index" in state:
+        timed("fleet", phase_fleet, torch, state)
     if "main" in phases:
         if "times" in phases:
             records = timed("times", phase_times, torch, state)
         if "profile" in phases:
             timed("profile", phase_profile, torch, state)
+    faulthandler.cancel_dump_traceback_later()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

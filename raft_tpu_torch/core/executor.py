@@ -82,10 +82,13 @@ copy, one replay and two output copies of host work instead of the
   no probe accounting runs. With ``probe_accounting`` the plane is one
   (n_lists,) int32 tensor whose (R, n_local) view hands each slot its
   rows, so it reads in the dist index's own list-id space (the dealt
-  order, slot by slot). ``mesh_trace=True`` records the modeled phase
-  spans over the dispatch's readiness after every bucketed mesh dispatch
-  (:meth:`SearchExecutor._record_mesh_dispatch` says why no slot has a
-  readiness of its own).
+  order, slot by slot). ``mesh_trace=True`` records, after every
+  bucketed mesh dispatch, the modeled phase spans over the dispatch's
+  readiness and one ``serving.mesh.shard`` span a slot from that slot's
+  own reading, reduced into the straggler gauges
+  (:meth:`SearchExecutor._record_mesh_dispatch`). A ``scan_engine="rank"``
+  mesh plan is captured where the single-device ``rank`` plan is
+  (IVF-BQ) and eager where it is eager (IVF-Flat, IVF-PQ).
 - **Cost model**: the JAX package reads XLA's ``cost_analysis()``; the
   port has no compiler to ask, so every plan builder models its
   ``flops`` and ``bytes_accessed`` from its statics (:func:`_ivf_cost`
@@ -212,7 +215,8 @@ class _Entry:
     __slots__ = ("family", "bucket", "k", "digest", "module", "cost",
                  "payload_model", "graph", "static_q", "static_fw",
                  "static_nv", "static_b", "outputs", "keep", "launches",
-                 "counters", "pool_bytes", "capture_seconds")
+                 "counters", "pool_bytes", "capture_seconds", "marks",
+                 "marks_lock")
 
     def __init__(self, family: str, bucket: int, k: int, digest: str):
         self.family = family
@@ -233,6 +237,52 @@ class _Entry:
         self.counters: dict = {}
         self.pool_bytes = 0
         self.capture_seconds = 0.0
+        # mesh_trace on a captured mesh entry: the slot marks its graph
+        # records, read by one dispatch at a time
+        self.marks = None
+        self.marks_lock = threading.Lock()
+
+
+class _SlotMarks:
+    """Per-slot readiness marks of one mesh dispatch (``mesh_trace``): the
+    shard body calls it with each slot's ordinal right after that slot's
+    scan, and :meth:`end` after the merge. On a CUDA plan each call
+    records a timing event on the current stream; a captured entry's are
+    ``external``, so that an event recorded inside a CUDA-graph capture
+    becomes an event node the host can read after every replay (a plain
+    record there would become an internal dependency of the graph). On
+    the CPU each call reads the host clock."""
+
+    def __init__(self, slots: int, device: torch.device,
+                 captured: bool = False):
+        self.cuda = device.type == "cuda"
+        self.events = ([torch.cuda.Event(enable_timing=True,
+                                         external=captured)
+                        for _ in range(slots + 1)] if self.cuda else None)
+        self.times = [0.0] * slots
+
+    def __call__(self, slot: int) -> None:
+        if self.cuda:
+            self.events[slot].record()
+        else:
+            self.times[slot] = time.perf_counter()
+
+    def end(self) -> None:
+        if self.cuda:
+            self.events[-1].record()
+
+    def readings(self, t0: float, ready: float) -> list:
+        """Each slot's readiness, in seconds after ``t0``: on the CPU the
+        host clock read after the slot's scan; on the card ``ready`` (the
+        merged outputs' readiness on the host clock) less the device time
+        from the slot's event to the end event. Every reading is its own
+        slot's, and none exceeds ``ready``."""
+        if not self.cuda:
+            return [t - t0 for t in self.times]
+        end = self.events[-1]
+        end.synchronize()
+        return [ready - ev.elapsed_time(end) * 1e-3
+                for ev in self.events[:-1]]
 
 
 def _kernel_wrappers() -> dict:
@@ -387,11 +437,15 @@ class SearchExecutor:
       mesh_trace: after every bucketed mesh dispatch, wait for its
         outputs and record the ``serving.mesh.{coarse_select,scan,merge}``
         spans (modeled bytes from the entry's payload model) over the
-        dispatch's readiness. No ``serving.mesh.shard`` span or straggler
-        gauge is recorded: the executor sees only the merged outputs
+        dispatch's readiness, a ``serving.mesh.shard`` span a slot from
+        that slot's own reading (a CUDA event recorded after its scan,
+        inside the captured graph; the host clock on the CPU) and the
+        ``serving.mesh.shard_*`` / ``slowest_shard`` straggler gauges
         (:meth:`_record_mesh_dispatch`). The calling thread waits out the
-        poll, so the tiles of an oversized batch serialize; nothing is
-        captured differently. Ragged mesh dispatches skip it.
+        poll, so the tiles of an oversized batch serialize. A captured
+        entry's events are read by one dispatch at a time: a second
+        dispatch of the same entry waits for the first one's reading
+        before it replays. Ragged mesh dispatches skip it.
     """
 
     def __init__(self, res: Optional[Resources] = None, *,
@@ -965,33 +1019,56 @@ class SearchExecutor:
                 if fwp.ndim == 2:
                     fwp = _pad(fwp, rows, "zero")
             entry = self._get_entry_locked(plan, rows, k, fw, qp, fwp)
+            marks = self._slot_marks_locked(plan, entry)
             t0 = time.perf_counter()
-            out_d, out_i = self._execute_locked(plan, entry, qp, fwp, q)
+            try:
+                out_d, out_i = self._execute_locked(plan, entry, qp, fwp, q,
+                                                    marks=marks)
+            except BaseException:
+                if marks is not None and marks is entry.marks:
+                    entry.marks_lock.release()
+                raise
         # after the lock: the readiness poll lasts as long as the slowest
         # slot, and other threads' searches and scrapes must not wait on
         # it
-        if plan.slots and self.mesh_trace:
-            self._record_mesh_dispatch(entry, plan, out_d, out_i, t0,
-                                       trace_ids)
+        if marks is not None:
+            try:
+                self._record_mesh_dispatch(entry, marks, out_d, out_i, t0,
+                                           trace_ids)
+            finally:
+                if marks is entry.marks:
+                    entry.marks_lock.release()
         return out_d, out_i
 
-    def _record_mesh_dispatch(self, entry: _Entry, plan: _Plan, out_d,
+    def _slot_marks_locked(self, plan: _Plan, entry: _Entry):
+        """The slot marks of a traced bucketed mesh dispatch, or None: a
+        captured entry's own marks, taken from the dispatch before (its
+        events are re-recorded by this replay, so the previous reading
+        must be done: that dispatch holds ``marks_lock`` until it has
+        read them); an eager entry's, made for this call."""
+        if not (plan.slots and self.mesh_trace and not plan.ragged):
+            return None
+        if entry.graph is not None:
+            if entry.marks is None:
+                return None     # captured before mesh_trace was set
+            entry.marks_lock.acquire()
+            return entry.marks
+        return _SlotMarks(plan.static["comms"].mesh.size, plan.device)
+
+    def _record_mesh_dispatch(self, entry: _Entry, marks: _SlotMarks, out_d,
                               out_i, t0: float,
                               trace_ids: Tuple[int, ...]) -> None:
         """The mesh spans of one sharded dispatch (``executor.py:1288``):
         the three modeled phase spans (bytes from the entry's payload
         model) from ``t0`` to the merged outputs' readiness, read by
-        :func:`~raft_tpu_torch.core.tracing.poll_shard_timings`, and one
-        ``serving.mesh.dispatches``.
-
-        The JAX package polls each output shard and reduces the offsets
-        into ``serving.mesh.shard`` spans and the straggler gauges. Here
-        the dispatch returns only the merged outputs, one (q, k) pair
-        behind every slot's work (on one card the slots run one after
-        another on one stream), so there is one reading and no slot has
-        a readiness of its own: the per-slot spans and the
-        ``serving.mesh.shard_*`` / ``slowest_shard`` gauges stay unset
-        rather than publish R copies of it."""
+        :func:`~raft_tpu_torch.core.tracing.poll_shard_timings`; one
+        ``serving.mesh.shard`` span a slot from ``marks``' reading of it
+        (:meth:`_SlotMarks.readings`), reduced by
+        :func:`~raft_tpu_torch.core.tracing.straggler_stats` into the
+        ``serving.mesh.shard_*`` / ``slowest_shard`` gauges; and one
+        ``serving.mesh.dispatches``. On one card the slots scan one after
+        another on one stream, so the readings rise in slot order and
+        the slowest slot is the last one."""
         from raft_tpu_torch.distributed.ivf import mesh_phases
 
         (ready,) = tracing.poll_shard_timings([(out_d, out_i)], t0,
@@ -999,7 +1076,9 @@ class SearchExecutor:
         phases = (mesh_phases(entry.payload_model)
                   if entry.payload_model is not None else None)
         tracing.record_mesh_spans(entry.family, t0, t0 + ready,
-                                  trace_ids=trace_ids, phases=phases)
+                                  trace_ids=trace_ids, phases=phases,
+                                  shard_timings=marks.readings(t0, ready),
+                                  count_dispatch=False)
         tracing.inc_counter("serving.mesh.dispatches")
 
     def _padded_queries(self, queries, rows: int, plan: _Plan):
@@ -1013,65 +1092,78 @@ class SearchExecutor:
                                         dtype=plan.qdtype)
         return _pad(t, rows, "edge")
 
-    def _call(self, plan: _Plan, queries, fw, n_valid, budgets=None):
+    def _call(self, plan: _Plan, queries, fw, n_valid, budgets=None,
+              marks: Optional[_SlotMarks] = None):
         """One eager call of the plan's body (a ragged plan's with its
-        budget plane); the probe plane is updated in place."""
+        budget plane); the probe plane is updated in place. ``marks`` (a
+        traced mesh plan) rides into the shard body as ``slot_marks`` and
+        takes its end mark after the merge."""
         args = [queries] + ([budgets] if plan.ragged else []) + list(
             plan.arrays)
         if plan.use_filter:
             args.append(fw)
+        static = (plan.static if marks is None
+                  else dict(plan.static, slot_marks=marks))
         if plan.probe is None:
-            return plan.fn(*args, **plan.static)
-        plane = self._probe_state[plan.probe[0]]
-        if plan.slots:
+            out = plan.fn(*args, **static)
+        elif plan.slots:
             # a mesh plan: each slot counts its own lists, the slot-s rows
             # of the (R, n_local) view (the dealt order)
+            plane = self._probe_state[plan.probe[0]]
             views = list(plane.view(plan.slots, -1))
             d, i, counts = plan.fn(*args, probe_counts=views,
-                                   n_valid=n_valid, **plan.static)
+                                   n_valid=n_valid, **static)
             for v, c in zip(views, counts):
                 v.copy_(c)
-            return d, i
-        d, i, counts = plan.fn(*args, probe_counts=plane, n_valid=n_valid,
-                               **plan.static)
-        plane.copy_(counts)
-        return d, i
+            out = (d, i)
+        else:
+            plane = self._probe_state[plan.probe[0]]
+            d, i, counts = plan.fn(*args, probe_counts=plane,
+                                   n_valid=n_valid, **static)
+            plane.copy_(counts)
+            out = (d, i)
+        if marks is not None:
+            marks.end()
+        return out
 
     def _execute_locked(self, plan: _Plan, entry: _Entry, qp, fwp,
-                        q_real: int, budgets=None):
+                        q_real: int, budgets=None,
+                        marks: Optional[_SlotMarks] = None):
         bucket = qp.shape[0]
-        named = profiling.window_open()
-        timed = named and plan.device.type == "cuda"
-        if timed:
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-        with (torch.profiler.record_function(entry.module) if named
-              else contextlib.nullcontext()):
-            if entry.graph is None:
-                d, i = self._call(plan, qp, fwp, q_real, budgets)
-                out_d, out_i = d[:q_real], i[:q_real]
-            else:
-                entry.static_q.copy_(qp)
-                if entry.static_b is not None:
-                    entry.static_b.copy_(budgets)
-                if entry.static_fw is not None:
-                    entry.static_fw.copy_(fwp)
-                if entry.static_nv is not None:
-                    entry.static_nv.fill_(q_real)
-                entry.graph.replay()
-                # clones before the lock is released: the next replay
-                # overwrites the static outputs
-                out_d = entry.outputs[0][:q_real].clone()
-                out_i = entry.outputs[1][:q_real].clone()
-                wrappers = _kernel_wrappers()
-                for name, n in entry.launches.items():
-                    wrappers[name].launches += n
-                if entry.counters:
-                    tracing.inc_counters(entry.counters)
-        if timed:
-            ev1.record()
-            profiling.note_call(entry.module, ev0, ev1)
+        # the device work does not overlap the profiler turning on or off
+        with profiling.launching():
+            named = profiling.window_open()
+            timed = named and plan.device.type == "cuda"
+            if timed:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            with (torch.profiler.record_function(entry.module) if named
+                  else contextlib.nullcontext()):
+                if entry.graph is None:
+                    d, i = self._call(plan, qp, fwp, q_real, budgets, marks)
+                    out_d, out_i = d[:q_real], i[:q_real]
+                else:
+                    entry.static_q.copy_(qp)
+                    if entry.static_b is not None:
+                        entry.static_b.copy_(budgets)
+                    if entry.static_fw is not None:
+                        entry.static_fw.copy_(fwp)
+                    if entry.static_nv is not None:
+                        entry.static_nv.fill_(q_real)
+                    entry.graph.replay()
+                    # clones before the lock is released: the next replay
+                    # overwrites the static outputs
+                    out_d = entry.outputs[0][:q_real].clone()
+                    out_i = entry.outputs[1][:q_real].clone()
+                    wrappers = _kernel_wrappers()
+                    for name, n in entry.launches.items():
+                        wrappers[name].launches += n
+                    if entry.counters:
+                        tracing.inc_counters(entry.counters)
+            if timed:
+                ev1.record()
+                profiling.note_call(entry.module, ev0, ev1)
         amounts = {"serving.execute.calls": 1.0,
                    "serving.execute.rows": float(q_real),
                    "serving.execute.padded_rows": float(bucket),
@@ -1172,10 +1264,15 @@ class SearchExecutor:
             # 0 valid rows: the warm-up run adds nothing to the plane
             ent.static_nv = torch.zeros((), dtype=torch.int32, device=dev)
         ent.keep = tuple(_flat(plan.arrays))
+        if plan.slots and self.mesh_trace and not plan.ragged:
+            # the slot marks' events go into the graph: every replay
+            # records them again
+            ent.marks = _SlotMarks(plan.static["comms"].mesh.size, dev,
+                                   captured=True)
 
         def body():
             return self._call(plan, ent.static_q, ent.static_fw,
-                              ent.static_nv, ent.static_b)
+                              ent.static_nv, ent.static_b, ent.marks)
 
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -1786,9 +1883,13 @@ class SearchExecutor:
             probe_wire_dtype)
         cost = lambda: self._dist_cost(  # noqa: E731
             index, family, rows, k, n_probes, params, model())
+        # captured where the single-device plans of the same engine are:
+        # the kernels, and IVF-BQ's rank-major estimate scan
+        capturable = engine == "cuda" or (engine == "rank"
+                                          and family == "dist_ivf_bq")
         return _Plan(key=key, fn=fn, static=static, arrays=arrays,
                      device=comms.mesh.slot_devices()[0], qdim=index.dim,
-                     capturable=engine == "cuda", probe=probe, slots=slots,
+                     capturable=capturable, probe=probe, slots=slots,
                      rows=rows if query_axis is not None else None,
                      payload=(family, model), cost=cost)
 

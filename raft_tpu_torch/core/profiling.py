@@ -238,6 +238,50 @@ def _profiler_turn(wait: bool):
             _gate.notify_all()
 
 
+# torch.profiler's stop deadlocked on the card with a CUDA graph replay
+# that another thread launched at that moment (the stopping thread in
+# the profiler's teardown, the other in the graph launch), so the
+# executor's dispatches and the profiler's start and stop exclude each
+# other: a dispatch enqueues its work inside :func:`launching`, and
+# :func:`_quiesced` waits for those under way and holds new ones back
+# while the profiler turns on or off. A session's body runs unhindered.
+_launch_gate = threading.Condition()
+_launches = 0  # guarded-by: _launch_gate
+_toggling = False  # guarded-by: _launch_gate
+
+
+@contextlib.contextmanager
+def launching():
+    """Held around an executor dispatch's device work: it does not
+    overlap the profiler turning on or off (:func:`_quiesced`)."""
+    global _launches
+    with _launch_gate:
+        _launch_gate.wait_for(lambda: not _toggling)
+        _launches += 1
+    try:
+        yield
+    finally:
+        with _launch_gate:
+            _launches -= 1
+            _launch_gate.notify_all()
+
+
+@contextlib.contextmanager
+def _quiesced():
+    """No dispatch under way or starting in the enclosed block."""
+    global _toggling
+    with _launch_gate:
+        _launch_gate.wait_for(lambda: not _toggling)
+        _toggling = True
+        _launch_gate.wait_for(lambda: _launches == 0)
+    try:
+        yield
+    finally:
+        with _launch_gate:
+            _toggling = False
+            _launch_gate.notify_all()
+
+
 _primed = False  # guarded-by: _prime_lock
 _prime_lock = threading.Lock()
 
@@ -255,10 +299,14 @@ def prime() -> None:
     with _prime_lock:
         if _primed or not torch.cuda.is_available():
             return
-        with _profiler_turn(wait=True), torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]):
-            pass
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with _profiler_turn(wait=True):
+            with _quiesced():
+                prof.start()
+            with _quiesced():
+                prof.stop()
         _primed = True
 
 
@@ -277,8 +325,9 @@ def session(profile_dir: str):
     ``profile_dir`` with the window's timed calls under
     :data:`CALLS_KEY`. Yields a :class:`Capture`. Starts once the CUDA
     graph captures under way have ended, and keeps new ones waiting
-    until it stops (:func:`graph_capture`). Raises if another session is
-    running (the profiler is process-wide)."""
+    until it stops (:func:`graph_capture`); the profiler turns on and off
+    between executor dispatches (:func:`launching`). Raises if another
+    session is running (the profiler is process-wide)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -290,11 +339,13 @@ def session(profile_dir: str):
         experimental_config=torch._C._profiler._ExperimentalConfig(
             profile_all_threads=True))
     with _profiler_turn(wait=False), capture_window() as win:
-        prof.start()
+        with _quiesced():
+            prof.start()
         try:
             yield cap
         finally:
-            prof.stop()
+            with _quiesced():
+                prof.stop()
             calls = win.timings()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"{socket.gethostname()}."

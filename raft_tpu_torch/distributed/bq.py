@@ -12,15 +12,18 @@ to the sentinel id. Its distances are exact, so the merge is lossless
 and :func:`merge_overfetch` is ``k``. An estimate-only index (no rerank
 plane) has the per-shard estimator error measured at build
 (``shard_rel_err``), from which :func:`merge_overfetch` derives the
-fetch depth; its rank-major estimate scan is not ported to the mesh, so
-searching one raises here.
+fetch depth, and resolves to the rank-major estimate scan
+(:func:`raft_tpu_torch.neighbors.ivf_bq.rank_scan` in each shard body,
+the probes a shard does not own padded out, merged in positional order
+as the JAX ``rank`` engine merges): pass ``k = merge_overfetch(index,
+want_k)`` and refine the candidates against the vectors.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,11 +223,15 @@ def _dist_search_bq_fn(queries, centers, center_norms, centers_rot,
                        query_axis=None, coarse_algo: str = "exact",
                        scan_engine: str = "torch", epsilon: float = 3.0,
                        query_bits: int = 0, wire_dtype: str = "f32",
-                       probe_wire_dtype: str = "f32"):
-    """The fused shard body (``bq.py:~240``): lean probe selection, per
-    slot the fused estimate-then-rerank scan over the shard's lists
-    (not-owned probes at the sentinel), the lossless (distance, id)
-    merge, the L2Sqrt epilog. ``probe_counts`` / ``row_probes`` as in
+                       probe_wire_dtype: str = "f32",
+                       slot_marks: Optional[Callable[[int], None]] = None):
+    """The shard body (``bq.py:227``): lean probe selection, per slot the
+    fused estimate-then-rerank scan over the shard's lists (not-owned
+    probes at the sentinel) and the lossless (distance, id) merge; or,
+    ``scan_engine="rank"`` (a codes-only index), per slot the rank-major
+    estimate scan (not-owned probes padded out) and the positional
+    merge; ``slot_marks(slot)`` after each slot's scan when given; the
+    L2Sqrt epilog. ``probe_counts`` / ``row_probes`` as in
     :func:`raft_tpu_torch.distributed.ivf._dist_search_fn`."""
     from raft_tpu_torch.ops.bq_scan import auto_query_bits, bq_list_major_scan
 
@@ -232,12 +239,14 @@ def _dist_search_bq_fn(queries, centers, center_norms, centers_rot,
     select_min = is_min_close(metric)
     ip_metric = metric == DistanceType.InnerProduct
     qb = query_bits or auto_query_bits(cfac[0].shape[2])
+    rank = scan_engine == "rank"
     qs = _query_slots(comms, queries, query_axis)
     with comms.active():
         qf = [q.to(torch.float32) for q in qs]
-        coarse = [_coarse(q, c, cn, ip_metric)[0]
-                  for q, c, cn in zip(qf, centers, center_norms)]
-        local, mine = select_probes_sharded(coarse, n_probes, axis,
+        co = [_coarse(q, c, cn, ip_metric)
+              for q, c, cn in zip(qf, centers, center_norms)]
+        local, mine = select_probes_sharded([c[0] for c in co], n_probes,
+                                            axis,
                                             probe_mode, coarse_algo,
                                             probe_wire_dtype)
         if row_probes is not None:
@@ -250,19 +259,30 @@ def _dist_search_bq_fn(queries, centers, center_norms, centers_rot,
                    for lc, m, c in zip(local, mine, probe_counts)]
         best = []
         for s in range(len(qf)):
-            n_local = centers[s].shape[0]
-            masked = torch.where(mine[s], local[s],
-                                 torch.full_like(local[s], n_local))
             qrot = qf[s] @ rotation[s].T
-            d, i, _ = bq_list_major_scan(
-                qf[s], qrot, centers_rot[s], codes[s], rnorm[s], cfac[s],
-                errw[s], indices[s], data[s], data_norms[s], masked, None,
-                k=k, metric=metric, epsilon=epsilon, engine=scan_engine,
-                query_bits=qb)
-            best.append((d, i))
+            if rank:
+                qnorm = (None if ip_metric
+                         else torch.square(qf[s]).sum(dim=1))
+                best.append(ivf_bq_mod.rank_scan(
+                    local[s], qrot, centers_rot[s], co[s][1],
+                    center_norms[s], qnorm, codes[s], rnorm[s], cfac[s],
+                    indices[s], k=k, metric=metric, valid=mine[s]))
+            else:
+                n_local = centers[s].shape[0]
+                masked = torch.where(mine[s], local[s],
+                                     torch.full_like(local[s], n_local))
+                d, i, _ = bq_list_major_scan(
+                    qf[s], qrot, centers_rot[s], codes[s], rnorm[s],
+                    cfac[s], errw[s], indices[s], data[s], data_norms[s],
+                    masked, None, k=k, metric=metric, epsilon=epsilon,
+                    engine=scan_engine, query_bits=qb)
+                best.append((d, i))
+            if slot_marks is not None:
+                slot_marks(s)
         d, i = merge_results_sharded(
             [b[0] for b in best], [b[1] for b in best], axis, select_min,
-            wire_dtype, scatter=query_axis is not None)
+            wire_dtype, smallest_id_ties=not rank,
+            scatter=query_axis is not None)
     out_d, out_i = _finish(comms, d, i, query_axis)
     if metric == DistanceType.L2SqrtExpanded:
         out_d = torch.where(torch.isfinite(out_d),
@@ -300,19 +320,16 @@ def _dist_search_ragged_bq_fn(queries, row_probes, centers, center_norms,
 
 def resolve_bq_serving_engine(params: IvfBqSearchParams, index, k: int
                               ) -> str:
-    """The fused engine of a mesh IVF-BQ search, for the direct
-    :func:`search_bq` and the executor's mesh plan alike."""
+    """The engine of a mesh IVF-BQ search, for the direct
+    :func:`search_bq` and the executor's mesh plan alike: the fused
+    engine on an index with the rerank plane (``auto`` the kernel on a
+    CUDA index, the plain engine on the CPU), and ``rank`` on a
+    codes-only one or when asked for, as the JAX package resolves."""
     from raft_tpu_torch.ops.bq_scan import resolve_bq_engine
 
-    expect(index.data is not None,
-           "distributed IVF-BQ search needs the rerank plane "
-           "(store_vectors=True): the estimate-only rank scan is not "
-           "ported to the mesh")
-    expect(params.scan_engine in ("auto", "cuda", "torch"),
-           "distributed scan_engine must be auto|cuda|torch (the rank "
-           f"scan is not ported to the mesh), got {params.scan_engine!r}")
-    engine = resolve_bq_engine(params.scan_engine, data=index.data[0], k=k)
-    expect(engine != "cuda" or index.data[0].device.type == "cuda",
+    data = None if index.data is None else index.data[0]
+    engine = resolve_bq_engine(params.scan_engine, data=data, k=k)
+    expect(engine != "cuda" or data.device.type == "cuda",
            "scan_engine='cuda' needs an index on a CUDA device")
     return engine
 
@@ -324,12 +341,14 @@ def search_bq(res: Optional[Resources], params: IvfBqSearchParams,
               probe_wire_dtype: str = "f32",
               trace_id: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Distributed BQ search at depth ``k`` (``bq.py:~425``) with exact
-    distances (the fused engines: kernel #4 on a CUDA index, its plain
-    version on the CPU). Large query sets run in ``query_tile`` batches
-    (not with ``query_axis``, whose grid is itself the large-batch
-    form). Needs the rerank plane: an estimate-only index's rank scan is
-    not ported to the mesh."""
+    """Distributed BQ search at depth ``k`` (``bq.py:424``). With the
+    fused engines (an index with the rerank plane: kernel #4 on a CUDA
+    index, its plain version on the CPU) the distances are exact. A
+    codes-only index runs the rank-major estimate scan and returns
+    estimate-ranked candidates: ask for ``k = merge_overfetch(index,
+    want_k)`` and refine them. Large query sets run in ``query_tile``
+    batches (not with ``query_axis``, whose grid is itself the
+    large-batch form)."""
     res = ensure_resources(res)
     comms = index.comms
     queries = torch.as_tensor(queries).to(index.centers[0].device)

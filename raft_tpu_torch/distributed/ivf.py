@@ -30,15 +30,26 @@ Probe semantics (``probe_mode``):
 The result merge gathers each shard's (q, k) top-k (distances optionally
 on a bf16 wire, ids exact) and merges by (distance, smallest id). The
 2-D form shards the queries over a second mesh axis and scatter-merges
-(:func:`merge_results_sharded`). The rank-major engines are not ported
-to the mesh: ``scan_engine="rank"`` raises here.
+(:func:`merge_results_sharded`).
+
+``scan_engine="rank"`` runs the rank-major engines in each shard body
+(:func:`raft_tpu_torch.ops.ivf_scan.rank_major_scan`, IVF-PQ's
+``_scan_rank``): each walks the probe ranks with the probes the shard
+does not own padded out, merging into a running top-k in positional
+order, and the merge across slots keeps that order
+(``smallest_id_ties=False``), as the JAX rank engines do.
+
+The shard bodies take ``slot_marks``, a callable the executor's
+``mesh_trace`` passes: it is called with each slot's ordinal right after
+that slot's scan (it records a CUDA event there, or reads the host
+clock on the CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,7 +83,11 @@ from raft_tpu_torch.neighbors.ivf_pq import (
     IvfPqIndexParams,
     IvfPqSearchParams,
 )
-from raft_tpu_torch.ops.ivf_scan import list_major_scan, ragged_owned
+from raft_tpu_torch.ops.ivf_scan import (
+    list_major_scan,
+    ragged_owned,
+    rank_major_scan,
+)
 
 Slots = List[torch.Tensor]
 
@@ -234,13 +249,21 @@ def select_probes_sharded(coarse: Slots, n_probes: int, axis: str,
     return local, mine
 
 
-def _merge_candidates(all_d, all_i, k: int, select_min: bool):
+def _merge_candidates(all_d, all_i, k: int, select_min: bool,
+                      smallest_id_ties: bool = True):
     """Concatenate an (R, rows, k) rank stack in rank order and reduce
-    each row's R·k candidates to its top-k by (distance, smallest id),
-    with -1 on non-finite entries."""
+    each row's R·k candidates to its top-k (``ivf.py:322``): by
+    (distance, smallest id), with -1 on non-finite entries; or, with
+    ``smallest_id_ties=False`` (the rank-major engines), by distance with
+    ties in position order, the ids as they are (``merge_topk``)."""
+    from raft_tpu_torch.matrix.select_k import merge_topk
+
     r, q, _ = all_d.shape
     cat_d = all_d.permute(1, 0, 2).reshape(q, r * k)
     cat_i = all_i.permute(1, 0, 2).reshape(q, r * k)
+    if not smallest_id_ties:
+        return merge_topk(cat_d[:, :k], cat_i[:, :k], cat_d[:, k:],
+                          cat_i[:, k:], k, select_min)
     sd, si = _lexsort_take(cat_d if select_min else -cat_d, cat_i, k)
     si = torch.where(torch.isfinite(sd), si, torch.full_like(si, -1))
     return (sd if select_min else -sd), si
@@ -248,10 +271,14 @@ def _merge_candidates(all_d, all_i, k: int, select_min: bool):
 
 def merge_results_sharded(best_d: Slots, best_i: Slots, axis: str,
                           select_min: bool, wire_dtype: str = "f32",
+                          smallest_id_ties: bool = True,
                           scatter: bool = False):
     """The O(q · k) result collective of every list-sharded search
-    (``ivf.py:289``): each shard's (q, k) top-k gathered and merged.
+    (``ivf.py:272``): each shard's (q, k) top-k gathered and merged.
     ``wire_dtype="bf16"`` moves the distances in bf16 (ids exact).
+    ``smallest_id_ties`` picks the merge order of
+    :func:`_merge_candidates`: lexicographic (distance, id) for the
+    list-major engines, positional for the rank-major ones.
     ``scatter=True`` (the 2-D grids) scatter-merges: the distances ride
     :func:`reducescatter_quantized` with this merge as the fold, each
     shard merges a disjoint q/R slice and one tiled all-gather
@@ -265,12 +292,12 @@ def merge_results_sharded(best_d: Slots, best_i: Slots, axis: str,
         merged = reducescatter_quantized(
             best_d, axis=axis, wire_dtype=wire_dtype,
             fold=lambda sub_d: _merge_candidates(
-                sub_d, next(it), k, select_min))
+                sub_d, next(it), k, select_min, smallest_id_ties))
         return (allgather([m[0] for m in merged], axis, tiled=True),
                 allgather([m[1] for m in merged], axis, tiled=True))
     all_d = allgather_wire(best_d, axis, wire_dtype)
     all_i = allgather(best_i, axis)
-    out = [_merge_candidates(d, i, k, select_min)
+    out = [_merge_candidates(d, i, k, select_min, smallest_id_ties)
            for d, i in zip(all_d, all_i)]
     return [o[0] for o in out], [o[1] for o in out]
 
@@ -427,12 +454,11 @@ def resolve_probe_budget(n_probes: int, n_lists: int, mesh_size: int,
 
 
 def _resolve_list_engine(engine: str, device: torch.device) -> str:
-    """The mesh bodies' list-major engine: ``auto`` is the kernel on a
-    CUDA index and the plain engine otherwise; ``rank`` is not ported
-    to the mesh."""
-    expect(engine in ("auto", "cuda", "torch"),
-           f"distributed scan_engine must be auto|cuda|torch (the "
-           f"rank-major engines are not ported to the mesh), got "
+    """The mesh bodies' engine: ``auto`` is the kernel on a CUDA index
+    and the plain list-major engine otherwise; ``rank`` is the rank-major
+    scan."""
+    expect(engine in ("auto", "cuda", "torch", "rank"),
+           f"distributed scan_engine must be auto|cuda|torch|rank, got "
            f"{engine!r}")
     if engine == "auto":
         return "cuda" if device.type == "cuda" else "torch"
@@ -541,11 +567,14 @@ def _dist_search_fn(queries, centers, center_norms, data, data_norms,
                     metric: DistanceType, probe_mode: str,
                     query_axis: Optional[str] = None,
                     coarse_algo: str = "exact", scan_engine: str = "torch",
-                    wire_dtype: str = "f32", probe_wire_dtype: str = "f32"):
+                    wire_dtype: str = "f32", probe_wire_dtype: str = "f32",
+                    slot_marks: Optional[Callable[[int], None]] = None):
     """The shard body (``ivf.py:557``): per slot, coarse against the
     shard's centers; the probe selection over the slots; per slot, the
     list-major scan with not-owned probes masked to the sentinel
-    ``n_local``; the lean result merge; the metric epilog. Returns
+    ``n_local`` (or, ``scan_engine="rank"``, the rank-major scan with
+    them padded out), then ``slot_marks(slot)`` when given; the lean
+    result merge; the metric epilog. Returns
     ``(distances, indices)`` (+ the per-slot probe planes when
     ``probe_counts``, a per-slot list of (n_local,) int32 planes, is
     given: each shard counts the probes it owns).
@@ -574,15 +603,23 @@ def _dist_search_fn(queries, centers, center_norms, data, data_norms,
             cnt = [_owned_histogram(lc, m, c, n_valid)
                    for lc, m, c in zip(local, mine, probe_counts)]
         best = []
-        for q, lc, m, x, xn, ids in zip(qf, local, mine, data, data_norms,
-                                        indices):
-            n_local = x.shape[0]
-            masked = torch.where(m, lc, torch.full_like(lc, n_local))
-            best.append(list_major_scan(q, x, xn, ids, masked, None, k=k,
-                                        metric=metric, engine=scan_engine))
+        for s, (q, lc, m, x, xn, ids) in enumerate(zip(
+                qf, local, mine, data, data_norms, indices)):
+            if scan_engine == "rank":
+                best.append(rank_major_scan(q, x, xn, ids, lc, None, k=k,
+                                            metric=metric, valid=m))
+            else:
+                n_local = x.shape[0]
+                masked = torch.where(m, lc, torch.full_like(lc, n_local))
+                best.append(list_major_scan(q, x, xn, ids, masked, None,
+                                            k=k, metric=metric,
+                                            engine=scan_engine))
+            if slot_marks is not None:
+                slot_marks(s)
         d, i = merge_results_sharded(
             [b[0] for b in best], [b[1] for b in best], axis, select_min,
-            wire_dtype, scatter=query_axis is not None)
+            wire_dtype, smallest_id_ties=scan_engine != "rank",
+            scatter=query_axis is not None)
     out_d, out_i = _finish(comms, d, i, query_axis)
     out_d = ivf_flat_mod.metric_epilog(queries.to(torch.float32), out_d,
                                        metric)
@@ -669,7 +706,8 @@ def search(res: Optional[Resources], params: IvfFlatSearchParams,
     distances; ``probe_wire_dtype`` (``f32|bf16|int8``) the probe
     exchange; ``trace_id`` records the mesh spans
     (:func:`record_dispatch`). ``params.scan_engine``: ``auto`` is kernel
-    #2 on a CUDA index, the plain engine on the CPU."""
+    #2 on a CUDA index, the plain engine on the CPU; ``rank`` the
+    rank-major scan."""
     res = ensure_resources(res)
     comms = index.comms
     queries = torch.as_tensor(queries).to(index.centers[0].device)
@@ -898,13 +936,17 @@ def _dist_search_pq_fn(queries, centers, center_norms, rotation, codebooks,
                        score_mode: str = "gather", lut_dtype=torch.float32,
                        coarse_algo: str = "exact", scan_engine: str = "torch",
                        wire_dtype: str = "f32",
-                       probe_wire_dtype: str = "f32"):
+                       probe_wire_dtype: str = "f32",
+                       slot_marks: Optional[Callable[[int], None]] = None):
     """The distributed ADC body (``ivf.py:1049``): the probe plumbing of
     :func:`_dist_search_fn`, and per slot the single-device LUT scan
     (:func:`~raft_tpu_torch.ops.ivf_pq_scan.ivf_pq_scan`) over the
-    shard's lists with not-owned probes at the sentinel; each (query,
-    probe slot)'s rotated residual is computed as the single-device body
-    computes it, so a probed list scores as it would there."""
+    shard's lists with not-owned probes at the sentinel, or with
+    ``scan_engine="rank"`` the single-device rank-major scan
+    (``ivf_pq._scan_rank``) with them padded out, then
+    ``slot_marks(slot)``; each (query, probe slot)'s rotated residual is
+    computed as the single-device body computes it, so a probed list
+    scores as it would there."""
     from raft_tpu_torch.ops.ivf_pq_scan import codebook_norms, ivf_pq_scan
 
     axis = comms.axis
@@ -913,6 +955,7 @@ def _dist_search_pq_fn(queries, centers, center_norms, rotation, codebooks,
     per_cluster = codebook_kind == CodebookKind.PER_CLUSTER
     score = (None if scan_engine == "cuda"
              else ivf_pq_mod.score_fn(score_mode, codebooks[0].shape[1]))
+    rank = scan_engine == "rank"
     qs = _query_slots(comms, queries, query_axis)
     with comms.active():
         qf = [q.to(torch.float32) for q in qs]
@@ -943,15 +986,25 @@ def _dist_search_pq_fn(queries, centers, center_norms, rotation, codebooks,
                 qres = (q[:, None, :] - c_l[slot_lists]) @ rot.T
                 base = None
                 cb_norms = codebook_norms(books)
-            masked = torch.where(m, lc, torch.full_like(lc, n_local))
-            best.append(ivf_pq_scan(
-                qres, base, books, cb_norms, codes[s], indices[s], masked,
-                None, k=k, ip_metric=ip_metric, per_cluster=per_cluster,
-                lut_dtype=lut_dtype, packed=False, engine=scan_engine,
-                score=score))
+            if rank:
+                best.append(ivf_pq_mod._scan_rank(
+                    qres, base, lc, books, cb_norms, codes[s], indices[s],
+                    None, k=k, metric=metric, per_cluster=per_cluster,
+                    lut_dtype=lut_dtype, packed=False, score=score,
+                    valid=m))
+            else:
+                masked = torch.where(m, lc, torch.full_like(lc, n_local))
+                best.append(ivf_pq_scan(
+                    qres, base, books, cb_norms, codes[s], indices[s],
+                    masked, None, k=k, ip_metric=ip_metric,
+                    per_cluster=per_cluster, lut_dtype=lut_dtype,
+                    packed=False, engine=scan_engine, score=score))
+            if slot_marks is not None:
+                slot_marks(s)
         d, i = merge_results_sharded(
             [b[0] for b in best], [b[1] for b in best], axis, select_min,
-            wire_dtype, scatter=query_axis is not None)
+            wire_dtype, smallest_id_ties=not rank,
+            scatter=query_axis is not None)
     out_d, out_i = _finish(comms, d, i, query_axis)
     if metric == DistanceType.L2SqrtExpanded:
         out_d = torch.where(torch.isfinite(out_d),
@@ -997,9 +1050,9 @@ def search_pq(res: Optional[Resources], params: IvfPqSearchParams,
     """Distributed PQ search (``ivf.py:1266``): :func:`search`'s
     semantics with per-shard LUT scoring. ``params.scan_engine``:
     ``auto`` is the ``ivf_pq_scan`` kernel on a CUDA index and the plain
-    engine on the CPU (the single-device ``rank`` default of the CPU is
-    not ported to the mesh); ``cuda`` takes ``torch`` past the kernel's
-    k, as the single-device resolver does."""
+    list-major engine on the CPU (where the single-device ``auto`` is
+    ``rank``); ``cuda`` takes ``torch`` past the kernel's k, as the
+    single-device resolver does; ``rank`` is the rank-major scan."""
     res = ensure_resources(res)
     comms = index.comms
     queries = torch.as_tensor(queries).to(index.centers[0].device)

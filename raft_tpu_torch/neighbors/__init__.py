@@ -1,7 +1,7 @@
 """Nearest-neighbor indexes: brute force, IVF-Flat, IVF-BQ, IVF-PQ,
 CAGRA, tiered IVF-Flat, IVF-PQ and IVF-BQ, and int8 quantized kNN, with
-the graph builders (cluster-join, NN-descent), refine and the index
-helpers.
+the graph builders (cluster-join, NN-descent), refine, the index helpers
+and the CAGRA ⇄ hnswlib file interop.
 
 The modules load on first access (``raft_tpu_torch.neighbors.ivf_pq``),
 as the JAX package's ``neighbors`` names them; importing them all here
@@ -15,6 +15,7 @@ __all__ = [
     "brute_force",
     "cagra",
     "cluster_join",
+    "hnsw",
     "ivf_bq",
     "ivf_flat",
     "ivf_helpers",

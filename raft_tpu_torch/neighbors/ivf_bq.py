@@ -510,6 +510,34 @@ def score_probe(lists, qrot, centers_rot, ip, cn, qnorm, codes, rnorm, cfac,
     return torch.where(ok, dist, torch.full_like(dist, pad_val)), row_ids
 
 
+def rank_scan(probes, qrot, centers_rot, ip, c_norms, qnorm, codes, rnorm,
+              cfac, indices, filter_words=None, *, k: int,
+              metric: DistanceType, valid=None):
+    """The rank-major estimate-only scan, the twin of the JAX ``rank``
+    engine: for each probe rank, :func:`score_probe`, then ``merge_topk``
+    into the running top-k (stable: the running state first on ties).
+    ``valid`` ((q, p) bool, the mesh shard bodies' ownership mask) pads
+    every row of a slot it clears. Returns ``(best_d, best_i)`` of the
+    estimates, before any sqrt epilog."""
+    q, p = probes.shape
+    select_min = is_min_close(metric)
+    ip_metric = metric == DistanceType.InnerProduct
+    pad_val = float("inf") if select_min else float("-inf")
+    best_d = qrot.new_full((q, k), pad_val)
+    best_i = torch.full((q, k), -1, dtype=torch.int32, device=qrot.device)
+    for rank in range(p):
+        dist, row_ids = score_probe(
+            probes[:, rank], qrot, None if ip_metric else centers_rot, ip,
+            c_norms, qnorm, codes, rnorm, cfac, indices, ip_metric, pad_val,
+            None if valid is None else valid[:, rank])
+        if filter_words is not None:
+            ok = test_filter(filter_words, row_ids) & (row_ids >= 0)
+            dist = torch.where(ok, dist, torch.full_like(dist, pad_val))
+        best_d, best_i = merge_topk(best_d, best_i, dist, row_ids, k,
+                                    select_min)
+    return best_d, best_i
+
+
 def coarse_probes(index: IvfBqIndex, qf: torch.Tensor, n_probes: int,
                   coarse_algo: str = "exact"):
     """The coarse step of :func:`search`: the (q, n_probes) int32 lists
@@ -549,8 +577,6 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
     expect(cold_planes is None or scan_engine == "torch",
            "tiered BQ record planes need the plain fused engine, got "
            f"{scan_engine!r}")
-    q = queries.shape[0]
-    select_min = is_min_close(metric)
     ip_metric = metric == DistanceType.InnerProduct
     qf = queries.to(torch.float32)
     probes, ip, c_norms = _coarse(centers, metric, qf, n_probes,
@@ -558,7 +584,6 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
     if row_probes is not None:
         probes = ragged_probes(probes, row_probes, centers.shape[0])
     qnorm = None if ip_metric else torch.square(qf).sum(dim=1)
-    pad_val = float("inf") if select_min else float("-inf")
     # probe-invariant: q~ = R(q - c) = Rq - Rc needs a rotated-centers table
     qrot = qf @ rotation.T
     centers_rot = centers @ rotation.T
@@ -572,18 +597,9 @@ def _search_arrays(queries, centers, rotation, codes, rnorm, cfac, errw,
             cold_slot_map, k=k, metric=metric, epsilon=epsilon,
             engine=scan_engine, query_bits=qb)
     else:
-        best_d = qf.new_full((q, k), pad_val)
-        best_i = torch.full((q, k), -1, dtype=torch.int32, device=qf.device)
-        for rank in range(n_probes):
-            dist, row_ids = score_probe(
-                probes[:, rank], qrot, None if ip_metric else centers_rot,
-                ip, c_norms, qnorm, codes, rnorm, cfac, indices, ip_metric,
-                pad_val)
-            if filter_words is not None:
-                ok = test_filter(filter_words, row_ids) & (row_ids >= 0)
-                dist = torch.where(ok, dist, torch.full_like(dist, pad_val))
-            best_d, best_i = merge_topk(best_d, best_i, dist, row_ids, k,
-                                        select_min)
+        best_d, best_i = rank_scan(
+            probes, qrot, centers_rot, ip, c_norms, qnorm, codes, rnorm,
+            cfac, indices, filter_words, k=k, metric=metric)
     if metric == DistanceType.L2SqrtExpanded:
         best_d = torch.where(torch.isfinite(best_d),
                              torch.sqrt(torch.clamp(best_d, min=0.0)), best_d)

@@ -646,10 +646,13 @@ def _score_select(lut, rows):
 
 def _scan_rank(qres, base, probes, codebooks, cb_norms, codes, indices,
                filter_words, *, k: int, metric: DistanceType,
-               per_cluster: bool, lut_dtype, packed: bool, score):
+               per_cluster: bool, lut_dtype, packed: bool, score,
+               valid=None):
     """The rank-major engine, the twin of the JAX ``rank`` engine: for each
     probe rank, every query's list gathered, scored and merged by
-    ``merge_topk`` (stable: the running state first on ties)."""
+    ``merge_topk`` (stable: the running state first on ties). ``valid``
+    ((q, p) bool, the mesh shard bodies' ownership mask) pads every row of
+    a slot it clears."""
     q, p = probes.shape
     L = codebooks.shape[2]
     ip_metric = metric == DistanceType.InnerProduct
@@ -676,6 +679,8 @@ def _scan_rank(qres, base, probes, codebooks, cb_norms, codes, indices,
             dist, None if scale is None else scale[:, None],
             base[:, r][:, None] if ip_metric else None)
         ok = row_ids >= 0
+        if valid is not None:
+            ok = ok & valid[:, r][:, None]
         if filter_words is not None:
             ok = ok & test_filter(filter_words, row_ids)
         dist = torch.where(ok, dist, torch.full_like(dist, pad_val))

@@ -217,13 +217,16 @@ def list_major_scan(qf, data, data_norms, indices, probes, filter_words=None,
 
 
 def rank_major_scan(qf, data, data_norms, indices, probes,
-                    filter_words=None, *, k: int, metric: DistanceType):
+                    filter_words=None, *, k: int, metric: DistanceType,
+                    valid=None):
     """The rank-major engine, the twin of the JAX ``rank`` engine: for
     each probe rank, every query's list gathered ((q, m, d)), scored by one
     batched product and merged into the running top-k by ``merge_topk``
     (stable: the running state first on ties). Returns the pre-epilog
     ``(best_d, best_i)`` of the module docstring, with -1 ids where a
-    slot held padding, and IP pads at -inf."""
+    slot held padding, and IP pads at -inf. ``valid`` ((q, p) bool, the
+    mesh shard bodies' ownership mask) pads every row of a slot it
+    clears."""
     from raft_tpu_torch.matrix.select_k import merge_topk
 
     q, p = probes.shape
@@ -240,6 +243,8 @@ def rank_major_scan(qf, data, data_norms, indices, probes,
         ipr = torch.bmm(rows, qf[:, :, None])[:, :, 0]       # (q, m)
         dist = ipr if ip_metric else data_norms[lists] - 2.0 * ipr
         ok = row_ids >= 0
+        if valid is not None:
+            ok = ok & valid[:, r][:, None]
         if filter_words is not None:
             ok = ok & test_filter(filter_words, row_ids)
         dist = torch.where(ok, dist, torch.full_like(dist, pad_val))

@@ -41,9 +41,10 @@ placement policy — the port of ``raft_tpu/serving``'s request layer.
   one merged view over several replicas' exporters.
 
 Works for single-device and list-sharded (``Distributed*``) indexes
-alike: the batcher only talks to the executor API. The fleet layer
-(``fleet/{table,planner,router,harness}``) is not ported yet: the
-exporter's route endpoints answer 404 until a router is attached.
+alike: the batcher only talks to the executor API. The fleet layer above
+it (:mod:`raft_tpu_torch.fleet`: routing table, planner, router, harness)
+attaches to the exporter as ``MetricsExporter(route=QueryRouter(...))``,
+which arms ``/route.json`` and ``POST /push?route=1``.
 """
 
 from raft_tpu_torch.serving.admission import AdmissionQueue, LoadShed

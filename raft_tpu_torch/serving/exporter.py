@@ -73,8 +73,8 @@ Endpoints:
   manager's epoch pacing (``tick``), exactly like graftfleet's
   continuous capture.
 - ``/route.json`` and ``POST /push?route=1`` — the routing table of an
-  attached router (any object with the JAX package's ``snapshot`` /
-  ``apply_table`` method names; 404 with none attached).
+  attached :class:`~raft_tpu_torch.fleet.QueryRouter` (200 when a pushed
+  table applies, 409 when it is stale; 404 with none attached).
 - ``POST /push?replica=<name>`` — federation push mode: with
   a :class:`~raft_tpu_torch.serving.federation.FleetAggregator` attached,
   a replica behind NAT POSTs its own ``/snapshot.json`` body here
@@ -748,7 +748,7 @@ class MetricsExporter:
 
     def route_snapshot(self) -> dict:
         """The ``/route.json`` body: the attached
-        router's (the JAX package's ``fleet/router.QueryRouter`` interface) live routing
+        :class:`~raft_tpu_torch.fleet.QueryRouter`'s live routing
         table + router view. Raises ``LookupError`` when no router
         is attached (or none applied a table yet) — the HTTP layer
         maps it to 404."""

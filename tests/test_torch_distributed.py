@@ -481,12 +481,23 @@ def test_probe_counts_count_each_probe_once(gauss_data):
 
 
 def test_distributed_entries_refuse_the_rank_engine(gauss_data):
+    """The direct mesh searches serve ``scan_engine="rank"`` (the JAX shard
+    bodies' rank-major engines; ``tests/test_torch_mesh_rank.py`` holds
+    them to JAX), but the packed ragged bodies refuse it, as the JAX
+    package's do: the rank-major scan has no membership mask. An unknown
+    engine is refused by the direct search."""
     x, q = gauss_data
     di = _deal("flat", _tcomms(2), _single("flat", "L2Expanded", gauss_data))
     from raft_tpu_torch.core.validation import RaftError
 
     with pytest.raises(RaftError, match="rank"):
-        divf.search(RES, ivf_flat.IvfFlatSearchParams(scan_engine="rank"),
+        divf._dist_search_ragged_fn(
+            torch.as_tensor(q), torch.full((q.shape[0],), 4, dtype=torch.int32),
+            di.centers, di.center_norms, di.data, di.data_norms, di.indices,
+            comms=di.comms, n_probes=4, k=K, metric=di.metric,
+            probe_mode="global", scan_engine="rank")
+    with pytest.raises(RaftError, match="scan_engine"):
+        divf.search(RES, ivf_flat.IvfFlatSearchParams(scan_engine="pallas"),
                     di, q, K)
 
 
@@ -757,11 +768,12 @@ def test_merge_overfetch_follows_jax():
     worst = max(di.shard_rel_err)
     assert dbq.merge_overfetch(di, 10) == int(np.ceil(
         10 * (1.0 + j_ivf_bq._OVERFETCH_KAPPA * worst)))
-    from raft_tpu_torch.core.validation import RaftError
-
-    with pytest.raises(RaftError, match="rerank plane"):
-        dbq.search_bq(RES, ivf_bq.IvfBqSearchParams(), di,
-                      np.zeros((2, 32), np.float32), 5)
+    # the codes-only index searches (the rank-major estimate scan, as the
+    # JAX package resolves it): estimate-ranked live ids
+    d, i = dbq.search_bq(RES, ivf_bq.IvfBqSearchParams(), di,
+                         np.zeros((2, 32), np.float32), 5)
+    assert d.shape == i.shape == (2, 5)
+    assert bool(((i >= 0) & (i < 800)).all())
 
 
 # ---------------------------------------------------------------------------

@@ -534,10 +534,17 @@ class TestMeshSpans:
         assert cs.duration == sc.duration == mg.duration > 0
         assert all(s.attrs["family"] == "dist_ivf_flat"
                    for s in (cs, sc, mg))
-        # the executor sees no slot's own readiness, so it publishes no
-        # per-slot span and no straggler gauge
-        assert rec.spans(trace_id=tid, name="serving.mesh.shard") == []
-        assert tracing.gauges("serving.mesh.") == {}
+        # one span a slot from that slot's own reading (the host clock
+        # after its scan on the CPU), none past the merged readiness,
+        # reduced into the straggler gauges
+        shards = rec.spans(trace_id=tid, name="serving.mesh.shard")
+        assert [s.attrs["shard"] for s in shards] == [0, 1, 2, 3]
+        offs = [s.duration for s in shards]
+        assert len(set(offs)) == 4 and max(offs) <= mg.duration
+        stats = tracing.straggler_stats(offs)
+        g = tracing.gauges("serving.mesh.")
+        assert g[tracing.MESH_SLOWEST_SHARD] == stats["slowest_shard"]
+        assert g[tracing.MESH_SHARD_SKEW] == stats["shard_skew"]
 
     def test_zero_recompiles_with_mesh_tracing(self, int_data):
         _, q = int_data
