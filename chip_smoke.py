@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases env,build,kernels,main,serve,ragged,distance,pq,stream,
-                  dist,meshserve,observe,fleet,times]
+                  dist,meshserve,observe,fleet,prims,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -350,7 +350,46 @@ non-zero exit (nothing is caught and passed over):
             equal to the numpy-part merge on the f32 and bf16 wires. Its
             launches add to the kernels line's; its numbers go to
             chiprun_out/fleet.json.
-14. times   per kernel at the main path's shapes: kernel ms (CUDA
+14. prims   the primitives (alone with --phases env,prims; it makes its
+            own data from --seed): make_blobs 100,000 x 128 float32 in 16
+            blobs (cluster_std 1.0, center_box (-10, 10); the rows a cut
+            from 1M for the time limit); single_linkage (k 15,
+            L2SqrtExpanded, 16 clusters): its kNN search (fused_knn in
+            512-row blocks, k + 1 = 16) held against fused_knn_plain on
+            its first, middle and ragged last block (distances within
+            1e-4 (1 + |d|), or at a row's match with itself within the
+            root of 2^-18 (|q|^2 + |x|^2); ids equal but at float64
+            ties), the first forest (knn_graph s, MST s) weighing what
+            scipy's minimum_spanning_tree of the same symmetrized graph
+            weighs (float64, 1e-5 relative), then the user call counted
+            (fused_knn must launch; its launches add to the kernels
+            line's #1; connect rounds >= 1, s) with a dendrogram that is
+            one binary tree over the points, labels equal to scipy's
+            components of its first n - 16 merges (the tree less its 15
+            heaviest edges) and its ARI against the blobs;
+            spectral.partition (16 clusters) of the unit-weight
+            symmetrized 15-NN graph joined with the MST's edges, and
+            lanczos_smallest (k 17) on its Laplacian: eigenvalues
+            ascending in [-1e-5, 2 + 1e-5], Ritz vectors orthonormal
+            within 1e-3, Rayleigh quotients (float64 on the host) within
+            1e-4 of their eigenvalues, the residuals, modularity and ARI
+            printed; linear_assignment at n 2,048 on integer costs in [0,
+            1000), its total equal to scipy's linear_sum_assignment
+            exactly (phases, bidding rounds and s printed);
+            sparse.neighbors.brute_force_knn on the BigANN'23 sparse
+            track's shape (30,109 columns, ~120 nonzeros a document row,
+            ~49 a query, synthetic integer values; 100,000 rows and 1,000
+            queries, cuts from 8.8M rows), inner product, k 10: 100 of the
+            queries' ids equal to a float64 scipy.sparse product's top-10,
+            ties by the smaller id; make_blobs at 1,000,000 x 128 with
+            stats.cov and stats.meanvar within 1e-4 / 1e-5 of float64
+            numpy; and a sweep of every other public function of the
+            primitive modules at a small size, each held against the same
+            call with device="cpu" (integer data exactly, float32 within
+            rtol/atol 1e-5 elementwise and 1e-4 for products and solvers,
+            eigen- and singular vectors up to sign, random draws by their
+            moments). Its numbers go to chiprun_out/prims.json.
+15. times   per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -369,7 +408,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-15. profile (not in the default run) torch.profiler over five requests
+16. profile (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -6084,6 +6123,966 @@ def phase_fleet(torch, state: dict) -> None:
     log(f"[fleet] {state.get('card')}: results in {path}")
 
 
+# prims: the primitives on the card — single-linkage on a 100,000-row
+# kNN graph built by fused_knn, spectral partitioning of that graph,
+# linear assignment, SPLADE-shaped sparse kNN, and a sweep of every other
+# public function of the primitive modules against its CPU run
+PRIMS_ROWS = 100_000      # make_blobs rows: a cut from 1M for the time limit
+PRIMS_DIM = 128           # SIFT's width
+PRIMS_BLOBS = 16
+PRIMS_K = 15
+LAP_N = 2048
+SPLADE = dict(cols=30109, rows=100_000, queries=1000, doc_nnz=120,
+              query_nnz=49, check=100)
+BLOBS_1M = 1_000_000
+
+
+def _components(n, src, dst):
+    """scipy's connected components of the graph of the edges (src, dst)."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    a = scipy.sparse.coo_matrix((np.ones(len(src)), (src, dst)),
+                                shape=(n, n))
+    return scipy.sparse.csgraph.connected_components(a, directed=False)
+
+
+def _same_partition(a, b) -> bool:
+    """Two labelings name the same classes (a bijection between them)."""
+    a = np.asarray(a, np.int64)
+    b = np.asarray(b, np.int64)
+    pairs = np.unique(a * (int(b.max()) + 1) + b)
+    return len(pairs) == len(np.unique(a)) == len(np.unique(b))
+
+
+def _host_edges(result):
+    """(src, dst, weights) of an MSTResult's emitted edges, ordered as
+    single_linkage orders them (stable, by weight)."""
+    src = result.src.cpu().numpy()
+    keep = src >= 0
+    src = src[keep]
+    dst = result.dst.cpu().numpy()[keep]
+    w = result.weights.cpu().numpy()[keep]
+    order = np.argsort(w, kind="stable")
+    return src[order], dst[order], w[order]
+
+
+def prims_knn_check(torch, res, x, k: int, metric) -> dict:
+    """single_linkage's kNN search held against fused_knn_plain at the
+    path's own call: knn_graph's ``brute_force.knn(x, x, k + 1)``, which
+    the search runs in FUSED_MAX_QUERIES-row blocks (the last one ragged),
+    checked on its first, middle and last block. A slot's tolerance is
+    the kernels phase's 1e-4 (1 + |d|), or where larger the change in the
+    root that an error of 2^-18 (|q|^2 + |x|^2) in the expanded square
+    makes: that is larger only where the distance is small against the
+    norms, at a row's match with itself. Each returned distance is within
+    its tolerance of the plain version's and of the float64 distance of
+    its own id; where the ids differ, the two ids' float64 distances are
+    a tie within that tolerance."""
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops.fused_topk import fused_knn_plain
+
+    if metric.name != "L2SqrtExpanded":
+        fail(f"prims: the kNN check takes L2SqrtExpanded, not {metric.name}")
+    n = x.shape[0]
+    bs = brute_force.FUSED_MAX_QUERIES
+    t0 = time.perf_counter()
+    index = brute_force.build(res, x, metric)
+    gd, gi = brute_force.search(res, index, x, k + 1)
+    torch.cuda.synchronize()
+    starts = sorted({0, n // bs // 2 * bs, (n - 1) // bs * bs})
+    x64 = x.double()
+    err = self_err = 0.0
+    ties = 0
+    for s in starts:
+        rows = torch.arange(s, min(s + bs, n), device=x.device)
+        wd, wi = fused_knn_plain(x[rows], x, k + 1, metric,
+                                 dataset_norms=index.norms)
+        d, i = gd[rows], gi[rows]
+        if d.shape != wd.shape or bool((i < 0).any()):
+            fail(f"prims: knn block at row {s}: shape {tuple(d.shape)}, "
+                 f"{int((i < 0).sum())} unfilled slots")
+        q2 = index.norms[rows][:, None]
+
+        def room(dist, ids):
+            e = 2.0 ** -18 * (q2 + index.norms[ids.long()])
+            return torch.minimum(e.sqrt(), e / (dist + wd).clamp_min(1e-30))
+
+        tol = torch.maximum(1e-4 * (1.0 + wd.abs()), room(d, i))
+        diff = (d - wd).abs()
+        exact64 = (x64[i.long()] - x64[rows][:, None]).norm(dim=2)
+        if bool((diff > tol).any()) or bool(
+                ((d.double() - exact64).abs() > tol).any()):
+            fail(f"prims: knn block at row {s}: distances off the plain "
+                 f"version by {float(diff.max()):.3g} or off float64 by "
+                 f"{float((d.double() - exact64).abs().max()):.3g}, beyond "
+                 "the slot's tolerance")
+        other = i != wi
+        want64 = (x64[wi.long()] - x64[rows][:, None]).norm(dim=2)
+        if bool(((exact64 - want64).abs() > tol)[other].any()):
+            fail(f"prims: knn block at row {s}: "
+                 f"{int(other.sum())} ids differ from the plain version "
+                 "beyond ties")
+        ties += int(other.sum())
+        own = wi == rows[:, None]
+        err = max(err, float(diff[~own].max()))
+        self_err = max(self_err, float(diff[own].max()) if bool(own.any())
+                       else 0.0)
+    check_s = time.perf_counter() - t0
+    log(f"[prims] knn_graph's search (brute_force.knn, {n} x {n}, k+1 = "
+        f"{k + 1}, {metric.name}, {-(-n // bs)} blocks of {bs}) held against "
+        f"fused_knn_plain on the blocks at rows {starts}: max |dd| {err:.3g} "
+        f"(tolerance 1e-4 (1 + |d|)), {self_err:.3g} at the rows' matches "
+        f"with themselves (tolerance the root of 2^-18 (|q|^2 + |x|^2)), "
+        f"{ties} ids differ at ties; {check_s:.3f} s")
+    return dict(blocks=starts, max_abs_err=err, self_max_abs_err=self_err,
+                ties=ties, seconds=check_s)
+
+
+def prims_single_linkage(torch, res, x, y, n_clusters: int, k: int,
+                         state: dict) -> dict:
+    """single_linkage on (x, y): its kNN search against the plain
+    version; the first MST forest (knn_graph, coo_symmetrize, mst once,
+    timed) against scipy's MST of the same graph; the tree that spectral
+    partitioning joins to the graph (the module's own connect loop); then
+    the counted user call: its dendrogram one binary tree over the n
+    points, its labels scipy's components of the dendrogram's first
+    n - n_clusters merges (the tree less its n_clusters - 1 heaviest
+    edges), and its ARI against y."""
+    import importlib
+
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.cluster import single_linkage
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.sparse import convert, linalg, neighbors, solver
+
+    metric = DistanceType.L2SqrtExpanded
+    sl_mod = importlib.import_module("raft_tpu_torch.cluster.single_linkage")
+    n = x.shape[0]
+    knn = prims_knn_check(torch, res, x, k, metric)
+    # the first forest against scipy's MST of the same symmetrized graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = neighbors.knn_graph(res, x, k, metric)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sym = linalg.coo_symmetrize(g)
+    first = solver.mst(res, convert.coo_to_csr(sym))
+    mst_s = time.perf_counter() - t0
+    keep = (sym.rows >= 0).cpu().numpy()
+    a = scipy.sparse.coo_matrix(
+        (sym.vals.cpu().numpy()[keep].astype(np.float64),
+         (sym.rows.cpu().numpy()[keep], sym.cols.cpu().numpy()[keep])),
+        shape=(n, n)).tocsr()
+    want_w = float(scipy.sparse.csgraph.minimum_spanning_tree(a).sum())
+    n_comp, _ = scipy.sparse.csgraph.connected_components(a, directed=False)
+    fs, _, fw = _host_edges(first)
+    got_w = float(fw.astype(np.float64).sum())
+    rel = abs(got_w - want_w) / want_w
+    if rel > 1e-5 or len(fs) != n - n_comp:
+        fail(f"prims: the first MST forest weighs {got_w} with {len(fs)} "
+             f"edges, scipy's {want_w} with {n - n_comp} (rel {rel:.3g})")
+    if n_comp < 2:
+        fail("prims: the kNN graph is connected: cross_component_nn would "
+             "never run")
+    # the user API returns no tree edges: the spectral graph takes them
+    # from the module's own kNN-graph-to-tree step
+    t0 = time.perf_counter()
+    final = sl_mod._mst_edges_connected(res, x, k, metric)
+    tree_s = time.perf_counter() - t0
+    src, dst, _ = _host_edges(final)
+    t0 = time.perf_counter()
+    sl_mod._dendrogram(src, dst, n)
+    sl_mod._flat_labels(src, dst, n, n_clusters)
+    dendro_s = time.perf_counter() - t0
+
+    # the user call, counted
+    rounds0 = _counter("cluster.single_linkage.connect_rounds")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = single_linkage(res, x, n_clusters, metric=metric, k=k)
+    total_s = time.perf_counter() - t0
+    counts = read_launches(("fused_knn",), "prims single-linkage")
+    launches = state.setdefault("launches", {})
+    launches["fused_knn"] = launches.get("fused_knn", 0) \
+        + counts["fused_knn"]
+    rounds = int(_counter("cluster.single_linkage.connect_rounds") - rounds0)
+    if rounds < 1:
+        fail("prims: single_linkage ran no connect round")
+    # one binary tree over the n points: every id but the root's is a
+    # child exactly once, each step's children made before it
+    ch = np.asarray(out.children, np.int64)
+    step = np.arange(n - 1)
+    if ch.shape != (n - 1, 2) or int(out.sizes[-1]) != n \
+            or not np.array_equal(np.sort(ch.reshape(-1)),
+                                  np.arange(2 * n - 2)) \
+            or bool((ch.max(axis=1) >= n + step).any()) \
+            or bool((np.diff(out.deltas) < 0).any()):
+        fail("prims: single_linkage's dendrogram is not one tree over the "
+             "points merged in weight order")
+    m = n - n_clusters
+    _, cc = _components(2 * n - 1, np.concatenate([ch[:m, 0], ch[:m, 1]]),
+                        np.concatenate([n + step[:m], n + step[:m]]))
+    if not _same_partition(out.labels, cc[:n]) \
+            or len(np.unique(out.labels)) != n_clusters:
+        fail("prims: single_linkage's labels are not the components of the "
+             f"tree less its {n_clusters - 1} heaviest edges")
+    ari = float(stats.adjusted_rand_index(
+        res, torch.as_tensor(out.labels, device=res.device), y))
+    log(f"[prims] single_linkage n={n} d={x.shape[1]} k={k} "
+        f"{metric.name} n_clusters={n_clusters}: knn_graph {knn_s:.3f} s, "
+        f"first MST {mst_s:.3f} s (forest of {n_comp} trees, weight "
+        f"{got_w:.6g} vs scipy {want_w:.6g}, rel {rel:.2e}), kNN graph to "
+        f"one tree {tree_s:.3f} s, dendrogram and flat cut {dendro_s:.3f} "
+        f"s; the user call {total_s:.3f} s, {rounds} connect rounds "
+        f"(fused_knn launched {counts['fused_knn']} times), one dendrogram "
+        f"tree, labels = scipy components of the tree less its "
+        f"{n_clusters - 1} heaviest edges, ARI against make_blobs' labels "
+        f"{ari:.6f}")
+    return dict(graph=dict(g=g, final=final), rec=dict(
+        n=n, knn_check=knn, knn_graph_s=knn_s, mst_s=mst_s,
+        connect_rounds=rounds, tree_s=tree_s, dendrogram_s=dendro_s,
+        total_s=total_s, forest_trees=int(n_comp), forest_weight=got_w,
+        scipy_weight=want_w, fused_knn_launches=counts["fused_knn"],
+        ari=ari))
+
+
+def _counter(name: str) -> float:
+    from raft_tpu_torch.core import tracing
+
+    return tracing.get_counter(name)
+
+
+def prims_spectral(torch, res, graph: dict, y, n_clusters: int,
+                   seed: int) -> dict:
+    """spectral.partition on the unit-weight symmetrized kNN graph joined
+    with the final MST's edges; lanczos_smallest(k = n_clusters + 1) on
+    its Laplacian held to what every correct run satisfies."""
+    import scipy.sparse
+
+    from raft_tpu_torch import spectral, stats
+    from raft_tpu_torch.sparse import convert, linalg, solver
+    from raft_tpu_torch.sparse.types import COO
+
+    g, final = graph["g"], graph["final"]
+    n = g.shape[0]
+    e = final.src >= 0
+    fs, fd = final.src[e], final.dst[e]
+    unit = COO(torch.cat([g.rows, fs, fd]), torch.cat([g.cols, fd, fs]),
+               torch.ones(g.nnz + 2 * fs.shape[0], device=res.device),
+               (n, n))
+    adj = convert.coo_to_csr(linalg.coo_symmetrize(unit, torch.ones_like))
+    lap = linalg.laplacian(adj)
+    k = n_clusters + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev, vec = solver.lanczos_smallest(res, lap, k, seed=seed)
+    torch.cuda.synchronize()
+    lanczos_s = time.perf_counter() - t0
+    evh = ev.cpu().double().numpy()
+    v = vec.cpu().double().numpy()
+    if not (np.all(np.diff(evh) >= 0) and evh.min() >= -1e-5
+            and evh.max() <= 2 + 1e-5):
+        fail(f"prims: Lanczos eigenvalues {evh} not ascending in [0, 2]")
+    orth = float(np.abs(v.T @ v - np.eye(k)).max())
+    if orth > 1e-3:
+        fail(f"prims: Ritz vectors orthonormal only within {orth:.3g}")
+    keep = (lap.row_ids() >= 0).cpu().numpy()
+    lap64 = scipy.sparse.csr_matrix(
+        (lap.data.cpu().numpy()[keep].astype(np.float64),
+         lap.indices.cpu().numpy()[keep], lap.indptr.cpu().numpy()),
+        shape=(n, n))
+    lv = lap64 @ v
+    rq = np.sum(v * lv, axis=0)
+    rq_err = float(np.abs(rq - evh).max())
+    if rq_err > 1e-4:
+        fail(f"prims: Rayleigh quotients {rq_err:.3g} from their eigenvalues")
+    resid = np.linalg.norm(lv - v * evh[None, :], axis=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, evals, emb = spectral.partition(res, adj, n_clusters, seed=seed)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    q = float(spectral.modularity(res, adj, labels))
+    ari = float(stats.adjusted_rand_index(res, labels, y))
+    if labels.device.type != res.device.type \
+            or emb.shape != (n, n_clusters) \
+            or not bool(torch.isfinite(emb).all()):
+        fail("prims: spectral.partition's outputs are malformed")
+    log(f"[prims] spectral: adjacency {n} nodes, {int(adj.indptr[-1])} "
+        f"stored edges (unit weights); lanczos_smallest k={k} "
+        f"{lanczos_s:.3f} s: eigenvalues {np.round(evh, 6).tolist()}, "
+        f"ascending in [0, 2], Ritz vectors orthonormal within {orth:.2e}, "
+        f"Rayleigh quotients within {rq_err:.2e} (float64), residuals "
+        f"||Lv - lv|| {np.round(resid, 5).tolist()}; partition "
+        f"{n_clusters} clusters {part_s:.3f} s: modularity {q:.6f}, ARI "
+        f"against make_blobs' labels {ari:.6f}")
+    return dict(lanczos_s=lanczos_s, eigenvalues=evh.tolist(),
+                orthonormal=orth, rayleigh_err=rq_err,
+                residuals=resid.tolist(), partition_s=part_s,
+                modularity=q, ari=ari)
+
+
+def prims_lap(torch, res, seed: int, n: int) -> dict:
+    """linear_assignment on integer costs in [0, 1000): the total equal
+    to scipy's exactly."""
+    import scipy.optimize
+
+    from raft_tpu_torch.solver import linear_assignment
+
+    cost = np.random.default_rng(seed + 17).integers(
+        0, 1000, (n, n)).astype(np.float32)
+    p0 = _counter("solver.lap.phases")
+    i0 = _counter("solver.lap.iterations")
+    c = torch.as_tensor(cost, device=res.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assign, total = linear_assignment(res, c)
+    torch.cuda.synchronize()
+    lap_s = time.perf_counter() - t0
+    phases = int(_counter("solver.lap.phases") - p0)
+    iters = int(_counter("solver.lap.iterations") - i0)
+    t0 = time.perf_counter()
+    ri, ci = scipy.optimize.linear_sum_assignment(cost)
+    scipy_s = time.perf_counter() - t0
+    want = float(cost[ri, ci].astype(np.float64).sum())
+    a = assign.cpu().numpy()
+    if sorted(a.tolist()) != list(range(n)) or float(total) != want \
+            or float(cost[np.arange(n), a].astype(np.float64).sum()) != want:
+        fail(f"prims: linear_assignment total {float(total)} != scipy's "
+             f"{want}")
+    cut = "" if n == LAP_N else f" (cut from {LAP_N} for time)"
+    log(f"[prims] linear_assignment n={n}{cut}: total {float(total):.0f} = "
+        f"scipy's, {phases} eps-phases, {iters} bidding rounds, "
+        f"{lap_s:.3f} s (scipy on the host {scipy_s:.3f} s)")
+    return dict(n=n, total=want, phases=phases, iterations=iters,
+                seconds=lap_s, scipy_s=scipy_s)
+
+
+def splade_rows(torch, g, rows: int, cols: int, nnz: int):
+    """(indptr, indices, data) on the generator's device: ``rows`` rows of
+    about ``nnz`` distinct columns each, drawn with a power-law column
+    popularity (SPLADE's term skew), integer values 1..8."""
+    dev = g.device
+    pop = torch.randperm(cols, generator=g, device=dev)
+    p = 1.0 / (torch.arange(cols, device=dev, dtype=torch.float64) + 10.0
+               ) ** 0.8
+    cdf = torch.cumsum(p, 0) / p.sum()
+    u = torch.rand(rows * nnz, generator=g, device=dev, dtype=torch.float64)
+    col = pop[torch.searchsorted(cdf, u).clamp(max=cols - 1)]
+    key = torch.unique(torch.arange(rows, device=dev).repeat_interleave(nnz)
+                       * cols + col)                       # sorted
+    indptr = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(key // cols, minlength=rows), 0)
+    data = torch.randint(1, 9, (key.numel(),), generator=g, device=dev
+                         ).to(torch.float32)
+    return indptr, (key % cols).to(torch.int32), data
+
+
+def prims_sparse_knn(torch, res, seed: int, cols: int, rows: int,
+                     queries: int, doc_nnz: int, query_nnz: int,
+                     check: int) -> dict:
+    """sparse.neighbors.brute_force_knn on the BigANN'23 sparse track's
+    shape (inner product, k 10): ids against the top-10 of a float64
+    scipy.sparse product of ``check`` of the queries, ties by the
+    smaller id."""
+    import scipy.sparse
+
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.sparse import CSR
+    from raft_tpu_torch.sparse.neighbors import brute_force_knn
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=res.device)
+    g.manual_seed(seed + 23)
+    db = CSR.from_numpy(*splade_rows(torch, g, rows, cols, doc_nnz),
+                        (rows, cols), device=res.device)
+    q = CSR.from_numpy(*splade_rows(torch, g, queries, cols, query_nnz),
+                       (queries, cols), device=res.device)
+    dip, dind, ddat = (t.cpu().numpy() for t in (db.indptr, db.indices,
+                                                 db.data))
+    qip, qind, qdat = (t.cpu().numpy() for t in (q.indptr, q.indices,
+                                                 q.data))
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, i = brute_force_knn(res, db, q, K, DistanceType.InnerProduct)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    sel = np.arange(0, queries, queries // check)[:check]
+    dmat = scipy.sparse.csr_matrix((ddat.astype(np.float64), dind, dip),
+                                   shape=(rows, cols))
+    qmat = scipy.sparse.csr_matrix((qdat.astype(np.float64), qind, qip),
+                                   shape=(queries, cols))[sel]
+    t0 = time.perf_counter()
+    scores = dmat @ qmat.toarray().T                     # (rows, check)
+    want = np.argsort(-scores, axis=0, kind="stable")[:K].T
+    ref_s = time.perf_counter() - t0
+    got = i.cpu().numpy()[sel]
+    gd = d.cpu().numpy()[sel]
+    want_s = np.take_along_axis(scores.T, want, axis=1)
+    got_s = np.take_along_axis(scores.T, got.astype(np.int64), axis=1)
+    if not (np.array_equal(got_s, want_s) and np.array_equal(gd, want_s)):
+        fail("prims: sparse brute_force_knn scores differ from the float64 "
+             "product's top-10")
+    differ = int((got != want).sum())
+    if differ:
+        fail(f"prims: sparse brute_force_knn ids differ from the float64 "
+             f"product's at {differ} places of equal score")
+    log(f"[prims] sparse brute_force_knn (SPLADE shape: {rows} x {cols} "
+        f"docs, {int(dip[-1])} nonzeros ({dip[-1] / rows:.1f} a row); "
+        f"{queries} queries ({qip[-1] / queries:.1f} a row); inner product, "
+        f"k {K}; rows cut from 8.8M to {rows}, queries to {queries}; data "
+        f"{data_s:.2f} "
+        f"s): {knn_s:.3f} s on the card; {check} queries' ids equal the "
+        f"float64 scipy product's top-10, ties by the smaller id "
+        f"(scipy {ref_s:.2f} s)")
+    return dict(rows=rows, nnz=int(dip[-1]), queries=queries, seconds=knn_s,
+                checked=check)
+
+
+def _leaves(obj) -> list:
+    """The arrays and numbers of an output, in a fixed order."""
+    import torch
+
+    if isinstance(obj, (torch.Tensor, np.ndarray, float, int, bool,
+                        np.generic)):
+        return [obj]
+    if obj is None:
+        return []
+    if dataclasses.is_dataclass(obj):
+        return [x for f in dataclasses.fields(obj)
+                for x in _leaves(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj) for x in _leaves(obj[k])]
+    if isinstance(obj, (tuple, list)):
+        return [x for o in obj for x in _leaves(o)]
+    raise TypeError(f"no leaves in {type(obj)}")
+
+
+def _host(x) -> np.ndarray:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _moments_agree(a: np.ndarray, b: np.ndarray) -> bool:
+    """Two samples' means and variances within 5 standard errors."""
+    a = a.astype(np.float64).ravel()
+    b = b.astype(np.float64).ravel()
+    se = np.sqrt(a.var() / a.size + b.var() / b.size)
+    if abs(a.mean() - b.mean()) > 5 * se + 1e-9:
+        return False
+
+    def var_se(x):
+        c = x - x.mean()
+        return np.sqrt(max(np.mean(c ** 4) - np.mean(c ** 2) ** 2, 0.0)
+                       / x.size)
+
+    return abs(a.var() - b.var()) <= 5 * np.hypot(var_se(a), var_se(b)) \
+        + 1e-9
+
+
+def sweep_equal(torch, name: str, got, want, tol, device) -> float:
+    """A card output against the CPU run's: every tensor of the card's on
+    the card; ``tol`` "exact", "dist" (samples of one distribution),
+    "sign" (columns up to sign, atol 1e-4) or (rtol, atol). Returns the
+    largest |difference| (0 for "dist")."""
+    gl, wl = _leaves(got), _leaves(want)
+    if len(gl) != len(wl):
+        fail(f"prims sweep {name}: {len(gl)} outputs vs {len(wl)} on the CPU")
+    worst = 0.0
+    for g, w in zip(gl, wl):
+        if isinstance(g, torch.Tensor) and g.device.type != device.type:
+            fail(f"prims sweep {name}: an output left the card "
+                 f"({g.device})")
+        g, w = _host(g), _host(w)
+        if g.shape != w.shape:
+            fail(f"prims sweep {name}: shape {g.shape} vs {w.shape}")
+        if tol == "dist":
+            if g.dtype == np.bool_:
+                g, w = g.astype(np.float64), w.astype(np.float64)
+            if not _moments_agree(g, w):
+                fail(f"prims sweep {name}: the card's draws' moments "
+                     "differ from the CPU's beyond 5 standard errors")
+            continue
+        if g.dtype.kind in "biu" and tol != "exact" and tol != "sign":
+            g, w = g.astype(np.float64), w.astype(np.float64)
+        if tol == "exact" or g.dtype.kind in "bO":
+            if not np.array_equal(g, w):
+                fail(f"prims sweep {name}: differs from the CPU run")
+            continue
+        g64, w64 = g.astype(np.float64), w.astype(np.float64)
+        if tol == "sign":
+            if g64.ndim == 2:
+                g64 = g64 * np.where(np.sum(g64 * w64, axis=0) < 0, -1.0,
+                                     1.0)[None, :]
+            rtol, atol = 1e-4, 1e-4
+        else:
+            rtol, atol = tol
+        fin = np.isfinite(w64)
+        if not np.array_equal(fin, np.isfinite(g64)) \
+                or not np.array_equal(g64[~fin], w64[~fin]):
+            fail(f"prims sweep {name}: non-finite entries differ")
+        err = np.abs(g64[fin] - w64[fin])
+        if err.size:
+            worst = max(worst, float(err.max()))
+            if bool((err > atol + rtol * np.abs(w64[fin])).any()):
+                fail(f"prims sweep {name}: |difference| {err.max():.3g} "
+                     f"beyond rtol {rtol} / atol {atol}")
+    return worst
+
+
+def sweep_cases(torch, seed: int) -> list:
+    """(name, fn(res) -> output, tolerance) for every public function of
+    the primitive modules but the phase's own entries, on small inputs
+    made from ``seed`` (integer-valued where a product is taken, so the
+    two devices' different summation orders round alike)."""
+    import importlib
+
+    from raft_tpu_torch import label, linalg, matrix, random, spectral, stats
+    from raft_tpu_torch.cluster import single_linkage
+    from raft_tpu_torch.core import operators as op
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.solver import (
+        LinearAssignmentProblem,
+        linear_assignment,
+    )
+    from raft_tpu_torch.sparse import COO, CSR, convert, neighbors, ops
+    from raft_tpu_torch.sparse import distance as sdist
+    from raft_tpu_torch.sparse import linalg as slin
+    from raft_tpu_torch.sparse import solver
+    from raft_tpu_torch.stats.metrics import ICType
+
+    logger = importlib.import_module("raft_tpu_torch.core.logger")
+    rng = np.random.default_rng(seed + 29)
+    EX = "exact"
+    F = (1e-5, 1e-5)          # elementwise float32
+    P = (1e-4, 1e-4)          # float products, reductions, solvers
+    ai = rng.integers(-4, 5, (24, 16)).astype(np.float32)
+    bi = rng.integers(-4, 5, (16, 12)).astype(np.float32)
+    ci = rng.integers(-4, 5, (24, 12)).astype(np.float32)
+    af = rng.standard_normal((24, 16)).astype(np.float32)
+    bf = rng.standard_normal((24, 16)).astype(np.float32)
+    pos = np.abs(af) + 0.5
+    vec16 = rng.integers(-3, 4, 16).astype(np.float32)
+    vec24 = rng.integers(-3, 4, 24).astype(np.float32)
+    keys24 = rng.integers(0, 5, 24).astype(np.int32)
+    keys16 = rng.integers(0, 4, 16).astype(np.int32)
+    spd = (af.T @ af + 16 * np.eye(16)).astype(np.float32)
+    chol = np.linalg.cholesky(spd).astype(np.float32)
+    lab_a = rng.integers(0, 4, 200).astype(np.int32)
+    lab_b = np.where(rng.random(200) < 0.8, lab_a,
+                     rng.integers(0, 5, 200)).astype(np.int32)
+    blobs = (rng.integers(-20, 20, (4, 6))[rng.integers(0, 4, 120)]
+             + rng.integers(-2, 3, (120, 6))).astype(np.float32)
+    blob_lab = rng.integers(0, 4, 120).astype(np.int32)
+    dense_s = (rng.integers(1, 5, (30, 20))
+               * (rng.random((30, 20)) < 0.2)).astype(np.float32)
+    dense_t = (rng.integers(1, 5, (20, 18))
+               * (rng.random((20, 18)) < 0.25)).astype(np.float32)
+    graph = np.triu(rng.integers(1, 4, (30, 30))
+                    * (rng.random((30, 30)) < 0.2), 1).astype(np.float32)
+    graph = graph + graph.T
+    cliques = np.zeros((20, 20), np.float32)
+    cliques[:10, :10] = cliques[10:, 10:] = 1.0
+    np.fill_diagonal(cliques, 0.0)
+    cliques[0, 10] = cliques[10, 0] = 1.0
+    cost = rng.integers(0, 100, (24, 24)).astype(np.float32)
+    coo_rows = np.array([2, 0, 2, 0, -1, 1], np.int32)
+    coo_cols = np.array([1, 1, 1, 1, 0, 0], np.int32)
+    coo_vals = np.array([5.0, 1.0, 7.0, 2.0, 9.0, 0.0], np.float32)
+
+    def T(r, a):
+        return r.put(a)
+
+    def csr(r, a):
+        return CSR.from_dense(a, device=r.device)
+
+    cases = []
+    # core.operators on device tensors
+    for name in ("identity_op", "sq_op", "abs_op", "nz_op"):
+        cases.append((f"operators.{name}",
+                      lambda r, f=getattr(op, name): f(T(r, ai)), EX))
+    cases.append(("operators.sqrt_op", lambda r: op.sqrt_op(T(r, pos)), F))
+    for name in ("add_op", "sub_op", "mul_op", "min_op", "max_op",
+                 "equal_op", "notequal_op", "greater_op", "less_op",
+                 "greater_or_equal_op", "less_or_equal_op",
+                 "div_checkzero_op"):
+        cases.append((f"operators.{name}", lambda r, f=getattr(op, name):
+                      f(T(r, ai[:, :12]), T(r, ci)), EX))
+    cases += [
+        ("operators.div_op", lambda r: op.div_op(T(r, af), T(r, pos)), F),
+        ("operators.pow_op", lambda r: op.pow_op(T(r, pos), 1.5), F),
+        ("operators.mod_op", lambda r: op.mod_op(T(r, ai), 3.0), EX),
+        ("operators.const_ops", lambda r: [
+            f(2.0)(T(r, pos)) for f in (op.add_const_op, op.sub_const_op,
+                                        op.mul_const_op, op.div_const_op,
+                                        op.pow_const_op)]
+         + [op.plug_const_op(2.0, op.sub_op, "left")(T(r, pos)),
+            op.const_op(3.0)(T(r, pos))], F),
+        ("operators.compose_map_args_key_value_void", lambda r: [
+            op.compose_op(op.sqrt_op, op.sq_op)(T(r, af)),
+            op.map_args_op(op.add_op, op.sq_op, op.abs_op)(T(r, af),
+                                                           T(r, bf)),
+            op.key_op((T(r, ai), T(r, bi))),
+            op.value_op((T(r, ai), T(r, bi))), op.void_op(T(r, ai))], F),
+    ]
+
+    def trace_text(r):
+        seen = []
+        old = logger.logger.level
+        logger.set_callback(lambda lvl, msg: seen.append(msg))
+        try:
+            logger.set_level(logger.LogLevel.TRACE)
+            logger.trace_vec("v", T(r, af[0]), limit=6)
+            lvl = int(logger.get_level())
+        finally:
+            logger.set_callback(None)
+            logger.logger.setLevel(old)
+        return [np.array(seen), lvl]
+
+    cases.append(("logger.trace_vec", trace_text, EX))
+
+    # random: distributions on the card against the CPU's draws
+    n = 20000
+    for name, args, kw in (
+            ("uniform", ((n,),), dict(low=-2, high=3)),
+            ("uniform_int", ((n,), 2, 9), {}),
+            ("normal", ((n,),), dict(mu=1.0, sigma=2.0)),
+            ("lognormal", ((n,),), {}), ("gumbel", ((n,),), {}),
+            ("logistic", ((n,),), {}), ("laplace", ((n,),), {}),
+            ("exponential", ((n,),), {}), ("rayleigh", ((n,),), {}),
+            ("bernoulli", ((n,),), dict(prob=0.3)),
+            ("scaled_bernoulli", ((n,),), dict(prob=0.3, scale=2.0)),
+            ("permute", (n,), {}),
+            ("sample_without_replacement", (100, n), {}),
+            ("rmat", (10, 8, n), {}),
+            ("multi_variable_gaussian", (np.zeros(2), np.array(
+                [[2.0, 0.5], [0.5, 1.0]], np.float32), n), {})):
+        cases.append((f"random.{name}", lambda r, f=getattr(random, name),
+                      a=args, k=kw: f(random.RngState(seed), *a,
+                                      device=r.device, **k), "dist"))
+    cases += [
+        ("random.sample_without_replacement(weights)", lambda r: torch.sort(
+            random.sample_without_replacement(
+                random.RngState(seed), 10, 50, weights=np.r_[
+                    np.ones(10), np.full(40, 1e-9)], device=r.device)
+        ).values, EX),
+        ("random.subsample", lambda r: random.subsample(
+            random.RngState(seed), 1000, 37, device=r.device), EX),
+        # the centers and weights differ by draw: compare the noise
+        # around them, the labels, the centers and the weights
+        ("random.make_blobs", lambda r: (lambda x, lab, c: [
+            x - c[lab.long()], lab, c])(*random.make_blobs(
+                random.RngState(seed), 4000, 8, n_clusters=4,
+                device=r.device)), "dist"),
+        ("random.make_regression", lambda r: random.make_regression(
+            random.RngState(seed), 4000, 8, device=r.device)[::2], "dist"),
+    ]
+
+    # linalg
+    cases += [
+        ("linalg.gemm", lambda r: linalg.gemm(r, ai, bi, alpha=2.0, beta=0.5,
+                                              c=ci), EX),
+        ("linalg.gemm(trans)", lambda r: linalg.gemm(
+            r, ai.T, bi.T, trans_a=True, trans_b=True), EX),
+        ("linalg.gemv", lambda r: linalg.gemv(r, ai, vec16, beta=1.0,
+                                              y=vec24), EX),
+        ("linalg.axpy", lambda r: linalg.axpy(r, 2.0, ai, ai), EX),
+        ("linalg.dot", lambda r: linalg.dot(r, vec16, vec16), EX),
+        ("linalg.elementwise", lambda r: [
+            linalg.add(r, af, bf), linalg.subtract(r, af, bf),
+            linalg.multiply(r, af, bf), linalg.divide(r, af, pos),
+            linalg.power(r, pos, 1.5), linalg.sqrt(r, pos),
+            linalg.scalar_add(r, af, 2.0), linalg.scalar_multiply(r, af, 3.0),
+            linalg.transpose(r, af),
+            linalg.unary_op(r, af, torch.abs),
+            linalg.binary_op(r, af, bf, torch.maximum),
+            linalg.ternary_op(r, af, bf, pos, lambda a, b, c: a * b + c),
+            linalg.map(r, lambda a, b: a - b, af, bf),
+            linalg.map_offset(r, (4, 6), lambda i: i * 2,
+                              dtype=torch.int32)], F),
+        ("linalg.matrix_vector_op", lambda r: [
+            linalg.matrix_vector_op(r, ai, vec16, torch.add),
+            linalg.matrix_vector_op(r, ai, vec24, torch.mul,
+                                    along_rows=False)], EX),
+        ("linalg.reductions", lambda r: [
+            linalg.reduce(r, ai, reduce_op=torch.amax, init=0.0),
+            linalg.coalesced_reduction(r, ai),
+            linalg.strided_reduction(r, ai),
+            linalg.map_reduce(r, ai, lambda v: v * v),
+            linalg.mean_squared_error(r, ai, ai[::-1].copy()),
+            linalg.reduce_rows_by_key(r, ai, keys24, 5),
+            linalg.reduce_cols_by_key(r, ai, keys16, 4)]
+         + [linalg.norm(r, ai, t, along_rows=ax)
+            for t in (linalg.L1Norm, linalg.L2Norm, linalg.LinfNorm)
+            for ax in (True, False)], EX),
+        ("linalg.normalize", lambda r: [linalg.normalize(r, af, t) for t in (
+            linalg.L1Norm, linalg.L2Norm, linalg.LinfNorm)], F),
+        ("linalg.eig_dc", lambda r: linalg.eig_dc(r, spd), "sign"),
+        ("linalg.eig_jacobi", lambda r: linalg.eig_jacobi(r, spd), "sign"),
+        ("linalg.svd", lambda r: linalg.svd(r, af), "sign"),
+        ("linalg.qr", lambda r: [m.T if m.shape[0] == m.shape[1] else m
+                                 for m in linalg.qr(r, af)], "sign"),
+        ("linalg.rsvd", lambda r: linalg.rsvd(r, ai @ bi, 4, key=seed)[1],
+         P),
+        ("linalg.lstsq", lambda r: linalg.lstsq(r, af, af @ vec16), P),
+        ("linalg.cholesky_rank_one_update", lambda r:
+         linalg.cholesky_rank_one_update(r, chol, vec16), P),
+        ("linalg.lanczos_smallest", lambda r: linalg.lanczos_smallest(
+            r, CSR.from_dense(graph, device=r.device), 4, seed=seed)[0], P),
+    ]
+
+    # matrix ops (tensors on the device; eye takes device=)
+    cases += [
+        ("matrix.ops", lambda r: [
+            matrix.gather(T(r, ai), T(r, keys24)),
+            matrix.gather_if(T(r, ai), T(r, keys24), T(r, keys24),
+                             lambda s: s > 1),
+            matrix.scatter(T(r, ai), T(r, np.array([3, 1])), T(r, ai[:2])),
+            matrix.slice(T(r, ai), (2, 9), (1, 5)),
+            matrix.argmax(T(r, ai)), matrix.argmin(T(r, ai), 0),
+            matrix.col_sort(T(r, ai)), matrix.col_sort(T(r, ai), T(r, af)),
+            matrix.copy(T(r, ai)), matrix.diagonal(T(r, ai)),
+            matrix.set_diagonal(T(r, ai), T(r, vec16)),
+            matrix.eye(5, device=r.device), matrix.fill(T(r, ai), 2.0),
+            matrix.l2_norm(T(r, ai)),
+            matrix.linewise_op(T(r, ai), T(r, vec16), True, torch.add),
+            matrix.power(T(r, ai), 2.0), matrix.ratio(T(r, pos)),
+            matrix.reciprocal(T(r, ai), 1.0, 0.5),
+            matrix.reverse(T(r, ai)), matrix.sign_flip(T(r, ai)),
+            matrix.sqrt(T(r, pos)), matrix.threshold(T(r, ai), 2.0),
+            matrix.zero_small_values(T(r, af), 0.5),
+            matrix.triangular_upper(T(r, ai)),
+            matrix.triangular_lower(T(r, ai))], F),
+    ]
+
+    def printed(r):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            matrix.matrix_print(T(r, ai), "m")
+        return np.array(buf.getvalue())
+
+    cases.append(("matrix.matrix_print", printed, EX))
+
+    # label and stats
+    cases += [
+        ("label", lambda r: [
+            label.get_unique_labels(r, lab_a * 3),
+            label.make_monotonic(r, lab_a * 3), label.ovr_labels(r, lab_a, 2),
+            label.merge_labels(r, lab_a, lab_b)], EX),
+        ("stats.summary", lambda r: [
+            stats.mean(r, af), stats.mean(r, af, along_rows=True),
+            stats.sum_stat(r, af), stats.var(r, af), stats.stddev(r, af),
+            stats.meanvar(r, af), stats.mean_center(r, af),
+            stats.cov(r, af), stats.minmax(r, af),
+            stats.weighted_mean(r, af, pos[0]),
+            stats.weighted_mean(r, af, pos[:, 0], along_rows=False),
+            stats.regression_metrics(r, af, bf)], P),
+        ("stats.histogram", lambda r: [stats.histogram(r, ai, 5),
+                                       stats.histogram(r, af, 7, lo=-1.0,
+                                                       hi=1.0)], EX),
+        ("stats.labelings", lambda r: [
+            stats.contingency_matrix(r, lab_a, lab_b),
+            stats.accuracy(r, lab_a, lab_b), stats.rand_index(r, lab_a, lab_b),
+            stats.adjusted_rand_index(r, lab_a, lab_b),
+            stats.mutual_info_score(r, lab_a, lab_b),
+            stats.homogeneity_score(r, lab_a, lab_b),
+            stats.completeness_score(r, lab_a, lab_b),
+            stats.v_measure(r, lab_a, lab_b), stats.entropy(r, lab_a, 4)],
+         F),
+        ("stats.scores", lambda r: [
+            stats.r2_score(r, af[:, 0], bf[:, 0]),
+            stats.kl_divergence(r, pos[0] / pos[0].sum(),
+                                pos[1] / pos[1].sum()),
+            stats.silhouette_score(r, blobs, blob_lab, tile=50),
+            stats.trustworthiness(r, blobs, blobs[:, :2], 5),
+            stats.trustworthiness_score(r, blobs, blobs[:, :3], 5),
+            stats.information_criterion(r, np.array([-100.0, -50.0],
+                                                    np.float32),
+                                        ICType.BIC, 3, 50),
+            stats.dispersion(r, af[:4], keys24[:4] + 1)], P),
+    ]
+
+    # sparse
+    def coo_of(r):
+        return COO.from_numpy(coo_rows, coo_cols, coo_vals, (3, 2),
+                              device=r.device)
+
+    cases += [
+        ("sparse.types_convert", lambda r: [
+            csr(r, dense_s), csr(r, dense_s).row_ids(),
+            csr(r, dense_s).to_dense(), COO.from_dense(dense_s, nnz=600,
+                                                       device=r.device),
+            convert.coo_to_csr(COO.from_dense(dense_s, nnz=600,
+                                              device=r.device)),
+            convert.csr_to_coo(csr(r, dense_s)),
+            convert.dense_to_csr(dense_s, device=r.device),
+            convert.dense_to_coo(dense_s, device=r.device),
+            convert.csr_to_dense(csr(r, dense_s)),
+            convert.coo_to_dense(coo_of(r)),
+            CSR.from_numpy(**csr(r, dense_s).to_numpy(), device=r.device),
+            COO.from_numpy(**coo_of(r).to_numpy(), device=r.device)], EX),
+        ("sparse.ops", lambda r: [
+            ops.coo_sort(coo_of(r)), ops.sum_duplicates(coo_of(r)),
+            ops.max_duplicates(coo_of(r)), ops.remove_scalar(coo_of(r), 7.0),
+            ops.remove_zeros(coo_of(r)), ops.degree(coo_of(r)),
+            ops.row_slice(csr(r, dense_s), 4, 19),
+            ops.csr_row_op(csr(r, dense_s), lambda i, v: v * 2)], EX),
+        ("sparse.linalg", lambda r: [
+            slin.spmm(csr(r, dense_s), T(r, dense_t)),
+            slin.spmv(csr(r, dense_s), T(r, dense_t[:, 0])),
+            slin.spgemm(csr(r, dense_s), csr(r, dense_t)),
+            slin.row_norm_csr(csr(r, dense_s), "linf"),
+            slin.transpose(csr(r, dense_s)),
+            slin.add(csr(r, dense_s), csr(r, dense_s[::-1].copy())),
+            slin.coo_symmetrize(convert.csr_to_coo(csr(r, graph))),
+            slin.laplacian(csr(r, graph), normalized=False)], EX),
+        ("sparse.linalg(float)", lambda r: [
+            slin.csr_row_normalize(csr(r, dense_s), "l2"),
+            slin.laplacian(csr(r, graph))], F),
+        ("sparse.distance", lambda r: [
+            sdist.pairwise_distance(r, csr(r, dense_s), csr(r, dense_s[:9]),
+                                    DistanceType.L1, tile=8),
+            sdist.pairwise_distance(r, csr(r, dense_s), csr(r, dense_s[:9]),
+                                    DistanceType.L2Expanded, tile=8,
+                                    col_tile=6)], EX),
+        ("sparse.neighbors", lambda r: [
+            neighbors.knn_graph(r, blobs, 5, DistanceType.L2Expanded),
+            neighbors.cross_component_nn(r, blobs, blob_lab % 2,
+                                         DistanceType.L2Expanded)], EX),
+        ("sparse.solver.mst", lambda r: solver.mst(r, csr(r, graph)), EX),
+        ("cluster.single_linkage", lambda r: single_linkage(
+            r, blobs, 4, metric=DistanceType.L2Expanded, k=5), EX),
+    ]
+
+    # spectral and the solver on tiny inputs
+    def emb(r):
+        ev, e = spectral.fit_embedding(r, csr(r, cliques), 2, seed=seed)
+        return [ev, e]
+
+    def parts(r):
+        lab, ev, _ = spectral.partition(r, csr(r, cliques), 2, seed=seed)
+        mlab, mev, _ = spectral.modularity_maximization(r, csr(r, cliques), 2,
+                                                        seed=seed)
+        halves = np.repeat(np.arange(2), 10)
+        return [np.array(_same_partition(_host(lab), halves)),
+                np.array(_same_partition(_host(mlab), halves)), ev, mev,
+                spectral.modularity(r, csr(r, cliques), halves),
+                spectral.analyze_partition(r, csr(r, cliques), halves)]
+
+    def lap(r):
+        a, t = linear_assignment(r, cost)
+        obj = LinearAssignmentProblem(r, 24, 2)
+        return [a, t, obj.solve(np.stack([cost, cost.T]))]
+
+    cases += [("spectral.fit_embedding", emb, "sign"),
+              ("spectral.partition_modularity", parts, P),
+              ("solver.linear_assignment", lap, EX)]
+    return cases
+
+
+def prims_sweep(torch, seed: int, device) -> dict:
+    """Every case of :func:`sweep_cases` on ``device`` against the same
+    call on the CPU."""
+    from raft_tpu_torch import Resources
+
+    res = Resources(device=device, seed=seed)
+    cpu = Resources(device="cpu", seed=seed)
+    out = {}
+    t0 = time.perf_counter()
+    for name, fn, tol in sweep_cases(torch, seed):
+        out[name] = sweep_equal(torch, name, fn(res), fn(cpu), tol,
+                                res.device)
+    return dict(cases=len(out), seconds=time.perf_counter() - t0,
+                worst={k: v for k, v in out.items() if v})
+
+
+def prims_blobs_1m(torch, seed: int) -> dict:
+    """make_blobs at 1,000,000 x 128 on the card, with stats.cov and
+    stats.meanvar on it against float64 numpy of the same rows."""
+    from raft_tpu_torch import Resources, random, stats
+
+    res = Resources(device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, y, centers = random.make_blobs(random.RngState(seed + 1), BLOBS_1M,
+                                      PRIMS_DIM, n_clusters=PRIMS_BLOBS,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    blobs_s = time.perf_counter() - t0
+    cov = stats.cov(res, x).cpu().numpy().astype(np.float64)
+    mu, var = (t.cpu().numpy().astype(np.float64)
+               for t in stats.meanvar(res, x))
+    xh = x.cpu().numpy().astype(np.float64)
+    del x
+    mu64 = xh.mean(axis=0)
+    xh -= mu64
+    cov64 = (xh.T @ xh) / (BLOBS_1M - 1)
+    var64 = np.diagonal(cov64)
+    scale = float(np.abs(cov64).max())
+    cov_err = float(np.abs(cov - cov64).max()) / scale
+    mu_err = float(np.abs(mu - mu64).max()) / max(1.0, float(
+        np.abs(mu64).max()))
+    var_err = float(np.abs(var - var64).max()) / scale
+    if cov_err > 1e-4 or mu_err > 1e-5 or var_err > 1e-4:
+        fail(f"prims: stats.cov/meanvar of the 1M blobs off float64 by "
+             f"{cov_err:.3g} / {mu_err:.3g} / {var_err:.3g}")
+    if y.device.type != "cuda" or int(y.max()) != PRIMS_BLOBS - 1:
+        fail("prims: make_blobs' labels are malformed")
+    log(f"[prims] make_blobs {BLOBS_1M} x {PRIMS_DIM} on the card in "
+        f"{blobs_s:.3f} s; stats.cov within {cov_err:.2e} and "
+        f"stats.meanvar within {mu_err:.2e} / {var_err:.2e} of float64 "
+        "numpy (of max |cov|, max(1, max |mean|))")
+    return dict(seconds=blobs_s, cov_err=cov_err, mean_err=mu_err,
+                var_err=var_err)
+
+
+def phase_prims(torch, seed: int, state: dict) -> None:
+    """The primitives on the card (the module docstring, phase 14)."""
+    from raft_tpu_torch import Resources, random
+
+    res = Resources(device="cuda", seed=seed)
+    out = {"card": state.get("card")}
+    x, y, _ = random.make_blobs(random.RngState(seed), PRIMS_ROWS, PRIMS_DIM,
+                                n_clusters=PRIMS_BLOBS, device="cuda")
+    log(f"[prims] make_blobs {PRIMS_ROWS} x {PRIMS_DIM} float32, "
+        f"{PRIMS_BLOBS} blobs (cluster_std 1.0, center_box (-10, 10)); the "
+        f"rows are a cut from 1M for the time limit")
+    sl = prims_single_linkage(torch, res, x, y, PRIMS_BLOBS, PRIMS_K, state)
+    out["single_linkage"] = sl["rec"]
+    out["spectral"] = prims_spectral(torch, res, sl["graph"], y,
+                                     PRIMS_BLOBS, seed)
+    del sl, x
+    out["lap"] = prims_lap(torch, res, seed, LAP_N)
+    out["sparse_knn"] = prims_sparse_knn(torch, res, seed, **SPLADE)
+    out["blobs_1m"] = prims_blobs_1m(torch, seed)
+    out["sweep"] = prims_sweep(torch, seed, "cuda")
+    log(f"[prims] sweep: {out['sweep']['cases']} cases of the primitive "
+        f"modules' other public functions on the card equal their CPU runs "
+        f"(integer data exactly; float32 within rtol/atol 1e-5 elementwise, "
+        f"1e-4 for products and solvers; eigen- and singular vectors up to "
+        f"sign; random draws by their moments within 5 standard errors) in "
+        f"{out['sweep']['seconds']:.2f} s; largest differences "
+        f"{out['sweep']['worst']}")
+    path = os.path.join("chiprun_out", "prims.json")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    log(f"[prims] {state.get('card')}: results in {path}")
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
@@ -6114,7 +7113,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="env,build,kernels,main,serve,ragged,"
                             "distance,pq,stream,dist,meshserve,observe,"
-                            "fleet,times")
+                            "fleet,prims,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -6173,6 +7172,8 @@ def main() -> int:
             timed("observe", phase_observe, torch, state)
     if "fleet" in phases and "index" in state:
         timed("fleet", phase_fleet, torch, state)
+    if "prims" in phases:
+        timed("prims", phase_prims, torch, args.seed, state)
     if "main" in phases:
         if "times" in phases:
             records = timed("times", phase_times, torch, state)

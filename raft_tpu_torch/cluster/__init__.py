@@ -1,9 +1,13 @@
-"""Clustering (reference ``raft/cluster/``): Lloyd's k-means and balanced
-k-means."""
+"""Clustering (reference ``raft/cluster/``): Lloyd's k-means, balanced
+k-means and single-linkage."""
 
 from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.cluster.kmeans import InitMethod, KMeansParams
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.cluster.single_linkage import (
+    SingleLinkageOutput,
+    single_linkage,
+)
 
 __all__ = [
     "kmeans",
@@ -11,4 +15,6 @@ __all__ = [
     "KMeansParams",
     "InitMethod",
     "KMeansBalancedParams",
+    "SingleLinkageOutput",
+    "single_linkage",
 ]

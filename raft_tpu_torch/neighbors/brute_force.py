@@ -137,6 +137,10 @@ def _fused_entry_fn(queries: torch.Tensor, dataset: torch.Tensor,
     return fused_knn(queries, dataset, k, metric, dataset_norms=norms)
 
 
+#: the largest query block the fused route takes
+FUSED_MAX_QUERIES = 512
+
+
 def _use_fused_kernel(metric: DistanceType, k: int, q: int,
                       device: torch.device) -> bool:
     """Dispatch to the CUDA fused kernel (role of the reference's
@@ -146,7 +150,7 @@ def _use_fused_kernel(metric: DistanceType, k: int, q: int,
     from raft_tpu_torch.ops.fused_topk import _SUPPORTED_METRICS
 
     return (device.type == "cuda" and metric in _SUPPORTED_METRICS
-            and k <= 64 and q <= 512)
+            and k <= 64 and q <= FUSED_MAX_QUERIES)
 
 
 def serving_plan(res: Resources, index: BruteForceIndex, k: int,
@@ -186,12 +190,17 @@ def search(
     similarities sorted descending (``is_min_close`` semantics).
     ``approx`` is the JAX package's switch to the TPU's approximate top-k
     unit; the GPU has no such unit, so ``approx=True`` runs the same exact
-    selection and returns the same results."""
+    selection and returns the same results. Where the fused kernel takes
+    the metric and k on the index's device, queries run in blocks of at
+    most :data:`FUSED_MAX_QUERIES` rows, so every block takes it."""
     del approx
     res = ensure_resources(res)
     queries = res.put(queries)
     expect(queries.ndim == 2, "queries must be (q, d)")
     expect(queries.shape[1] == index.dim, "query dim mismatch")
+    if _use_fused_kernel(index.metric, k, FUSED_MAX_QUERIES,
+                         index.dataset.device):
+        query_tile = min(query_tile, FUSED_MAX_QUERIES)
     fn, arrays, static = serving_plan(
         res, index, k, min(queries.shape[0], query_tile), db_tile)
     if index.dataset.dtype == torch.bfloat16:

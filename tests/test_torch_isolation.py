@@ -74,7 +74,12 @@ def test_import_leaves_jax_unloaded():
             "raft_tpu_torch.distributed.knn, "
             "raft_tpu_torch.distributed.kmeans, "
             "raft_tpu_torch.distributed.sharded_ann, "
-            "raft_tpu_torch.distributed.checkpoint; "
+            "raft_tpu_torch.distributed.checkpoint, raft_tpu_torch.random, "
+            "raft_tpu_torch.linalg, raft_tpu_torch.matrix, "
+            "raft_tpu_torch.label, raft_tpu_torch.stats, "
+            "raft_tpu_torch.sparse, raft_tpu_torch.spectral, "
+            "raft_tpu_torch.solver, raft_tpu_torch.core.logger, "
+            "raft_tpu_torch.core.operators; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'raft_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -166,4 +166,4 @@ def test_cluster_exports_mirror_reference():
     import raft_tpu_torch.cluster as tc
 
     missing = set(jc.__all__) - set(tc.__all__)
-    assert missing == {"SingleLinkageOutput", "single_linkage"}
+    assert missing == set()
