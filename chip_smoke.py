@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases env,build,kernels,main,serve,ragged,distance,pq,stream,
-                  dist,meshserve,observe,fleet,prims,times]
+                  dist,meshserve,observe,fleet,prims,bench,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
 request of each kind; it is not in the default run)
@@ -105,8 +105,8 @@ non-zero exit (nothing is caught and passed over):
             the same four searches (recall@10, median ms, rows
             reranked as a share of rows probed), the requests then
             held against the plain scan on distances, ids and rows
-            reranked (at batch 10 every other of 100, at batch 500 every
-            fifth of 20, spread over the queries: cuts for the time limit);
+            reranked (at batch 10 every fourth of 100, at batch 500 every
+            tenth of 20, spread over the queries: cuts for the time limit);
             n_probes=1024 recall on 1,000 queries; save -> load -> search bit-identical; and
             matrix.select_k(k=10) over a (64, 1,000,000) slab of squared
             distances equals brute force's ids, ties aside. Tiered IVF-BQ
@@ -389,7 +389,44 @@ non-zero exit (nothing is caught and passed over):
             rtol/atol 1e-5 elementwise and 1e-4 for products and solvers,
             eigen- and singular vectors up to sign, random draws by their
             moments). Its numbers go to chiprun_out/prims.json.
-15. times   per kernel at the main path's shapes: kernel ms (CUDA
+15. bench   the ANN benchmark harness (alone with --phases env,build,bench;
+            it makes its own data from --seed) through its CLI's own code
+            path (raft_tpu_torch.bench.__main__.main) in a temporary
+            directory: get-dataset blobs 100,000 x 128, 1,000 queries,
+            k 100, euclidean, on the card (the bundled config
+            blobs-100000-128's own shape), its ground truth held for 100
+            sampled queries against float64 numpy on base.fbin (ids equal
+            but at float64 ties, distances within 1e-4 (1 + |d|)); run
+            --config blobs-100000-128 -k 10 at batch 1,000 over
+            raft_brute_force, raft_ivf_flat, raft_ivf_pq, raft_ivf_bq,
+            raft_cagra, raft_quantized and ivf_flat_cpu, every search entry
+            of the config, then at batch 10 (one timed pass) over
+            raft_ivf_flat and raft_cagra; a second run with
+            --require-cached-index over raft_ivf_flat, raft_ivf_pq and
+            raft_cagra (every row build_cached, recall equal to the first
+            run's); hnswlib on its own 10,000-row tree with 500 queries
+            (a cut: its build and searches are one host thread); data-export, and plot where matplotlib
+            imports. The runs' launches are counted (fused_knn, the IVF
+            scan, ivf_pq_scan, bq_scan and the beam walk must launch) and
+            add to the kernels line's. Then, on the sweep's own indexes
+            (the runner's cache files), one search at the sweep's
+            parameters against the plain engine: brute force's two
+            fused_knn blocks (512 and 488 rows; L2Sqrt, k 10) against
+            fused_knn_plain within the kernels phase's tolerance;
+            IVF-Flat at n_probes 256 = n_lists against brute force (ids
+            equal but at float64 ties); IVF-PQ at n_probes 128 without and
+            with refine_ratio 2.0, IVF-BQ bits 2 at n_probes 64 (80
+            candidates, refine_ratio 8.0: ids, distances and rows
+            reranked) and CAGRA at itopk 256 and at itopk 128 with
+            seed_pool 2048 (the first 256-row query tile's walk: ids,
+            distances and counts), each bit for bit.
+            Then run_prims("small", budget_s=0.5) on the card (its
+            launches counted and added too; any record with "error"
+            fails), and each prim that launches a kernel (fused_knn f32
+            and bf16, ivf_flat_search, select_k_pallas, stream_read_*)
+            held once against its plain version at the prim's shape. Its
+            numbers go to chiprun_out/bench.json.
+16. times   per kernel at the main path's shapes: kernel ms (CUDA
             events, median after warm-up), its plain version's ms, the
             bound (the larger of bytes over 3.35 TB/s, host-link bytes
             over 64 GB/s (PCIe Gen5 x16, one direction), and operations
@@ -408,7 +445,7 @@ non-zero exit (nothing is caught and passed over):
             same rows in bfloat16 (bf16 products at 989.4 TFLOP/s); the
             redesigned kernels print their earlier design's times beside
             theirs.
-16. profile (not in the default run) torch.profiler over five requests
+17. profile (not in the default run) torch.profiler over five requests
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
@@ -1854,10 +1891,11 @@ def main_bq(torch, state: dict) -> None:
     main_cagra(torch, state)
 
 
-#: IVF-BQ requests held against the plain scan, by batch: every other of
-#: the 100 timed at batch 10 (50 over the 1,000 queries), every fifth of
-#: the 20 at batch 500 (4 over the 10,000)
-BQ_PLAIN_STRIDE = {10: 2, 500: 5}
+#: IVF-BQ requests held against the plain scan, by batch: every fourth of
+#: the 100 timed at batch 10 (25 over the 1,000 queries), every tenth of
+#: the 20 at batch 500 (2 over the 10,000); halved from 50 and 4 for the
+#: time limit when the bench phase joined the default run
+BQ_PLAIN_STRIDE = {10: 4, 500: 10}
 #: tiered IVF-BQ requests (n_probes, batch, requests): the plain fused
 #: engine runs them (~4 s at (128, 500)), so three of each small one and
 #: one at 500, a cut for the time limit
@@ -7083,6 +7121,421 @@ def phase_prims(torch, seed: int, state: dict) -> None:
     log(f"[prims] {state.get('card')}: results in {path}")
 
 
+# bench: the ANN benchmark harness through its CLI on blobs-100000-128 (the
+# bundled config's own shape, nothing cut), hnswlib on a 10,000-row tree
+BENCH_N, BENCH_DIM, BENCH_QUERIES, BENCH_GT_K = 100_000, 128, 1000, 100
+BENCH_HNSW_N = 10_000     # a cut: the hnswlib build is one host thread
+BENCH_HNSW_QUERIES = 500  # a cut: its searches are one host thread too
+BENCH_CONFIG = "blobs-100000-128"
+BENCH_ALGOS = ("raft_brute_force", "raft_ivf_flat", "raft_ivf_pq",
+               "raft_ivf_bq", "raft_cagra", "raft_quantized", "ivf_flat_cpu")
+BENCH_LATENCY_ALGOS = ("raft_ivf_flat", "raft_cagra")
+BENCH_CACHED_ALGOS = ("raft_ivf_flat", "raft_ivf_pq", "raft_cagra")
+BENCH_KERNELS = ("fused_knn", "list_major_scan", "ivf_pq_scan", "bq_scan",
+                 "beam_search")
+BENCH_PRIM_KERNELS = ("fused_knn", "list_major_scan", "select_k",
+                      "stream_read_sum")
+BENCH_GT_SAMPLE = 100
+
+
+def bench_config() -> dict:
+    """BENCH_CONFIG's entries: a bundled config's name, or a file."""
+    path = BENCH_CONFIG
+    if not os.path.exists(path):
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "raft_tpu_torch", "bench", "conf",
+                            f"{BENCH_CONFIG}.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+def bench_cli(argv) -> list:
+    """``raft_tpu_torch.bench.__main__.main(argv)``, its stdout (the rows
+    it prints) captured so no JSON line of its own reaches ours; returns
+    the printed lines."""
+    import importlib
+
+    cli = importlib.import_module("raft_tpu_torch.bench.__main__").main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    if rc != 0:
+        fail(f"bench: {' '.join(argv[:1])} returned {rc}")
+    return buf.getvalue().splitlines()
+
+
+def bench_rows(lines) -> list:
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def bench_groundtruth(torch, tree: str, seed: int) -> dict:
+    """The dataset's ground truth for BENCH_GT_SAMPLE sampled queries
+    against float64 numpy on base.fbin: ids equal but at float64 ties (two
+    ids whose float64 distances are within the tolerance), distances
+    within 1e-4 (1 + |d|)."""
+    from raft_tpu_torch.io import read_bin
+
+    base = read_bin(os.path.join(tree, "base.fbin")).astype(np.float64)
+    queries = read_bin(os.path.join(tree, "query.fbin")).astype(np.float64)
+    gi = read_bin(os.path.join(tree, "groundtruth.neighbors.ibin"))
+    gd = read_bin(os.path.join(tree, "groundtruth.distances.fbin"))
+    if gi.shape[0] != queries.shape[0] or gd.shape != gi.shape:
+        fail(f"bench: ground truth shape {gi.shape}")
+    k = gi.shape[1]
+    rows = np.random.default_rng(seed).choice(
+        queries.shape[0], min(BENCH_GT_SAMPLE, queries.shape[0]),
+        replace=False)
+    # the sampled queries' squared distances to every row in one product
+    d2 = ((base * base).sum(axis=1)[:, None] - 2.0 * base @ queries[rows].T
+          + (queries[rows] ** 2).sum(axis=1)[None])
+    err = 0.0
+    ties = 0
+    for j, r in enumerate(rows):
+        d64 = np.sqrt(np.maximum(d2[:, j], 0.0))
+        part = np.argpartition(d64, k)[:k + 1]
+        want = part[np.argsort(d64[part], kind="stable")][:k]
+        tol = 1e-4 * (1.0 + np.abs(d64[want]))
+        got_d = gd[r].astype(np.float64)
+        e = np.abs(got_d - d64[gi[r]])
+        if bool((e > tol).any()):
+            fail(f"bench: ground truth of query {r}: distance off float64 by "
+                 f"{e.max():.3g}")
+        other = gi[r] != want
+        if bool((np.abs(d64[gi[r]] - d64[want]) > tol)[other].any()):
+            fail(f"bench: ground truth of query {r}: ids differ from float64 "
+                 "beyond ties")
+        ties += int(other.sum())
+        err = max(err, float(e.max()))
+    return dict(sampled=len(rows), k=k, max_abs_err=err, ties=ties)
+
+
+def bench_kernel_checks(torch, tree: str, results: str) -> dict:
+    """One search of each kernel-backed family at the sweep's parameters
+    (BENCH_CONFIG's entries), on the sweep's own index (the runner's cache
+    file under ``results``; brute force's is its norms), against the plain
+    engine on the same index, over every query of ``tree``."""
+    from raft_tpu_torch import Resources
+    from raft_tpu_torch.bench.datasets import METRICS
+    from raft_tpu_torch.bench.runner import _index_cache_key
+    from raft_tpu_torch.io import read_bin
+    from raft_tpu_torch.neighbors import (
+        brute_force,
+        cagra,
+        ivf_bq,
+        ivf_flat,
+        ivf_pq,
+    )
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops.beam_search import beam_search, beam_search_plain
+    from raft_tpu_torch.ops.fused_topk import fused_knn, fused_knn_plain
+
+    res = Resources(device="cuda")
+    cfg = {a["name"]: a for a in bench_config()["algos"]}
+    base = res.put(read_bin(os.path.join(tree, "base.fbin")))
+    queries = res.put(read_bin(os.path.join(tree, "query.fbin")))
+    metric = METRICS["euclidean"]
+    name = os.path.basename(tree)
+    nq = queries.shape[0]
+
+    def cached(algo):
+        key = _index_cache_key(algo, name, base.shape[0], base.shape[1],
+                               "euclidean", cfg[algo]["build"])
+        path = os.path.join(results, "indexes", f"{key}.bin")
+        if not os.path.exists(path):
+            fail(f"bench: no cache file for {algo} ({path})")
+        return path
+
+    out = {}
+    t0 = time.perf_counter()
+    bf = brute_force.build(res, base, metric)
+    blocks = []
+    for s in range(0, nq, brute_force.FUSED_MAX_QUERIES):
+        q = queries[s:s + brute_force.FUSED_MAX_QUERIES]
+        blocks.append(compare(
+            f"bench brute force block {s}", fused_knn(
+                q, bf.dataset, K, metric, dataset_norms=bf.norms),
+            fused_knn_plain(q, bf.dataset, K, metric,
+                            dataset_norms=bf.norms), exact_ids=False))
+    out["fused_knn"] = max(blocks)
+    bf_d, bf_i = brute_force.search(res, bf, queries, K)
+
+    flat = ivf_flat.load(res, cached("raft_ivf_flat"))
+    n_lists = flat.n_lists
+    fd, fi = ivf_flat.search(res, ivf_flat.IvfFlatSearchParams(
+        n_probes=n_lists), flat, queries, K)
+    torch.cuda.synchronize()
+    x64 = base.double()
+    q64 = queries.double()
+
+    def d64(ids):
+        return (x64[ids.long()] - q64[:, None]).norm(dim=2)
+
+    tol = 1e-4 * (1.0 + bf_d.double().abs())
+    other = fi != bf_i
+    if bool(((d64(fi) - d64(bf_i)).abs() > tol)[other].any()):
+        fail(f"bench: IVF-Flat at n_probes {n_lists} = n_lists differs from "
+             f"brute force in {int(other.sum())} ids beyond float64 ties")
+    if bool(((fd - bf_d).abs() > 1e-4 * (1.0 + bf_d.abs())).any()):
+        fail("bench: IVF-Flat at n_probes = n_lists: distances off brute "
+             "force beyond 1e-4 (1 + |d|)")
+    out["list_major_scan"] = float((fd - bf_d).abs().max())
+    out["ivf_flat_ties"] = int(other.sum())
+
+    pq = ivf_pq.load(res, cached("raft_ivf_pq"))
+    for ratio in (1.0, 2.0):
+        k0 = max(K, int(K * ratio))
+        got = pq_body(pq, queries, 128, "cuda", k0)
+        want = pq_body(pq, queries, 128, "torch", k0)
+        pq_equal(torch, f"bench ivf_pq n_probes 128 refine {ratio}", got,
+                 want)
+        if ratio > 1.0:
+            got = refine(res, base, queries, got[1], K, metric)
+            want = refine(res, base, queries, want[1], K, metric)
+            pq_equal(torch, "bench ivf_pq refined", got, want)
+    out["ivf_pq_scan"] = 0.0
+
+    bq = ivf_bq.load(res, cached("raft_ivf_bq"))
+    if bq.bits != 2:
+        fail(f"bench: the IVF-BQ cache holds bits {bq.bits}, not 2")
+    k0 = int(K * 8.0)
+    runs = []
+    for engine in ("cuda", "torch"):
+        _, arrays, static = ivf_bq.serving_plan(ivf_bq.IvfBqSearchParams(
+            n_probes=64, scan_engine=engine), bq, k0)
+        runs.append(ivf_bq._search_arrays(queries, *arrays, None,
+                                          **static)[:3])
+    out["bq_scan"] = bq_equal("bench ivf_bq bits 2 n_probes 64", *runs)
+
+    cg = cagra.load(res, cached("raft_cagra"))
+    errs = []
+    for kw in (dict(itopk_size=256), dict(itopk_size=128, seed_pool=2048)):
+        # the walk of the search's first query tile (a cut for the time
+        # limit: the plain walk takes ~1 s a tile)
+        sp = cagra.CagraSearchParams(**kw)
+        args, bkw = cagra.beam_search_args(sp, cg, queries[:sp.query_tile], K)
+        errs.append(beam_equal(f"bench cagra {kw}", beam_search(
+            *args, **bkw), beam_search_plain(*args, **bkw)))
+    out["beam_search"] = max(errs)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def bench_prims(torch) -> dict:
+    """run_prims("small") on the card, its launches counted; then each prim
+    that launches a kernel held once against its plain version at the
+    prim's own shape."""
+    from raft_tpu_torch.bench import prims as bprims
+    from raft_tpu_torch.matrix.select_k import SelectAlgo, select_k
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops.fused_topk import (
+        fused_knn,
+        fused_knn_plain,
+        select_k_tiles,
+        select_k_tiles_plain,
+        stream_read_sum,
+        stream_read_sum_plain,
+    )
+
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        recs = bprims.run_prims("small", budget_s=0.5, device="cuda")
+    secs = time.perf_counter() - t0
+    launches = read_launches(BENCH_PRIM_KERNELS, "bench prims")
+    bad = [r for r in recs if "error" in r]
+    if bad or [r["prim"] for r in recs] != bprims.names():
+        fail(f"bench: prims records with errors or missing: {bad}")
+
+    dev = torch.device("cuda")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qs, ds, norms, k = bprims.fused_knn_inputs("small", dev, dtype)
+        errs[f"fused_knn_{str(dtype)[6:]}"] = compare(
+            f"bench prims fused_knn {dtype}",
+            fused_knn(qs, ds, k, dataset_norms=norms),
+            fused_knn_plain(qs, ds, k, dataset_norms=norms), exact_ids=False)
+    v, _, _, k = bprims._select_values("small", dev)
+    got = select_k_tiles(v, k)
+    want = select_k_tiles_plain(v, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("bench prims select_k_pallas differs from its plain version")
+    if not torch.equal(want[0], select_k(None, v, k,
+                                         algo=SelectAlgo.TOPK)[0]):
+        fail("bench prims select_k: the TOPK route's values differ")
+    errs["select_k"] = 0.0
+    res, idx, qs, sp, _ = bprims.ivf_flat_inputs("small", dev)
+    got = ivf_flat.search(res, sp, idx, qs, 10)
+    want = ivf_flat.search(res, ivf_flat.IvfFlatSearchParams(
+        n_probes=sp.n_probes, scan_engine="torch"), idx, qs, 10)
+    errs["ivf_flat_search"] = compare("bench prims ivf_flat_search", got,
+                                      want, exact_ids=False)
+    for seed, size, dtype in ((0, 1 << 18, torch.float32),
+                              (3, 1 << 18, torch.float32),
+                              (0, 1 << 18, torch.bfloat16)):
+        x = bprims._normal(seed, (size, 128), dev, dtype)
+        got, want = stream_read_sum(x), stream_read_sum_plain(x)
+        e = float((got - want).abs().max())
+        if e > 1e-4 * (1.0 + float(want.abs().max())):
+            fail(f"bench prims stream_read {dtype}: {e} off the plain sum")
+        errs[f"stream_read_{str(dtype)[6:]}_{seed}"] = e
+    return dict(records=recs, seconds=secs, launches=launches,
+                max_abs_err=errs)
+
+
+def phase_bench(torch, seed: int, state: dict) -> None:
+    """The ANN benchmark harness on the card (the module docstring,
+    phase 15)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch.bench import hnsw_cpu
+
+    t_phase = time.perf_counter()
+    out = {"card": state.get("card"), "config": BENCH_CONFIG}
+    tmp = tempfile.mkdtemp(prefix="raft_tpu_torch_bench_")
+    try:
+        ds = os.path.join(tmp, "datasets")
+        results = os.path.join(tmp, "results")
+        tree = os.path.join(ds, f"blobs-{BENCH_N}-{BENCH_DIM}")
+        reset_launches()
+        t0 = time.perf_counter()
+        bench_cli(["get-dataset", "--kind", "blobs", "--n", str(BENCH_N),
+                   "--dim", str(BENCH_DIM), "--n-queries", str(BENCH_QUERIES),
+                   "--k", str(BENCH_GT_K), "--metric", "euclidean", "--seed",
+                   str(seed), "--out-dir", ds, "--device", "cuda"])
+        out["get_dataset_s"] = time.perf_counter() - t0
+        log(f"[bench] get-dataset: {out['get_dataset_s']:.2f} s")
+        runs = {}
+
+        def sweep(label, *extra):
+            t1 = time.perf_counter()
+            rows = bench_rows(bench_cli(
+                ["run", "--dataset", tree, "--config", BENCH_CONFIG,
+                 "--out-dir", results, "-k", str(K), "--device", "cuda",
+                 *extra]))
+            # each run's rows in a file of its own, so data-export reads all
+            os.replace(os.path.join(results, "results.jsonl"),
+                       os.path.join(results, f"{label}.jsonl"))
+            runs[label] = rows
+            out[f"{label}_s"] = time.perf_counter() - t1
+            log(f"[bench] run {label}: {len(rows)} rows in "
+                f"{out[label + '_s']:.2f} s")
+            if not rows or any(r["backend"] != "cuda" for r in rows):
+                fail(f"bench: the {label} run gave {len(rows)} rows, or rows "
+                     "of another backend")
+            return rows
+
+        sweep("batch1000", "--algos", ",".join(BENCH_ALGOS))
+        sweep("batch10", "--batch-size", "10", "--search-iters", "1",
+              "--algos", ",".join(BENCH_LATENCY_ALGOS))
+        cached = sweep("cached", "--require-cached-index", "--algos",
+                       ",".join(BENCH_CACHED_ALGOS))
+        first = {(r["algo"], json.dumps(r["search_params"], sort_keys=True)):
+                 r for r in runs["batch1000"]}
+        for r in cached:
+            f = first[r["algo"], json.dumps(r["search_params"],
+                                            sort_keys=True)]
+            if not r["build_cached"] or r["recall"] != f["recall"]:
+                fail(f"bench: cache round trip {r['algo']} "
+                     f"{r['search_params']}: build_cached "
+                     f"{r['build_cached']}, recall {r['recall']} vs "
+                     f"{f['recall']}")
+        if not hnsw_cpu.available():
+            fail(f"bench: hnswlib's native library did not build "
+                 f"({hnsw_cpu._build_error})")
+        t1 = time.perf_counter()
+        bench_cli(["get-dataset", "--kind", "blobs", "--n", str(BENCH_HNSW_N),
+                   "--dim", str(BENCH_DIM), "--n-queries",
+                   str(BENCH_HNSW_QUERIES),
+                   "--k", str(K), "--seed", str(seed), "--out-dir", ds,
+                   "--device", "cuda"])
+        hnsw = bench_rows(bench_cli(
+            ["run", "--dataset", os.path.join(
+                ds, f"blobs-{BENCH_HNSW_N}-{BENCH_DIM}"), "--config",
+             BENCH_CONFIG, "--out-dir", os.path.join(tmp, "hnsw"), "-k",
+             str(K), "--search-iters", "1", "--algos", "hnswlib", "--device",
+             "cuda"]))
+        if len(hnsw) != 6:
+            fail(f"bench: hnswlib gave {len(hnsw)} rows, not 6")
+        shutil.copy(os.path.join(tmp, "hnsw", "results.jsonl"),
+                    os.path.join(results, "hnswlib.jsonl"))
+        runs["hnswlib"] = hnsw
+        out["hnswlib_s"] = time.perf_counter() - t1
+        log(f"[bench] hnswlib on {BENCH_HNSW_N} rows: "
+            f"{out['hnswlib_s']:.2f} s")
+        launches = read_launches(BENCH_KERNELS, "bench")
+
+        csv = bench_cli(["data-export", "--results", results])[-1]
+        n_csv = len(open(csv).read().splitlines()) - 1
+        if n_csv != sum(len(v) for v in runs.values()):
+            fail(f"bench: data-export wrote {n_csv} rows")
+        out["plot_bytes"] = None
+        if importlib.util.find_spec("matplotlib") is None:
+            log("[bench] plot skipped: matplotlib does not import here")
+        else:
+            png = bench_cli(["plot", "--results", results])[-1]
+            out["plot_bytes"] = os.path.getsize(png)
+
+        t1 = time.perf_counter()
+        out["groundtruth"] = bench_groundtruth(torch, tree, seed)
+        out["groundtruth_s"] = time.perf_counter() - t1
+        out["kernel_checks"] = bench_kernel_checks(torch, tree, results)
+        out["kernel_checks_s"] = out["kernel_checks"]["seconds"]
+        log(f"[bench] ground truth check {out['groundtruth_s']:.2f} s, "
+            f"kernel checks {out['kernel_checks_s']:.2f} s")
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out["prims"] = bench_prims(torch)
+        out["prims_s"] = time.perf_counter() - t1
+        for name, c in out["prims"]["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+        total = state.setdefault("launches", {})
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+        out["launches"] = launches
+        out["runs"] = runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    best = {}
+    for r in runs["batch1000"] + runs["hnswlib"]:
+        b = best.get(r["algo"])
+        if b is None or (r["recall"], r["qps"]) > (b["recall"], b["qps"]):
+            best[r["algo"]] = r
+    out["best"] = best
+    for algo, r in best.items():
+        log(f"[bench] {algo}: best recall@{K} {r['recall']} at "
+            f"{r['qps']} QPS ({r['search_params']}, batch "
+            f"{r['batch_size']}), build {r['build_seconds']} s")
+    for r in runs["batch10"]:
+        log(f"[bench] batch 10 {r['algo']} {r['search_params']}: recall "
+            f"{r['recall']}, {r['qps']} QPS")
+    g, kc, pr = out["groundtruth"], out["kernel_checks"], out["prims"]
+    log(f"[bench] ground truth (k {BENCH_GT_K}) against float64 on "
+        f"{g['sampled']} queries: max |dd| {g['max_abs_err']:.3g}, "
+        f"{g['ties']} ids at ties; kernels at the sweep's parameters: "
+        f"fused_knn max |dd| {kc['fused_knn']:.3g}, IVF-Flat at n_probes = "
+        f"n_lists vs brute force {kc['list_major_scan']:.3g} "
+        f"({kc['ivf_flat_ties']} ids at ties), ivf_pq_scan, bq_scan and the "
+        f"beam walk equal bit for bit (max |dd| {kc['ivf_pq_scan']}, "
+        f"{kc['bq_scan']}, {kc['beam_search']}) in {kc['seconds']:.2f} s")
+    log(f"[bench] prims small: {len(pr['records'])} records, no error, "
+        f"{pr['seconds']:.2f} s; kernel prims against their plain versions: "
+        f"{pr['max_abs_err']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[bench] launches {launches}; phase split "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out.items()
+                    if k.endswith("_s")))
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "bench.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    log(f"[bench] {state.get('card')}: results in {path}")
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             ops: dict, lib_ms, link_bytes: int = 0, **extra):
     """One kernel's record; ``ops`` counts operations by type (keys of
@@ -7113,7 +7566,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="env,build,kernels,main,serve,ragged,"
                             "distance,pq,stream,dist,meshserve,observe,"
-                            "fleet,prims,times")
+                            "fleet,prims,bench,times")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -7174,6 +7627,8 @@ def main() -> int:
         timed("fleet", phase_fleet, torch, state)
     if "prims" in phases:
         timed("prims", phase_prims, torch, args.seed, state)
+    if "bench" in phases:
+        timed("bench", phase_bench, torch, args.seed, state)
     if "main" in phases:
         if "times" in phases:
             records = timed("times", phase_times, torch, state)

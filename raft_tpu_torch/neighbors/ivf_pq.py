@@ -623,12 +623,27 @@ def score_fn(score_mode: str, book_size: int = 256):
             "select": _score_select}[mode]
 
 
+#: one-hot elements a block of :func:`_score_onehot` materializes (256 MiB
+#: of float32)
+_ONEHOT_BLOCK_ELEMS = 1 << 26
+
+
 def _score_onehot(lut, rows):
-    """``Σ_s Σ_j lut[q, s, j]·[rows[q, m, s] == j]`` as one float32
-    contraction: the one-hot operand is exact, and the LUT already holds
-    its ``lut_dtype`` values (:func:`quantize_lut`)."""
-    oh = torch.nn.functional.one_hot(rows.to(torch.int64), lut.shape[2])
-    return torch.einsum("qmsj,qsj->qm", oh.to(torch.float32), lut)
+    """``Σ_s Σ_j lut[q, s, j]·[rows[q, m, s] == j]`` as float32
+    contractions: the one-hot operand is exact, and the LUT already holds
+    its ``lut_dtype`` values (:func:`quantize_lut`). The one-hot operand is
+    built for blocks of rows at a time (at most ``_ONEHOT_BLOCK_ELEMS``
+    elements), so the formulation's memory stays bounded; each row's
+    contraction is the same whatever the block."""
+    q, m, S = rows.shape
+    J = lut.shape[2]
+    step = max(1, _ONEHOT_BLOCK_ELEMS // max(1, q * S * J))
+    cols = torch.arange(J, device=rows.device)
+    out = []
+    for s0 in range(0, m, step):
+        oh = (rows[:, s0:s0 + step, :, None].to(torch.int64) == cols)
+        out.append(torch.einsum("qmsj,qsj->qm", oh.to(torch.float32), lut))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def _score_select(lut, rows):

@@ -27,6 +27,11 @@ from raft_tpu_torch.neighbors import brute_force as t_bf
 from raft_tpu_torch.neighbors import epsilon_neighborhood as te
 from raft_tpu_torch.utils import recall as trecall
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 METRICS = [DistanceType.Haversine, DistanceType.L2SqrtExpanded,
            DistanceType.L2Expanded]

@@ -25,6 +25,11 @@ from raft_tpu_torch.neighbors import ivf_bq as t_bq
 from raft_tpu_torch.ops import beam_search as t_bs
 from raft_tpu_torch.ops import bq_scan as t_scan
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 N, D, Q, DEG = 1200, 128, 8, 16
 
 

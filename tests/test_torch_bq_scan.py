@@ -37,6 +37,11 @@ from raft_tpu_torch.ops.ivf_scan import (
     union_id_planes,
 )
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 N_LISTS, N, D, Q = 12, 1500, 40, 24
 CPU = Resources(device="cpu")
 _INDEXES = {}

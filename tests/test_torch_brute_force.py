@@ -21,6 +21,11 @@ from raft_tpu_torch import Resources
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import brute_force as t_bf
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 RES = Resources(device="cpu")
 METRICS = [DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
            DistanceType.InnerProduct, DistanceType.CosineExpanded,

@@ -32,6 +32,11 @@ from raft_tpu_torch.neighbors import cagra as t_cagra
 from raft_tpu_torch.ops import beam_search as t_bs
 from raft_tpu_torch.ops.bq_scan import auto_query_bits
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N, D = 1200, 64
 

@@ -40,6 +40,11 @@ from raft_tpu_torch.distance.types import DistanceType as TD
 from raft_tpu_torch.solver import LinearAssignmentProblem, linear_assignment
 from raft_tpu_torch.sparse.types import CSR
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 # the module (the package's ``single_linkage`` names the function)
 tsl = importlib.import_module("raft_tpu_torch.cluster.single_linkage")
 CPU = Resources(device="cpu")

@@ -20,6 +20,11 @@ from raft_tpu_torch.neighbors import cluster_join as t_cj
 
 import test_torch_nn_descent as nnd_tests
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 
 

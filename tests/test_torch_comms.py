@@ -26,6 +26,11 @@ from raft_tpu_torch.comms import P, local_comms
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.validation import RaftError
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 R_VALUES = [2, 4, 8]
 
 

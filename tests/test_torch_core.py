@@ -35,6 +35,11 @@ from raft_tpu_torch.neighbors.filters import (
     resolve_filter_words,
 )
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 
 def test_distance_type_values_match_reference():
     from raft_tpu.distance.types import DistanceType as JD

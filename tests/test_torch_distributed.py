@@ -56,6 +56,11 @@ from raft_tpu_torch.distributed import knn as dknn
 from raft_tpu_torch.distributed import sharded_ann
 from raft_tpu_torch.neighbors import brute_force, ivf_bq, ivf_flat, ivf_pq
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = Resources(device="cpu", seed=0)
 R_VALUES = [2, 4, 8]

@@ -15,6 +15,11 @@ from raft_tpu.neighbors import _exact as j_exact
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import _exact as t_exact
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_dedup_candidate_mask_equals_jax(seed):

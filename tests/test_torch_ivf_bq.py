@@ -32,6 +32,11 @@ from raft_tpu_torch.neighbors import brute_force
 from raft_tpu_torch.neighbors import ivf_bq as t_bq
 from raft_tpu_torch.neighbors import refine as t_refine
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 _FIELDS = ("centers", "rotation", "codes", "rnorm", "cfac", "errw",
            "indices", "list_sizes")

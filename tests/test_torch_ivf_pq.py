@@ -36,6 +36,11 @@ from raft_tpu_torch.neighbors import ivf_pq as t_pq
 from raft_tpu_torch.ops import ivf_pq_scan as t_scan
 from raft_tpu_torch.ops.bq_scan import tree_sum
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N_LISTS, DIM, PQ_DIM = 8, 16, 8
 _LUTS = {"f32": (jnp.float32, torch.float32),

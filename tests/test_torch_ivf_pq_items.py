@@ -31,6 +31,11 @@ from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import ivf_pq as t_pq
 from raft_tpu_torch.ops import ivf_pq_scan as t_scan
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 
 def _items(plan, rows: int, group: int):
     """Decode every work item as the kernel does: (list, first pair,

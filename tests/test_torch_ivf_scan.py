@@ -23,6 +23,11 @@ from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.ops import ivf_scan as t_scan
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 N_LISTS, N, D = 12, 900, 16
 SEED_ROWS = 512      # kSeedRows of csrc/ivf_scan_body.cuh
 

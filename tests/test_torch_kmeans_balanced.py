@@ -17,6 +17,11 @@ from raft_tpu_torch import Resources
 from raft_tpu_torch.cluster import kmeans_balanced as t_km
 from raft_tpu_torch.distance.types import DistanceType
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 RES = Resources(device="cpu", seed=0)
 
 

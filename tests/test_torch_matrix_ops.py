@@ -17,6 +17,11 @@ import torch
 from raft_tpu import matrix as jm
 from raft_tpu_torch import matrix as tm
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -45,6 +45,11 @@ from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
 from raft_tpu_torch.serving import BatcherConfig, DynamicBatcher
 from raft_tpu_torch.serving.harness import ManualClock
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 RES = Resources(device="cpu", seed=0)
 N_LISTS, DIM, K = 16, 32, 7
 FAMILIES = ["flat", "pq", "bq"]

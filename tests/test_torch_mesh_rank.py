@@ -40,6 +40,11 @@ from raft_tpu_torch.distributed import bq as dbq
 from raft_tpu_torch.distributed import ivf as divf
 from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 RES = Resources(device="cpu", seed=0)
 N_LISTS, DIM, K, N_PROBES = 16, 32, 7, 6
 

@@ -16,6 +16,11 @@ from raft_tpu_torch import Resources
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import nn_descent as t_nnd
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 
 

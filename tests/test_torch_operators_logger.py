@@ -18,6 +18,11 @@ from raft_tpu.core import operators as jop
 from raft_tpu_torch import core as tcore
 from raft_tpu_torch.core import operators as top
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 # the modules (both packages' ``core.logger`` names the Logger object)
 jlog = importlib.import_module("raft_tpu.core.logger")
 tlog = importlib.import_module("raft_tpu_torch.core.logger")

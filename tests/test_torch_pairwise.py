@@ -33,6 +33,11 @@ from raft_tpu_torch.distance import pairwise as t_pw
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import brute_force as t_bf
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 METRICS = [m for m in DistanceType if m != DistanceType.Precomputed]
 PROB = (DistanceType.KLDivergence, DistanceType.JensenShannon,

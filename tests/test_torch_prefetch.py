@@ -29,6 +29,11 @@ from raft_tpu_torch.serving.prefetch import (
     forecast_plan,
 )
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N_LISTS, N, D = 16, 1600, 8
 TP = tiered.TieredSearchParams(n_probes=4)

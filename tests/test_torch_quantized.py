@@ -21,6 +21,11 @@ from raft_tpu_torch import Resources
 from raft_tpu_torch.distance.types import DistanceType
 from raft_tpu_torch.neighbors import quantized as t_q
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 METRICS = ("L2Expanded", "L2SqrtExpanded", "InnerProduct")
 

@@ -39,6 +39,11 @@ from raft_tpu_torch.neighbors import ivf_pq, tiered
 from raft_tpu_torch.neighbors.filters import BitmapFilter, BitsetFilter
 from raft_tpu_torch.serving import metrics
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N, D, N_LISTS = 600, 16, 16
 FAMILIES = ("ivf_flat", "ivf_bq", "cagra", "tiered", "ivf_pq")

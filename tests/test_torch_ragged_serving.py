@@ -36,6 +36,11 @@ from raft_tpu_torch.serving.harness import (
     ShimExecutor,
 )
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 
 

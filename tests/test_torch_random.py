@@ -19,6 +19,11 @@ from raft_tpu import random as jr
 from raft_tpu_torch import random as tr
 from raft_tpu_torch.random.rng import _key_of
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 N = 20000
 
 

@@ -15,6 +15,11 @@ import torch
 import raft_tpu.core.resources as jres
 from raft_tpu_torch.core import resources as tres
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 
 def _slow_cpu_handles(monkeypatch):
     """A fresh process manager whose handles land on the CPU, each taking

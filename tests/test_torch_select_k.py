@@ -19,6 +19,11 @@ from raft_tpu_torch import Resources
 from raft_tpu_torch.matrix import select_k as t_sel
 from raft_tpu_torch.ops import fused_topk
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 # the module: raft_tpu.matrix's package namespace binds the function
 j_sel = importlib.import_module("raft_tpu.matrix.select_k")
 CPU = Resources(device="cpu")

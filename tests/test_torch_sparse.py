@@ -34,6 +34,11 @@ from raft_tpu_torch.sparse import distance as tdist
 from raft_tpu_torch.sparse import solver
 from raft_tpu_torch.sparse.types import _lexsort, _segment_max, _segment_min
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -33,6 +33,11 @@ from raft_tpu_torch.core import interruptible
 from raft_tpu_torch.io import BinDataset, write_bin
 from raft_tpu_torch.neighbors import _streaming, ivf_bq, ivf_flat, ivf_pq
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 RES = Resources(device="cpu", seed=0)
 N_LISTS = 8
 

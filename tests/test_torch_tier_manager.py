@@ -40,6 +40,11 @@ from raft_tpu_torch.ops.ivf_scan import probe_histogram
 from raft_tpu_torch.serving.harness import ManualClock
 from raft_tpu_torch.serving.placement import PlacementConfig, TierManager
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N_LISTS, N, D = 16, 2000, 16
 SP = ivf_flat.IvfFlatSearchParams(n_probes=3)

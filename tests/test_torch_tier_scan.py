@@ -27,6 +27,11 @@ from raft_tpu_torch.neighbors import tiered as t_tiered
 from raft_tpu_torch.ops import ivf_scan as t_scan
 from raft_tpu_torch.ops import tier_scan as t_tier
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 N_LISTS, N, D, Q = 12, 900, 16, 21
 METRICS = [DistanceType.L2Expanded, DistanceType.InnerProduct]
 

@@ -32,6 +32,11 @@ from raft_tpu_torch.neighbors import ivf_flat, tiered
 from raft_tpu_torch.ops.ivf_scan import probe_histogram
 from raft_tpu_torch.serving.placement import plan_epoch
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 N_LISTS, N, D = 16, 2000, 16
 RES = Resources(device="cpu")
 METRICS = [DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,

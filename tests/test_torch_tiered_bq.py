@@ -31,6 +31,11 @@ from raft_tpu_torch.core.validation import RaftError
 from raft_tpu_torch.neighbors import ivf_bq, tiered
 from raft_tpu_torch.ops import tier_scan
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N_LISTS, N, DIM = 16, 2500, 32
 _FIELDS = ("centers", "rotation", "codes", "rnorm", "cfac", "errw",

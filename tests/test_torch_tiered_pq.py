@@ -30,6 +30,11 @@ from raft_tpu_torch.core.executor import SearchExecutor
 from raft_tpu_torch.core.validation import RaftError
 from raft_tpu_torch.neighbors import ivf_pq, tiered
 
+# one intra-op thread: tier-1 runs the test files in parallel workers,
+# and a torch pool of one thread a core in each worker oversubscribes
+# the cores (about 5x slower under the full run)
+torch.set_num_threads(1)
+
 CPU = Resources(device="cpu")
 N_LISTS, DIM, PQ_DIM = 8, 16, 8
 _FIELDS = ("centers", "rotation", "codebooks", "codes", "indices",
