@@ -6,7 +6,8 @@
                   dist,meshserve,observe,fleet,prims,bench,times]
 
 (add ",profile" to the phases for a torch.profiler breakdown of one
-request of each kind; it is not in the default run)
+request of each kind, and ",lint" for the port's static analyzer; neither
+is in the default run)
 
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit (nothing is caught and passed over):
@@ -449,6 +450,10 @@ non-zero exit (nothing is caught and passed over):
             of each kind, the brute-force request first: device time by
             kernel name, and select_k's split between its memset and its
             kernel at the main path's call and at 64 x 2^20.
+18. lint    (not in the default run; with env alone: --phases env,lint)
+            graftlint (raft_tpu_torch.analysis.lint_root) over the
+            checkout: files, findings, suppressions and seconds; any
+            finding fails the run.
 
 The line before the last is a JSON object with one record per kernel
 (fused_knn, list_major_scan, bq_scan, select_k, beam_search, tier_scan,
@@ -607,6 +612,21 @@ def phase_env(torch) -> dict:
     torch.set_float32_matmul_precision("highest")
     log("[env] allow_tf32 set: matmul=False cudnn=False")
     return {"card": card}
+
+
+def phase_lint() -> None:
+    """The port's static analyzer over this checkout, in-process."""
+    from raft_tpu_torch.analysis import lint_root
+
+    t0 = time.perf_counter()
+    report = lint_root(os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    log(f"[lint] {report.n_files} files, {len(report.findings)} findings, "
+        f"{len(report.suppressions)} suppressions, {dt:.2f} s")
+    for f in report.findings:
+        log(f"[lint] {f.render()}")
+    if not report.ok:
+        fail(f"graftlint: {len(report.findings)} finding(s)")
 
 
 def phase_build() -> None:
@@ -7595,6 +7615,8 @@ def main() -> int:
         return out
 
     state["card"] = phase_env(torch)["card"]
+    if "lint" in phases:
+        timed("lint", phase_lint)
     if "build" in phases:
         timed("build", phase_build)
     if "kernels" in phases:

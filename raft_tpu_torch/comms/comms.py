@@ -570,6 +570,16 @@ def barrier(axis: str = "data", mesh=None):
             for d in m.slot_devices()]
 
 
+def process_barrier() -> None:
+    """Meet every process of the ``torch.distributed`` group; a no-op in
+    a single process. The mesh's :func:`barrier` stays inside one
+    process's slots; this one is the process group's (the checkpoint
+    writers meet at it)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 # ---------------------------------------------------------------------------
 # the handle
 # ---------------------------------------------------------------------------

@@ -38,10 +38,13 @@
    measured gauges, counters and ``modeled: False`` mesh spans of the JAX
    package, under its names.
 
-The JAX package's ``parse_xplane`` and ``core/xplane.py`` read XLA's
-protobuf traces, which this card's profiler does not write: they have no
-counterpart here. Host-side file parsing and registry writes only, apart
-from :func:`session`, which drives the profiler.
+``torch.profiler`` writes Chrome traces. A capture directory that holds
+only an XSpace protobuf (``*.xplane.pb``, what XLA's profilers write)
+is read by :func:`parse_xplane` through the stdlib decoder
+:mod:`raft_tpu_torch.core.xplane`, as in the JAX package: :func:`load_ops`
+takes it when the directory holds no chrome trace. Host-side file
+parsing and registry writes only, apart from :func:`session`, which
+drives the profiler.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core import tracing, xplane
 
 # lifetime counters: ingested captures and the totals the measured and
 # modeled accountings are compared on
@@ -85,6 +88,9 @@ _GPU_ANNOTATION = "gpu_user_annotation"
 _RUNTIME = ("cuda_runtime", "cuda_driver")
 # the executor's entry names (the correlation key)
 MODULE_PREFIX = "rt_"
+# the xplane stats that carry an op's framework path, in order of
+# preference
+_SCOPE_KEYS = ("tf_op", "long_name", "op_name", "scope")
 # the top-level key of a trace file that holds the timed calls
 CALLS_KEY = "raftTimedCalls"
 
@@ -148,7 +154,7 @@ _windows_lock = threading.Lock()
 def window_open() -> bool:
     """Whether any capture window is open (a racy read: a call that
     starts as a window opens may go untimed)."""
-    return bool(_windows)
+    return bool(_windows)  # graftlint: disable=R8(racy read by design: a call that starts as a window opens may go untimed)
 
 
 def note_call(module: str, ev0, ev1) -> None:
@@ -368,20 +374,28 @@ def _is_chrome(path: str) -> bool:
     return path.endswith((".trace.json", ".trace.json.gz"))
 
 
+def _is_xplane(path: str) -> bool:
+    return path.endswith(".xplane.pb")
+
+
 def trace_snapshot(profile_dir: str) -> Dict[str, float]:
-    """``{path: mtime}`` of every ``*.trace.json[.gz]`` in a capture
-    directory (and the ``plugins/profile/<run>/`` nesting of other
-    tools). A caller about to capture takes this snapshot and resolves the
-    capture's own output with :func:`fresh_trace_file`, instead of
-    trusting the newest file, which would be a previous capture's when
-    this one wrote none. Mtimes matter: a rewritten file is fresh."""
+    """``{path: mtime}`` of every ``*.trace.json[.gz]`` and
+    ``*.xplane.pb`` in a capture directory (and the
+    ``plugins/profile/<run>/`` nesting of other tools). A caller about to
+    capture takes this snapshot and resolves the capture's own output
+    with :func:`fresh_trace_file`, instead of trusting the newest file,
+    which would be a previous capture's when this one wrote none. Mtimes
+    matter: a rewritten file is fresh."""
     pats = (os.path.join(profile_dir, "plugins", "profile", "*",
                          "*.trace.json*"),
-            os.path.join(profile_dir, "*.trace.json*"))
+            os.path.join(profile_dir, "*.trace.json*"),
+            os.path.join(profile_dir, "plugins", "profile", "*",
+                         "*.xplane.pb"),
+            os.path.join(profile_dir, "*.xplane.pb"))
     out: Dict[str, float] = {}
     for pat in pats:
         for p in glob.glob(pat):
-            if _is_chrome(p):
+            if _is_chrome(p) or _is_xplane(p):
                 try:
                     out[p] = os.path.getmtime(p)
                 except OSError:   # raced a cleanup: not a capture
@@ -390,14 +404,18 @@ def trace_snapshot(profile_dir: str) -> Dict[str, float]:
 
 
 def _newest(paths, mtimes) -> str:
-    return max(paths, key=lambda p: (mtimes[p], p))
+    """The newest chrome trace among ``paths`` when there is one, else
+    the newest ``.xplane.pb``: the chrome trace stays primary."""
+    pool = [p for p in paths if _is_chrome(p)] or list(paths)
+    return max(pool, key=lambda p: (mtimes[p], p))
 
 
 def fresh_trace_file(profile_dir: str,
                      before: Dict[str, float]) -> Optional[str]:
     """The trace file a just-finished capture produced: the newest path
     that is new, or rewritten, since the :func:`trace_snapshot`
-    ``before``; None when the capture wrote none."""
+    ``before`` (a chrome trace preferred to an ``.xplane.pb``); None when
+    the capture wrote none."""
     now = trace_snapshot(profile_dir)
     fresh = [p for p, m in now.items() if before.get(p) != m]
     if not fresh:
@@ -406,7 +424,9 @@ def fresh_trace_file(profile_dir: str,
 
 
 def latest_trace_file(profile_dir: str) -> Optional[str]:
-    """The newest trace file under ``profile_dir``, or None."""
+    """The newest trace file under ``profile_dir`` (a chrome trace
+    preferred; an ``.xplane.pb`` when the directory holds only that), or
+    None."""
     found = trace_snapshot(profile_dir)
     if not found:
         return None
@@ -416,16 +436,23 @@ def latest_trace_file(profile_dir: str) -> Optional[str]:
 def load_trace(source) -> dict:
     """A Chrome-trace JSON object from ``source``: a dict passes through;
     a ``.json``/``.json.gz`` path is read; a directory yields its newest
-    capture (``FileNotFoundError`` when it holds none)."""
+    chrome capture (``FileNotFoundError`` when it holds none). Chrome
+    traces only: :func:`load_ops` also reads ``.xplane.pb``."""
     if isinstance(source, dict):
         return source
     path = os.fspath(source)
     if os.path.isdir(path):
-        found = latest_trace_file(path)
-        if found is None:
+        found = {p: m for p, m in trace_snapshot(path).items()
+                 if _is_chrome(p)}
+        if not found:
             raise FileNotFoundError(
-                f"no *.trace.json[.gz] capture under {path!r}")
-        path = found
+                f"no *.trace.json[.gz] capture under {path!r} "
+                "(for .xplane.pb captures use load_ops)")
+        path = _newest(found, found)
+    if _is_xplane(path):
+        raise ValueError(
+            f"{path!r} is an xplane protobuf, not a chrome trace — use "
+            "load_ops/parse_xplane")
     if path.endswith(".gz"):
         with gzip.open(path, "rt") as f:
             return json.load(f)
@@ -512,14 +539,56 @@ def parse_chrome_trace(data: dict) -> List[DeviceOp]:
     return out
 
 
+def parse_xplane(source) -> List[DeviceOp]:
+    """The device ops of one serialized XSpace (``.xplane.pb`` path or
+    raw bytes), read by the stdlib decoder :mod:`raft_tpu_torch.core.
+    xplane`, as the JAX package reads them: a device op is an event whose
+    resolved stats carry ``hlo_module`` (module-less host events are
+    skipped), its device the plane's name, its scope the first framework
+    path stat present, times in seconds (the line's ``timestamp_ns`` plus
+    the event's ``offset_ps``)."""
+    if isinstance(source, (bytes, bytearray)):
+        data = bytes(source)
+    else:
+        with open(os.fspath(source), "rb") as f:
+            data = f.read()
+    space = xplane.parse_xspace(data)
+    out: List[DeviceOp] = []
+    for plane in space["planes"]:
+        device = plane["name"]
+        for line in plane["lines"]:
+            t0 = float(line["timestamp_ns"]) * 1e-9
+            for ev in line["events"]:
+                stats = xplane.resolve_stats(ev, plane["stat_metadata"])
+                module = stats.get("hlo_module")
+                if not module or not isinstance(module, str):
+                    continue
+                scope = ""
+                for key in _SCOPE_KEYS:
+                    v = stats.get(key)
+                    if v and isinstance(v, str):
+                        scope = v
+                        break
+                out.append(DeviceOp(
+                    device=device, module=module,
+                    op=plane["event_metadata"].get(
+                        ev["metadata_id"], str(ev["metadata_id"])),
+                    scope=scope,
+                    start_s=t0 + float(ev["offset_ps"]) * 1e-12,
+                    dur_s=float(ev["duration_ps"]) * 1e-12))
+    return out
+
+
 def parse_calls(data: dict) -> List[dict]:
     """The timed calls a :func:`session` stored in its trace."""
     return list(data.get(CALLS_KEY, ()))
 
 
 def load_ops(source) -> Tuple[List[DeviceOp], Optional[str]]:
-    """``(device ops, trace file)`` from anything :func:`load_trace`
-    takes (the file is None for a dict)."""
+    """``(device ops, trace file)`` from a parsed chrome dict (the file
+    is then None), a ``.trace.json[.gz]`` or ``.xplane.pb`` path, or a
+    capture directory (its newest capture: the chrome trace when it
+    holds one, else its ``.xplane.pb``)."""
     ops, _, path = _load(source)
     return ops, path
 
@@ -532,8 +601,12 @@ def _load(source):
             found = latest_trace_file(path)
             if found is None:
                 raise FileNotFoundError(
-                    f"no *.trace.json[.gz] capture under {path!r}")
+                    f"no *.trace.json[.gz] / *.xplane.pb capture under "
+                    f"{path!r}")
             path = found
+        if _is_xplane(path):
+            # an xplane carries no timed calls
+            return parse_xplane(path), [], path
     data = load_trace(source if path is None else path)
     return parse_chrome_trace(data), parse_calls(data), path
 

@@ -80,6 +80,7 @@ def capture(log_dir: str):
         yield cap
 
 
+# graftlint: disable=R0(no counterpart by design: torch.profiler has no remote-capture server)
 def start_server(port: int = 9999):
     """No counterpart: ``torch.profiler`` has no remote-capture server.
     Capture from outside the process through the exporter's ``/profile``
@@ -335,7 +336,7 @@ class SpanRecorder:
 
     @property
     def capacity(self) -> int:
-        return self._buf.maxlen
+        return self._buf.maxlen  # graftlint: disable=R8(deque reference never rebinds; maxlen is immutable)
 
     @property
     def dropped(self) -> int:

@@ -490,11 +490,11 @@ __device__ __forceinline__ void merge_insert(float* ld, int* li, int k,
     warp_insert(ld, li, k, v, id, valid);
 }
 
-__global__ void merge_ragged_kernel(const float* __restrict__ pd,
-                                    const int* __restrict__ pi, int k,
-                                    int epilog, const int* __restrict__ row_off,
-                                    int off_stride, float* __restrict__ outd,
-                                    int* __restrict__ outi) {
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    merge_ragged_kernel(const float* __restrict__ pd,
+                        const int* __restrict__ pi, int k, int epilog,
+                        const int* __restrict__ row_off, int off_stride,
+                        float* __restrict__ outd, int* __restrict__ outi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* lists_d = reinterpret_cast<float*>(smem_raw);

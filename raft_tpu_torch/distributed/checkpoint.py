@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from raft_tpu_torch.comms.comms import Comms
+from raft_tpu_torch.comms.comms import Comms, process_barrier
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.serialize import (
     check_version,
@@ -238,12 +238,6 @@ def _process() -> tuple:
     return 0, 1
 
 
-def _barrier() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        dist.barrier()
-
-
 def _save_parts(dirpath, version: int, comms: Comms, sharded, meta_scalars,
                 meta_arrays) -> None:
     """Write this process's part (+ meta from rank 0), then meet the
@@ -270,7 +264,7 @@ def _save_parts(dirpath, version: int, comms: Comms, sharded, meta_scalars,
                 serialize_scalar(fh, int(s), np.int32)
             for a in meta_arrays:
                 serialize_array(fh, a)
-    _barrier()
+    process_barrier()
 
 
 def _load_parts(dirpath, version: int, what: str, n_sharded: int,

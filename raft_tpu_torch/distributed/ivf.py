@@ -153,10 +153,12 @@ def place_dealt(a: torch.Tensor, perm: np.ndarray, comms: Comms) -> Slots:
     r = comms.size
     n_local = len(perm) // r
     devs = comms.mesh.slot_devices()
+    # one copy of the permutation, not one a rank
+    rows_all = torch.as_tensor(perm[:r * n_local], dtype=torch.int64,
+                               device=a.device)
     blocks = {}
     for rank in range(r):
-        rows = torch.as_tensor(perm[rank * n_local:(rank + 1) * n_local],
-                               dtype=torch.int64, device=a.device)
+        rows = rows_all[rank * n_local:(rank + 1) * n_local]
         blocks[rank] = a.index_select(0, rows)
         nbytes = blocks[rank].numel() * blocks[rank].element_size()
         tracing.max_counter("distributed.build.peak_deal_block_bytes",

@@ -220,7 +220,7 @@ class DynamicBatcher:
         :meth:`close`; unsupported index/params/filter combinations
         fail here, synchronously."""
         # a racy fast-fail: the check that decides re-runs under _cond
-        if self._closing:
+        if self._closing:  # graftlint: disable=R8(benign racy fast-fail; the authoritative check re-runs under _cond before enqueue)
             raise ShutDown("batcher is closed")
         now = self._clock.now()
         if deadline is None:
